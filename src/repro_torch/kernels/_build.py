@@ -1,0 +1,97 @@
+"""Builds the port's CUDA kernels with ``nvcc`` and loads them with ``ctypes``.
+
+Each ``repro_torch/csrc/<name>.cu`` is compiled on its own into
+``build/kernels/<name>-<hash>.so`` at the repository root (``.gitignore``
+lists ``build/``), for ``sm_90a``, at first use.  The hash covers the
+source and the flags, so an edited source is rebuilt and an unchanged one
+is reused.  The C entry points take raw device pointers and the CUDA
+stream, launch, and return ``cudaGetLastError()``; the Python wrappers
+raise when that is not 0.  ``nvcc``'s ``-Xptxas -v`` report (registers,
+shared memory, spills) is kept beside each library as ``<name>-<hash>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                           "port's CUDA kernels are built on the machine that "
+                           "runs them")
+    return nvcc
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: list[str] | None = None) -> dict[str, Path]:
+    """Compile every named source (default: all) that has no current
+    library, one ``nvcc`` process per source, all started together.
+    Returns ``{name: library path}``; raises with the compiler's output
+    when a build fails."""
+    names = sources() if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _target(n) for n in names}
+    procs = {}
+    for name, so in todo.items():
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        log = open(so.with_suffix(".log"), "w")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT), tmp, so, log)
+    failed = []
+    for name, (proc, tmp, so, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, so)
+        else:
+            failed.append(f"{name}: nvcc exit {rc}\n"
+                          f"{so.with_suffix('.log').read_text()}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return todo
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for the current build of ``name``."""
+    return _target(name).with_suffix(".log").read_text()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build([name])[name]))
+        return lib

@@ -1,0 +1,321 @@
+"""Shared neural building blocks — the port of ``repro.models.nn``.
+
+Init functions return nested dicts of tensors drawn on the CPU from a
+``torch.Generator``; apply functions are plain functions on tensors.
+
+The KV caches are updated IN PLACE (the reference returns new arrays): a
+cache is a dict of tensors, and each append writes its K/V rows, page-table
+entries, free count and positions into them, which saves a copy of the whole
+cache per layer per step.  Where the reference relies on JAX clamping an
+out-of-range gather or dropping an out-of-range scatter write, the port
+clamps and masks explicitly (``_take``, ``_scatter_rows``) and gets the
+same result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import layers as L
+from repro_torch.core.layers import MPOConfig
+from repro_torch.kernels import decode_attention as DA
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+
+def init_rmsnorm(dim: int) -> dict:
+    return {"scale": torch.ones(dim)}
+
+
+def apply_rmsnorm(params, x, eps: float = 1e-6):
+    # variance in f32, normalize/scale in the compute dtype (as the reference)
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * params["scale"].to(x.dtype)
+
+
+def init_layernorm(dim: int) -> dict:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def apply_layernorm(params, x, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return ((x - mu.to(x.dtype)) * inv * params["scale"].to(x.dtype)
+            + params["bias"].to(x.dtype))
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S).  f32 inside,
+    cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freq               # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention (GQA + softcap + qk-norm)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    attn_softcap: float | None = None
+    causal: bool = True
+    use_rope: bool = True
+
+
+def init_attention(gen: torch.Generator, cfg: AttnCfg, mpo: MPOConfig) -> dict:
+    d, h, kvh, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # a projection is tensor-parallel only if its HEAD count divides the
+    # shard multiple; that choice sets the factorization, so it is kept
+    q_ok = mpo.shard_multiple <= 1 or h % mpo.shard_multiple == 0
+    kv_ok = mpo.shard_multiple <= 1 or kvh % mpo.shard_multiple == 0
+    p = {
+        "wq": L.init_linear(gen, d, h * dh, cfg=mpo, kind="attn", sharded_out=q_ok),
+        "wk": L.init_linear(gen, d, kvh * dh, cfg=mpo, kind="attn", sharded_out=kv_ok),
+        "wv": L.init_linear(gen, d, kvh * dh, cfg=mpo, kind="attn", sharded_out=kv_ok),
+        "wo": L.init_linear(gen, h * dh, d, cfg=mpo, kind="attn", sharded_in=q_ok,
+                            scale=(h * dh) ** -0.5),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(dh)
+        p["k_norm"] = init_rmsnorm(dh)
+    return p
+
+
+def _split_heads(x, n, dh):
+    return x.reshape(x.shape[:-1] + (n, dh))
+
+
+def attention_scores(q, k, cfg: AttnCfg, mask):
+    """Grouped-query softmax weights without repeating K.
+
+    q: (B,Sq,H,Dh), k: (B,Sk,KV,Dh) -> (B,KV,G,Sq,Sk) f32 (H = KV*G)."""
+    b, sq, h, dh = q.shape
+    g = h // cfg.num_kv_heads
+    qg = q.reshape(b, sq, cfg.num_kv_heads, g, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(cfg.head_dim)
+    if cfg.attn_softcap:
+        c = cfg.attn_softcap
+        scores = c * torch.tanh(scores / c)
+    scores = torch.where(mask[:, :, None], scores, DA.MASK_VALUE)
+    return torch.softmax(scores.float(), dim=-1)
+
+
+def causal_mask(sq: int, sk: int, *, window: int | None = None, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(1,1,Sq,Sk) boolean; query i attends key j iff j <= i+offset (and
+    i+offset-j < window for local attention)."""
+    qi = torch.arange(sq, device=device)[:, None] + offset
+    kj = torch.arange(sk, device=device)[None, :]
+    m = kj <= qi
+    if window is not None:
+        m = m & (qi - kj < window)
+    return m[None, None]
+
+
+# --------------------------------------------------------------------------
+# cache updates with the reference's out-of-range semantics
+# --------------------------------------------------------------------------
+
+
+def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``arr[idx]`` as JAX gathers: a negative index wraps once, and what is
+    still out of range is clamped to the nearest end."""
+    n = arr.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return arr[idx]
+
+
+def _scatter_rows(flat: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+                  keep: torch.Tensor) -> None:
+    """``flat[rows[i]] = vals[i]`` where ``keep[i]``; the other writes are
+    dropped, as JAX drops an out-of-range scatter write.
+
+    Without a host sync: a dropped write goes to row 0 with the value row 0
+    holds after the kept writes, so every write to row 0 agrees and the
+    result does not depend on their order."""
+    vals = vals.to(flat.dtype)
+    rows = torch.where(keep, rows, torch.zeros_like(rows))
+    hit = keep & (rows == 0)
+    first = vals.index_select(0, hit.int().argmax().reshape(1))[0]   # no host sync
+    final0 = torch.where(hit.any(), first, flat[0])
+    vals = torch.where(keep.view(-1, *[1] * (vals.dim() - 1)), vals, final0)
+    flat.index_put_((rows,), vals)
+
+
+def _paged_prefill_append(cache, k, v):
+    """Write a start-0 prompt's K/V into freshly allocated pages, in place.
+
+    Prefill always begins at position 0, so allocation pops ``ceil(s / ps)``
+    pages per slot off the free-list stack."""
+    b, s = k.shape[0], k.shape[1]
+    kp, vp = cache["k_pages"], cache["v_pages"]
+    ps = kp.shape[1]
+    npg = -(-s // ps)                              # pages per slot
+    pad = npg * ps - s
+    kq = F.pad(k, (0, 0, 0, 0, 0, pad)).to(kp.dtype)
+    vq = F.pad(v, (0, 0, 0, 0, 0, pad)).to(vp.dtype)
+    rank = torch.arange(b * npg, device=k.device)
+    pids = _take(cache["free_list"], cache["free_count"] - 1 - rank).reshape(b, npg)
+    kp[pids.reshape(-1).long()] = kq.reshape(b * npg, ps, *k.shape[2:])
+    vp[pids.reshape(-1).long()] = vq.reshape(b * npg, ps, *v.shape[2:])
+    cache["page_table"][:, :npg] = pids
+    cache["free_count"].sub_(b * npg)
+    cache["pos"].add_(s)
+    return cache
+
+
+def _paged_decode_append(cache, k, v):
+    """Append one (KV, Dh) row per slot at its own position, in place,
+    allocating a fresh page when a slot crosses a page boundary.  Slots past
+    capacity neither allocate nor write."""
+    b = k.shape[0]
+    kp, vp, table = cache["k_pages"], cache["v_pages"], cache["page_table"]
+    pos = cache["pos"]                             # (B,)
+    p_total, ps = kp.shape[0], kp.shape[1]
+    mp = table.shape[1]
+    oob = pos >= mp * ps
+    lp = torch.clamp(pos // ps, max=mp - 1).long()  # logical page (clamped)
+    off = pos % ps
+    need = (off == 0) & ~oob                       # page-boundary slots
+    rank = torch.cumsum(need.int(), 0) - 1
+    fresh = _take(cache["free_list"], cache["free_count"] - 1 - rank)
+    rows = torch.arange(b, device=k.device)
+    table[rows, lp] = torch.where(need, fresh, table[rows, lp])
+    flat_row = table[rows, lp].long() * ps + off
+    _scatter_rows(kp.view(p_total * ps, *kp.shape[2:]), flat_row, k[:, 0], ~oob)
+    _scatter_rows(vp.view(p_total * ps, *vp.shape[2:]), flat_row, v[:, 0], ~oob)
+    cache["free_count"].sub_(need.sum().to(cache["free_count"].dtype))
+    pos.add_(1)
+    return cache
+
+
+def _paged_attention(params, q, k, v, cache, cfg: AttnCfg, mpo: MPOConfig,
+                     mask, phase: str):
+    """Self-attention over a paged KV cache.  Prefill attends over the
+    in-hand prompt K/V; decode appends one row per slot and runs the flash
+    kernel (its plain version for CPU tensors)."""
+    b, s = q.shape[0], q.shape[1]
+    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if s > 1:
+        _paged_prefill_append(cache, k, v)
+        w = attention_scores(q, k, cfg, mask[..., :s])
+        y = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
+    else:
+        _paged_decode_append(cache, k, v)
+        table = cache["page_table"]
+        ps, mp = cache["k_pages"].shape[1], table.shape[1]
+        lengths = torch.clamp(cache["pos"], max=mp * ps).to(torch.int32)
+        bias = torch.where(mask[:, 0, 0], 0.0, DA.MASK_VALUE).float().contiguous()
+        y = DA.flash_decode_attention(
+            q[:, 0].reshape(b, kvh, h // kvh, dh).contiguous(), cache["k_pages"],
+            cache["v_pages"], table, lengths, bias, softcap=cfg.attn_softcap)
+        y = y[:, None]                             # (B, 1, KV, G, Dh)
+    y = y.reshape(b, s, h * dh)
+    return L.apply_linear(params["wo"], y, cfg=mpo, phase=phase), cache
+
+
+def apply_attention(params, x, cfg: AttnCfg, mpo: MPOConfig, *, positions, mask,
+                    cache=None, phase: str = "train"):
+    """Returns (y, cache).
+
+    ``cache``: one layer's dense ring buffer ``dict(k, v, pos)`` with per-slot
+    positions, or its paged form (k_pages / v_pages / page_table / free_list
+    / free_count / pos, see ``transformer.init_cache(paged=True)``); either
+    is updated in place.  ``phase`` feeds the engine's per-matrix planning."""
+    b, s = x.shape[0], x.shape[1]
+    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _split_heads(L.apply_linear(params["wq"], x, cfg=mpo, phase=phase), h, dh)
+    k = _split_heads(L.apply_linear(params["wk"], x, cfg=mpo, phase=phase), kvh, dh)
+    v = _split_heads(L.apply_linear(params["wv"], x, cfg=mpo, phase=phase), kvh, dh)
+    if cfg.qk_norm:
+        q = apply_rmsnorm(params["q_norm"], q)
+        k = apply_rmsnorm(params["k_norm"], k)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if cache is not None and "k_pages" in cache:
+        return _paged_attention(params, q, k, v, cache, cfg, mpo, mask, phase)
+    if cache is not None:
+        kc, vc, idx = cache["k"], cache["v"], cache["pos"]
+        max_len = kc.shape[1]
+        if s == 1:
+            # one row per slot at its own position; a slot past max_len
+            # writes nothing
+            rows = torch.arange(b, device=x.device) * max_len + idx
+            for c, new in ((kc, k), (vc, v)):
+                _scatter_rows(c.view(b * max_len, *c.shape[2:]), rows, new[:, 0],
+                              idx < max_len)
+        else:
+            # every row starts at row 0's offset, clamped so the slice fits
+            # (the reference's dynamic_update_slice)
+            if s > max_len:
+                raise ValueError(f"prompt of {s} tokens exceeds the cache's {max_len}")
+            at = torch.clamp(idx[0], 0, max_len - s) + torch.arange(s, device=x.device)
+            kc.index_copy_(1, at, k.to(kc.dtype))
+            vc.index_copy_(1, at, v.to(vc.dtype))
+        idx.add_(s)
+        k, v = kc, vc
+    w = attention_scores(q, k, cfg, mask)          # (B,KV,G,Sq,Sk)
+    y = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v).reshape(b, s, h * dh)
+    return L.apply_linear(params["wo"], y, cfg=mpo, phase=phase), cache
+
+
+# --------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU / squared-ReLU / plain GELU)
+# --------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str,
+             mpo: MPOConfig) -> dict:
+    p = {"w_up": L.init_linear(gen, d_model, d_ff, cfg=mpo, kind="ffn",
+                               sharded_out=True),
+         "w_down": L.init_linear(gen, d_ff, d_model, cfg=mpo, kind="ffn",
+                                 sharded_in=True, scale=d_ff ** -0.5)}
+    if act in ("silu", "gelu"):  # gated variants (SwiGLU / GeGLU)
+        p["w_gate"] = L.init_linear(gen, d_model, d_ff, cfg=mpo, kind="ffn",
+                                    sharded_out=True)
+    return p
+
+
+def apply_mlp(params, x, act: str, mpo: MPOConfig, phase: str = "train"):
+    up = L.apply_linear(params["w_up"], x, cfg=mpo, phase=phase)
+    if act == "silu":
+        h = F.silu(L.apply_linear(params["w_gate"], x, cfg=mpo, phase=phase)) * up
+    elif act == "gelu":
+        g = L.apply_linear(params["w_gate"], x, cfg=mpo, phase=phase)
+        h = F.gelu(g, approximate="tanh") * up
+    elif act == "relu2":
+        h = torch.square(F.relu(up))
+    elif act == "gelu_plain":
+        h = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(act)
+    return L.apply_linear(params["w_down"], h, cfg=mpo, phase=phase)
