@@ -20,8 +20,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
 4. parity — float32 bert-base: greedy tokens of paged + factorized, paged +
    weight cache and the dense cache must be identical; then the smoke model
    on the card against the same model on the CPU (plain versions).
-5. ``{"kernels": [...]}`` — one entry per kernel of the path.
-6. last line: ``{"ok": true, "device": {...}}``.
+5. train — (a) the MPO-linear cores-backward kernel against its plain
+   version at bert-base's attention, w_up and w_down shapes, M = 2048 (16 x
+   128 tokens) and a ragged M, both dtypes, with its times, and the forward
+   kernel against its plain version at M = 2048 over each matrix's cores and
+   their i/j-swapped form (the dL/dx product), both dtypes; (b) full-width
+   bert-base, bf16, ``Session.finetune(mode="lfa", seq_len=128,
+   batch_size=16, steps=8)`` on the card: launch counts zeroed just before
+   and read just after, finite losses, the LFA parameter counts, central
+   cores bit-unchanged, ms per step; (c) the float32 smoke model with every
+   matmul in the kernel mode: one train step's gradients and a 3-step loss
+   trajectory on the card against the same on the CPU (plain versions).
+6. ``{"kernels": [...]}`` — one entry per kernel of the paths.
+7. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -53,6 +64,13 @@ TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 PATH_TOL = 5e-2
 # smoke model on the card vs on the CPU, float32 logits
 SMOKE_TOL = 1e-4
+# fine-tuning (phase 5): full-width bert-base LFA, as the paper trains it
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 128, 8
+LFA_COUNTS = (2_629_268, 7_399_060)              # trainable, total (reference's count)
+# card vs CPU for the float32 smoke model's train step: both sum in f32 in
+# another order, and three AdamW steps compound it -> 1e-4 of each
+# gradient's largest magnitude, 1e-4 relative on the losses
+TRAIN_TOL = 1e-4
 PEAK_BYTES_S = 3.35e12                           # H100 SXM HBM3
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 non-tensor
 
@@ -137,34 +155,38 @@ def main() -> int:
     mats = {"attn": cores_to_list(layer0["wq"]), "w_up": cores_to_list(layer0["w_up"]),
             "w_down": cores_to_list(layer0["w_down"])}
     results = {}
+
+    def fwd_case(mname, cores32, m, dtype, phase="kernels"):
+        tdt = getattr(torch, dtype)
+        cores = [c.to(tdt).contiguous() for c in cores32]
+        i_dim = math.prod(c.shape[1] for c in cores)
+        j_dim = math.prod(c.shape[2] for c in cores)
+        x = torch.randn(m, i_dim, generator=gen).to(dev, tdt)
+        y = MK.mpo_linear(cores, x)
+        torch.cuda.synchronize()
+        ref = MK.mpo_linear_plain(cores, x)
+        err = check("mpo_linear_fwd", y, ref, dtype, f"{mname} M={m} {dtype}")
+        isz = x.element_size()
+        nbytes = isz * (x.numel() + sum(c.numel() for c in cores) + m * j_dim)
+        ops = 2 * m * i_dim * j_dim
+        w = mpo.reconstruct(cores)
+        rec = dict(
+            kernel="mpo_linear_fwd", matrix=mname, shapes=[list(c.shape) for c in cores],
+            M=m, dtype=dtype, max_abs_err=err, tol=TOL[dtype],
+            kernel_ms=timed(lambda: MK.mpo_linear(cores, x)),
+            plain_ms=timed(lambda: MK.mpo_linear_plain(cores, x)),
+            library_ms=timed(lambda: torch.matmul(x, mpo.reconstruct(cores))),
+            dense_matmul_ms=timed(lambda: torch.matmul(x, w)),
+            bound_ms=1e3 * max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]),
+            bound_by="bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_OPS_S[dtype]
+            else "operations")
+        emit(phase=phase, **rec)
+        return rec
+
     for mname, cores32 in mats.items():
         for m in (8, BATCH * PROMPT):
             for dtype in ("bfloat16", "float32"):
-                tdt = getattr(torch, dtype)
-                cores = [c.to(tdt).contiguous() for c in cores32]
-                i_dim = math.prod(c.shape[1] for c in cores)
-                j_dim = math.prod(c.shape[2] for c in cores)
-                x = torch.randn(m, i_dim, generator=gen).to(dev, tdt)
-                y = MK.mpo_linear(cores, x)
-                torch.cuda.synchronize()
-                ref = MK.mpo_linear_plain(cores, x)
-                err = check("mpo_linear_fwd", y, ref, dtype, f"{mname} M={m} {dtype}")
-                isz = x.element_size()
-                nbytes = isz * (x.numel() + sum(c.numel() for c in cores) + m * j_dim)
-                ops = 2 * m * i_dim * j_dim
-                w = mpo.reconstruct(cores)
-                rec = dict(
-                    kernel="mpo_linear_fwd", matrix=mname, shapes=[list(c.shape) for c in cores],
-                    M=m, dtype=dtype, max_abs_err=err, tol=TOL[dtype],
-                    kernel_ms=timed(lambda: MK.mpo_linear(cores, x)),
-                    plain_ms=timed(lambda: MK.mpo_linear_plain(cores, x)),
-                    library_ms=timed(lambda: torch.matmul(x, mpo.reconstruct(cores))),
-                    dense_matmul_ms=timed(lambda: torch.matmul(x, w)),
-                    bound_ms=1e3 * max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]),
-                    bound_by="bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_OPS_S[dtype]
-                    else "operations")
-                results[("mpo", mname, m, dtype)] = rec
-                emit(phase="kernels", **rec)
+                results[("mpo", mname, m, dtype)] = fwd_case(mname, cores32, m, dtype)
 
     def flash_case(kv, g, dh, dtype, softcap, lens):
         tdt = getattr(torch, dtype)
@@ -343,9 +365,140 @@ def main() -> int:
         fail(f"smoke model on the card differs from the CPU: logits {sdiff}, tokens "
              f"{smoke['cuda'][1].tolist()} vs {smoke['cpu'][1].tolist()}")
 
-    # ---- 5. the kernels line ----
+    # ---- 5. training ----
+    from repro_torch.core import lightweight
+    from repro_torch.data.pipeline import SyntheticCLS
+    from repro_torch.optim import optimizers as OPT
+    from repro_torch.train import steps as TS
+
+    def bwd_case(mname, cores32, m, dtype):
+        tdt = getattr(torch, dtype)
+        cores = [c.to(tdt).contiguous() for c in cores32]
+        i_dim = math.prod(c.shape[1] for c in cores)
+        j_dim = math.prod(c.shape[2] for c in cores)
+        x = torch.randn(m, i_dim, generator=gen).to(dev, tdt)
+        dy = torch.randn(m, j_dim, generator=gen).to(dev, tdt)
+        got = MK.mpo_linear_bwd_cores(cores, x, dy)
+        again = MK.mpo_linear_bwd_cores(cores, x, dy)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"mpo_linear_bwd_cores {mname} M={m} {dtype}: two runs differ")
+        ref = MK.mpo_linear_bwd_cores_plain(cores, x, dy)
+        err = max(check("mpo_linear_bwd_cores", g, r, dtype, f"{mname} M={m} {dtype} core {k}")
+                  for k, (g, r) in enumerate(zip(got, ref)))
+        rel = max(((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                  for g, r in zip(got, ref))
+
+        def library():
+            cs = [c.detach().requires_grad_() for c in cores]
+            return torch.autograd.grad(x @ mpo.reconstruct(cs), cs, dy)
+
+        shapes = [tuple(c.shape) for c in cores]
+        split = MK._bwd_plan(tuple(shapes))[0]
+        blocks = MK.bwd_blocks(shapes, torch.cuda.get_device_properties(0).multi_processor_count)
+        ds = cores[split].shape[0]
+        isz = x.element_size()
+        ncore = sum(c.numel() for c in cores)
+        nbytes = isz * (x.numel() + dy.numel() + 2 * ncore)
+        ops = 2 * m * i_dim * j_dim + 4 * ds * i_dim * j_dim   # x^T dy, then dL and dR
+        rec = dict(kernel="mpo_linear_bwd_cores", matrix=mname,
+                   shapes=[list(c.shape) for c in cores], M=m, dtype=dtype, split=split,
+                   blocks=blocks, workspace_bytes=4 * MK.bwd_workspace(shapes, blocks),
+                   dense_dw_f32_bytes=4 * i_dim * j_dim,
+                   max_abs_err=err, max_rel_err=rel, tol=TOL[dtype], deterministic=True,
+                   kernel_ms=timed(lambda: MK.mpo_linear_bwd_cores(cores, x, dy)),
+                   plain_ms=timed(lambda: MK.mpo_linear_bwd_cores_plain(cores, x, dy)),
+                   library_ms=timed(library),
+                   bound_ms=1e3 * max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]),
+                   bound_by="bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_OPS_S[dtype]
+                   else "operations")
+        emit(phase="train", **rec)
+        return rec
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for mname, cores32 in mats.items():
+        for m in (37, tokens):
+            for dtype in ("bfloat16", "float32"):
+                results[("bwd", mname, m, dtype)] = bwd_case(mname, cores32, m, dtype)
+    # the forward kernel at the training size, over W (the forward and its
+    # recomputation under remat) and over the i/j-swapped cores of W^T (dL/dx)
+    for mname, cores32 in mats.items():
+        for form, cs in (("W", cores32), ("W^T", mpo.transpose_cores(cores32))):
+            for dtype in ("bfloat16", "float32"):
+                results[("mpo", mname, form, tokens, dtype)] = fwd_case(
+                    f"{mname} {form}", cs, tokens, dtype, phase="train")
+
+    # (b) full-width bert-base, LFA, on the card
+    del s32, runs
+    tsess = Session.init("bert-base", smoke=False, seed=SEED)
+    central = {k: v.clone() for k, v in tsess.model.state_dict().items() if k.endswith(".central")}
+    ft = dict(mode="lfa", seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, log_every=1)
+    tsess.finetune(steps=1, seed=SEED + 1, **ft)            # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_counters = counters + ((MK.mpo_linear_bwd_cores, "launches"),
+                                 (MK.mpo_linear_bwd_cores_plain, "calls"))
+    for fn, attr in train_counters:
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    rep = tsess.finetune(steps=TRAIN_STEPS, seed=SEED, **ft)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    tl = {"mpo_linear_fwd": MK.mpo_linear.launches,
+          "mpo_linear_bwd_cores": MK.mpo_linear_bwd_cores.launches}
+    plain = MK.mpo_linear_plain.calls + MK.mpo_linear_bwd_cores_plain.calls
+    losses = [h["loss"] for h in rep["history"]]
+    unchanged = all(torch.equal(v, tsess.model.state_dict()[k]) for k, v in central.items())
+    emit(phase="train", arch="bert-base", dtype=tsess.cfg.dtype, mode="lfa", remat=tsess.cfg.remat,
+         batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
+         ms_per_step=1e3 * train_s / TRAIN_STEPS, tokens_per_s=tokens * TRAIN_STEPS / train_s,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), losses=losses,
+         grad_norms=[h["grad_norm"] for h in rep["history"]],
+         trainable=rep["trainable"], total=rep["total"], reduction=rep["reduction"],
+         launches=tl, launches_per_step={k: v / TRAIN_STEPS for k, v in tl.items()},
+         plain_calls=plain, central_cores=len(central), central_unchanged=unchanged)
+    if min(tl.values()) == 0 or plain:
+        fail(f"fine-tuning: kernel launches {tl}, plain-version calls {plain}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"fine-tuning: losses {losses}")
+    if (rep["trainable"], rep["total"]) != LFA_COUNTS:
+        fail(f"fine-tuning: {rep['trainable']} of {rep['total']} trainable, "
+             f"expected {LFA_COUNTS}")
+    if not central or not unchanged:
+        fail("fine-tuning: a central core changed under LFA")
+    path_launches["mpo_linear_fwd"] += tl["mpo_linear_fwd"]
+    path_launches["mpo_linear_bwd_cores"] = tl["mpo_linear_bwd_cores"]
+    del tsess
+
+    # (c) the float32 smoke model in the kernel mode: card vs CPU
+    def grads_and_losses(device):
+        ss = Session.init(scfg, seed=SEED, device=device)
+        seen = []
+        rec_opt = OPT.Optimizer(init=lambda p: OPT.OptState(0, None),
+                                update=lambda g, st, p: seen.append(g) or st)
+        step = TS.make_train_step(ss.model, rec_opt, TS.make_cls_loss(ss.cfg))
+        batch = SyntheticCLS(ss.cfg.vocab_size, 16, 4, seed=SEED).batch(0)
+        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        step(TS.TrainState(ss.params, rec_opt.init(ss.params)), batch)
+        grads = [g.detach().cpu() for g in lightweight.leaves(seen[0])]
+        hist = ss.finetune(steps=3, seq_len=16, batch_size=4, log_every=1)["history"]
+        return grads, [h["loss"] for h in hist]
+
+    card, cpu = grads_and_losses("cuda"), grads_and_losses("cpu")
+    gdiff = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(card[0], cpu[0]))
+    ldiff = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+    emit(phase="train", smoke="bert-base", mode="kernel", dtype="float32",
+         card_vs_cpu_grad_rel_diff=gdiff, card_vs_cpu_loss_rel_diff=ldiff,
+         losses_card=card[1], losses_cpu=cpu[1], tol=TRAIN_TOL)
+    if not gdiff <= TRAIN_TOL or not ldiff <= TRAIN_TOL:
+        fail(f"smoke train step on the card differs from the CPU: grads {gdiff}, "
+             f"losses {card[1]} vs {cpu[1]}")
+
+    # ---- 6. the kernels line ----
     mk = results[("mpo", "attn", 8, "bfloat16")]
     fk = results[("flash", "path", "bfloat16")]
+    bk = results[("bwd", "attn", tokens, "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case: dict(
         name=name, route=route, source=source, replaces=replaces,
         launches=path_launches[name], max_abs_err=rec["max_abs_err"],
@@ -358,6 +511,9 @@ def main() -> int:
         entry("flash_decode_attention", "cuda", "src/repro_torch/csrc/decode_attention.cu",
               "src/repro/kernels/decode_attention.py:166", fk,
               "bert-base geometry KV=12 G=1 Dh=64 ps=16, 8 slots at 144 keys, bfloat16"),
+        entry("mpo_linear_bwd_cores", "cuda", "src/repro_torch/csrc/mpo_linear_bwd.cu",
+              "src/repro/kernels/mpo_linear.py:303", bk,
+              f"bert-base attention matrix, M={tokens} (16 x 128 fine-tuning tokens), bfloat16"),
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

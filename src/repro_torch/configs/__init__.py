@@ -8,7 +8,7 @@ import importlib
 from repro_torch.configs.base import ModelConfig, scaled_down
 
 # arch id -> module name; the other architectures of the reference come with
-# their families (ROADMAP.md, Queue 1 item 12)
+# their families (ROADMAP.md, Queue 1 item 7)
 ARCHS = {
     "qwen3-14b": "qwen3_14b",
     "bert-base": "bert_base",

@@ -80,6 +80,18 @@ class ModelConfig:
                 "float16": torch.float16}[self.dtype]
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One workload point: what shape of batch hits the model, and in which
+    phase.  E.g. ``ShapeConfig("serve", "prefill", seq_len=32,
+    global_batch=8)`` describes prefilling 8 prompts of 32 tokens."""
+
+    name: str            # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
 def scaled_down(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
     small = dict(

@@ -10,8 +10,9 @@ four ways:
   reconstruct   contract cores -> dense W, matmul          compute-bound shapes
                 (``mpo.matmul_reconstruct``)
   kernel        fused on-chip rebuild + matmul CUDA        dense-favored shapes on
-                kernel — W never reaches device memory     the card
-                (``kernels.mpo_linear``)
+                kernels, forward and backward — W and dW   the card (serving and
+                never reach device memory                  training alike)
+                (``kernels.mpo_linear.MPOLinearFn``)
   cached        dense W contracted ONCE at serving init    decode: the rebuild is
                 and reused for every step                  amortized to zero
 
@@ -21,7 +22,7 @@ reference's ``interpret`` flag: a plan may resolve to ``kernel`` only for a
 CUDA device, as the reference allows it only when ``interpret`` is False, so
 on the CPU the port makes the reference's interpret-mode decisions exactly.
 Planning is analytic (FLOPs); measured autotuning comes with
-``kernels/autotune`` (ROADMAP.md, Queue 1 item 10).
+``kernels/autotune`` (ROADMAP.md, Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -127,8 +128,9 @@ def _decide(cfg, shapes: tuple, tokens: int, phase: str, device: str,
                               f"{cost_recon} FLOPs at {tokens} tokens")
     if device == "cuda" and kernel_eligible(shapes, dtype=dtype,
                                             train=phase == "train"):
-        return "kernel", ("dense-favored forward-only phase on the card: fuse "
-                          "the rebuild on chip (analytic gate)")
+        what = "fwd+bwd" if phase == "train" else "forward-only"
+        return "kernel", (f"dense-favored {what} phase on the card: fuse the "
+                          "rebuild on chip (analytic gate)")
     return "reconstruct", (f"rebuild+dense {cost_recon} <= chain {cost_fact} "
                            f"FLOPs at {tokens} tokens")
 
@@ -187,8 +189,17 @@ class MPOEngine:
                      dtype_name(dtype))
 
     def _prepare_cores(self, params: dict, dtype) -> list[torch.Tensor]:
+        """The one place the activation-dtype cast and ``freeze_central_grads``
+        happen: a frozen central core is detached, so its gradient is zero
+        (the train step fills None with zeros), as the reference's
+        ``stop_gradient`` makes it."""
         cores = layers.cores_to_list(params["cores"])
-        return cores if dtype is None else [c.to(dtype) for c in cores]
+        if dtype is not None:
+            cores = [c.to(dtype) for c in cores]
+        if self.cfg.freeze_central_grads:
+            mid = len(cores) // 2
+            cores[mid] = cores[mid].detach()
+        return cores
 
     def linear(self, params: dict, x: torch.Tensor, *, transpose: bool = False,
                phase: str = "train") -> torch.Tensor:
@@ -211,8 +222,8 @@ class MPOEngine:
             # the caller passed raw cores: re-decide as a one-shot forward
             plan = self.plan(shapes, tokens, "prefill", x.dtype, x.device)
         if plan.mode == "kernel":
-            from repro_torch.kernels.mpo_linear import mpo_linear
-            return mpo_linear([c.contiguous() for c in cores], x.contiguous())
+            from repro_torch.kernels.mpo_linear import MPOLinearFn
+            return MPOLinearFn.apply(x.contiguous(), *[c.contiguous() for c in cores])
         if plan.mode == "factorized":
             return mpo.apply_mpo(cores, x)
         # "reconstruct" (or a forced "cached" over raw cores: contract now)

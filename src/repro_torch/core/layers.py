@@ -5,7 +5,7 @@ reference's (a factorized matrix is ``{"cores": {"c0": ..., "central": ...}}``,
 a dense one ``{"w": ...}``).  The central MPO core lives under
 ``"central"``, the auxiliary cores under ``"c{k}"``: lightweight
 fine-tuning keys on that naming.  Logical-axis annotations are for meshes
-and come with them (ROADMAP.md, Queue 1 item 13).
+and come with them (ROADMAP.md, Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -46,8 +46,7 @@ class MPOConfig:
     shard_multiple: int = 1
     # which core's legs carry the tensor-parallel sharding: "first" | "central"
     shard_leg: str = "first"
-    # stop gradients into the central cores (training; ROADMAP.md, Queue 1
-    # item 5) — kept so configs compare equal with the reference's
+    # stop gradients into the central cores (the engine detaches them)
     freeze_central_grads: bool = False
 
     def bond_for(self, kind: str) -> int | None:

@@ -12,7 +12,7 @@ Two execution paths for ``y = x @ MPO(W)``:
   * ``reconstruct`` — contract W once, then a dense matmul.
 
 The sequential-SVD decomposition, truncation errors and TT-rounding come
-with conversion and squeezing (ROADMAP.md, Queue 1 item 6).
+with conversion and squeezing (ROADMAP.md, Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -207,11 +207,62 @@ def embed_lookup(cores: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Tens
     return h[..., 0].reshape(*lead, -1)
 
 
+def _deinterleave_perm(n: int) -> list[int]:
+    """(i1, j1, i2, j2, ...) -> (i1..in, j1..jn)."""
+    return [2 * k for k in range(n)] + [2 * k + 1 for k in range(n)]
+
+
+def reconstruct_merged(cores: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The reference's legacy chain staging (rows merged as it goes): the
+    values of ``reconstruct``; the reconstruct-mode backward projects dW
+    into core space through its VJP, as the reference does."""
+    n = len(cores)
+    ins = [c.shape[1] for c in cores]
+    outs = [c.shape[2] for c in cores]
+    acc = cores[0].reshape(-1, cores[0].shape[-1])  # (i1*j1, d1)
+    for c in cores[1:]:
+        acc = (acc @ c.reshape(c.shape[0], -1)).reshape(-1, c.shape[-1])
+    t = acc.reshape([x for k in range(n) for x in (ins[k], outs[k])])
+    return t.permute(_deinterleave_perm(n)).reshape(math.prod(ins), math.prod(outs))
+
+
+def _project_dw(cores: Sequence[torch.Tensor], x: torch.Tensor,
+                dy: torch.Tensor) -> list[torch.Tensor]:
+    """dcores from ``dW = x^T dy`` projected into core space.  ``x`` and
+    ``dy`` come in bf16 and dW leaves in bf16, as the reference's einsum of
+    two bf16 operands does (products exact in f32, one f32 sum, one
+    rounding), then in the cores' dtype through ``reconstruct_merged``."""
+    dw = (x.reshape(-1, x.shape[-1]).float().T
+          @ dy.reshape(-1, dy.shape[-1]).float()).to(x.dtype)
+    with torch.enable_grad():
+        cs = [c.detach().requires_grad_() for c in cores]
+        return list(torch.autograd.grad(reconstruct_merged(cs), cs, dw.to(cores[0].dtype)))
+
+
+class _MatmulReconstruct(torch.autograd.Function):
+    """The reference's ``matmul_reconstruct`` custom VJP: dense forward,
+    backward that recomputes W for ``dx = dy @ W^T`` and projects the
+    bf16-cast ``dW`` into core space (``_mm_recon_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, *cores):
+        ctx.save_for_backward(x, *cores)
+        return x @ reconstruct(list(cores))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *cores = ctx.saved_tensors
+        dx = dy @ reconstruct(cores).T if ctx.needs_input_grad[0] else None
+        dcores = [None] * len(cores)
+        if any(ctx.needs_input_grad[1:]):
+            dcores = _project_dw(cores, x.to(torch.bfloat16), dy.to(torch.bfloat16))
+        return (dx, *dcores)
+
+
 def matmul_reconstruct(x: torch.Tensor, cores: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``x @ reconstruct(cores)`` — the reference's ``matmul_reconstruct``
-    forward.  Its core-space backward comes with training (ROADMAP.md,
-    Queue 1 item 5)."""
-    return x @ reconstruct(list(cores))
+    """``x @ reconstruct(cores)`` — dense forward, core-space backward (the
+    reference's ``matmul_reconstruct``)."""
+    return _MatmulReconstruct.apply(x, *cores)
 
 
 # --------------------------------------------------------------------------

@@ -11,6 +11,9 @@ them the parameters as a nested dict.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterable
+
 import torch
 from torch import nn
 
@@ -27,6 +30,22 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' to "
                            "run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def differentiable(params: Iterable[torch.Tensor]):
+    """Turn on ``requires_grad`` for ``params`` inside the block, off again
+    after it.  Parameters are registered without it, so serving builds no
+    graph; the train step differentiates inside this block, and the
+    optimizer then updates the parameters in place under ``no_grad``."""
+    params = list(params)
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        yield params
+    finally:
+        for p in params:
+            p.requires_grad_(False)
 
 
 class _Tree(nn.Module):
@@ -97,8 +116,8 @@ def _to(tree: dict, device) -> dict:
 
 def build(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
     """The model for ``cfg``; the dense family only in this slice (the others
-    raise, ROADMAP.md Queue 1 item 12)."""
+    raise, ROADMAP.md Queue 1 item 7)."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 12")
+            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7")
     return Model(cfg, seed=seed, device=device)

@@ -1,10 +1,12 @@
-"""Decoder-only transformer LM, dense family — the port of
-``repro.models.transformer``.
+"""Decoder-only transformer LM (and the encoder classifier), dense family —
+the port of ``repro.models.transformer``.
 
 The reference scans the stacked layer params with ``lax.scan``; here the
 stack is a Python loop over the leading layer dim (``share_layers``
-broadcasts the one stored layer).  The MoE and VLM branches come with their
-families (ROADMAP.md, Queue 1 item 12).
+broadcasts the one stored layer).  ``cfg.remat`` recomputes each layer in
+the backward (``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint`` of the scan body) when gradients are being taken.  The
+MoE and VLM branches come with their families (ROADMAP.md, Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as L
@@ -55,7 +58,7 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     along a leading layer dim (one layer when ``share_layers``)."""
     if cfg.family != "dense" or cfg.num_experts:
         raise NotImplementedError(
-            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 12")
+            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7")
     n_stored = 1 if cfg.share_layers else cfg.num_layers
     params = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, cfg=cfg.mpo),
@@ -95,8 +98,14 @@ def _run_stack(cfg: ModelConfig, params, x, *, positions, mask, mask_local,
         # alternating local/global attention: even layers local
         m = mask_local if cfg.local_window is not None and i % 2 == 0 else mask
         cache = None if caches is None else _index(caches, i)
-        x = _layer_fwd(cfg, x, layer, positions=positions, mask=m, cache=cache,
-                       phase=phase)
+        if cfg.remat and cache is None and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                lambda x, layer, m: _layer_fwd(cfg, x, layer, positions=positions,
+                                               mask=m, phase=phase),
+                x, layer, m, use_reentrant=False)
+        else:
+            x = _layer_fwd(cfg, x, layer, positions=positions, mask=m, cache=cache,
+                           phase=phase)
     return x
 
 
@@ -142,6 +151,13 @@ def logits_head(params, hidden, cfg: ModelConfig, *, phase="train"):
 def forward(params, batch, cfg: ModelConfig, *, phase="train"):
     """Teacher-forced forward -> logits (B, S, V)."""
     return _logits(cfg, params, forward_hidden(params, batch, cfg, phase=phase), phase)
+
+
+def forward_cls(params, batch, cfg: ModelConfig):
+    """Sequence classification (paper's GLUE-analog): the first token's
+    final hidden state through the dense ``cls_head`` -> logits (B, C)."""
+    x = forward_hidden(params, batch, cfg, phase="train")
+    return L.apply_linear(params["cls_head"], x[:, 0], cfg=L.DENSE)
 
 
 # --------------------------------------------------------------------------

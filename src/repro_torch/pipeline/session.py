@@ -1,36 +1,48 @@
 """``Session``: the stage-based lifecycle API — the port of
-``repro.pipeline.session``, serving stage.
+``repro.pipeline.session``, fine-tuning and serving stages.
 
     Session.init(cfg, device=...)   fresh MPO-parameterized model
         │
         ▼
+    .finetune(mode="lfa")           trainability mask + masked optimizer +
+        │                           train loop (auxiliary tensors only)
+        ▼
     .serve(batch, max_len)          one-time init_serve (KV cache + cached-W
         │                           contraction) -> prefill/decode handle
         ▼
-    .report()                       compression ratio, params, stage timings
+    .report()                       compression ratio, trainable reduction,
+                                    stage timings
 
-Conversion, fine-tuning and squeezing (``from_dense``, ``finetune``,
-``squeeze``), the serving pool and fleet, and persistence come with later
-slices of the port; those entry points raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item.  The session's device is the card unless the
-caller passes ``device="cpu"``; there is no silent move to the CPU.
+A densified weight-cache snapshot is only valid for the cores it was taken
+from: ``finetune`` bumps the weights version, so a later ``serve``
+re-densifies from the tuned cores.  Conversion and squeezing
+(``from_dense``, ``squeeze``), the serving pool and fleet, and persistence
+come with later slices of the port; those entry points raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.  The session's
+device is the card unless the caller passes ``device="cpu"``; there is no
+silent move to the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import layers as L
 from repro_torch.core import lightweight
 from repro_torch.core.engine import engine_for
+from repro_torch.data.pipeline import SyntheticCLS, make_batch_fn
 from repro_torch.models import model as M
-from repro_torch.train.steps import make_serve_steps
+from repro_torch.optim import optimizers, schedule
+from repro_torch.train.loop import LoopConfig, run_training
+from repro_torch.train.steps import (TrainState, lm_loss, make_cls_loss,
+                                     make_serve_steps, make_train_step)
 
 @dataclasses.dataclass(frozen=True)
 class StageRecord:
@@ -132,6 +144,8 @@ class Session:
         # (batch, max_len, weight_cache, paged, page_size) -> ServeHandle at
         # _version; cleared on every bump so a stale snapshot is never reused
         self._serve: dict[tuple, ServeHandle] = {}
+        self.mask = None                  # last trainability mask
+        self._loss_default: Callable | None = None
 
     @property
     def params(self) -> dict:
@@ -163,26 +177,23 @@ class Session:
 
     @classmethod
     def from_dense(cls, *args, **kwargs):
-        _not_yet("Session.from_dense (Algorithm 1 conversion)", "item 6")
-
-    def finetune(self, *args, **kwargs):
-        _not_yet("Session.finetune (lightweight fine-tuning)", "item 5")
+        _not_yet("Session.from_dense (Algorithm 1 conversion)", "item 2")
 
     def squeeze(self, *args, **kwargs):
-        _not_yet("Session.squeeze (Algorithm 2)", "item 6")
+        _not_yet("Session.squeeze (Algorithm 2)", "item 2")
 
     def serve_pool(self, *args, **kwargs):
-        _not_yet("Session.serve_pool", "item 9")
+        _not_yet("Session.serve_pool", "item 4")
 
     def serve_fleet(self, *args, **kwargs):
-        _not_yet("Session.serve_fleet", "item 9")
+        _not_yet("Session.serve_fleet", "item 4")
 
     def save(self, *args, **kwargs):
-        _not_yet("Session.save", "item 8")
+        _not_yet("Session.save", "item 3")
 
     @classmethod
     def restore(cls, *args, **kwargs):
-        _not_yet("Session.restore", "item 8")
+        _not_yet("Session.restore", "item 3")
 
     # ---- bookkeeping ----
 
@@ -190,13 +201,105 @@ class Session:
         self.stage = stage
         self._records.append(StageRecord(stage, time.perf_counter() - t0, info))
 
+    def _bump(self):
+        """Core mutation: any weight-cache snapshot is now stale."""
+        self._version += 1
+        self._serve.clear()
+
     @property
     def weights_version(self) -> int:
         return self._version
 
+    # ---- task defaults (cls vs lm) ----
+
     @property
     def task(self) -> str:
         return "cls" if self.cfg.num_classes else "lm"
+
+    def _default_loss_fn(self) -> Callable:
+        if self._loss_default is None:
+            self._loss_default = (
+                make_cls_loss(self.cfg) if self.task == "cls"
+                else lambda p, b: lm_loss(self.model, p, b))
+        return self._loss_default
+
+    def _default_batch_fn(self, seq_len: int, batch_size: int, seed: int) -> Callable:
+        if self.task == "cls":
+            ds = SyntheticCLS(self.cfg.vocab_size, seq_len, batch_size,
+                              num_classes=self.cfg.num_classes, seed=seed)
+            return ds.batch
+        shape = ShapeConfig("pipeline", "train", seq_len, batch_size)
+        return make_batch_fn(self.cfg, shape, seed=seed)
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    # ---- finetune ----
+
+    def finetune(self, *, mode: str = "lfa", steps: int = 60,
+                 lr: float | Callable = 2e-3, warmup: int = 0,
+                 weight_decay: float = 0.0, seq_len: int = 32,
+                 batch_size: int = 16, seed: int = 0, mask=None,
+                 optimizer=None, loss_fn: Callable | None = None,
+                 batch_fn: Callable | None = None, ckpt_dir: str | None = None,
+                 log_every: int = 50, donate: bool = False,
+                 verbose: bool = False) -> dict:
+        """Lightweight fine-tuning (paper §4.1): the trainability mask
+        (``mode="lfa"`` freezes the central tensors), a masked AdamW (frozen
+        leaves allocate no state and receive no updates), and the train
+        loop.  Every MPO matmul of the step runs through the engine's
+        ``train``-phase plan — on the card the fused MPO-linear kernels,
+        forward and backward.  The parameters update in place, so ``donate``
+        has nothing to do and is accepted for the reference's signature;
+        ``ckpt_dir`` comes with persistence (ROADMAP.md, Queue 1 item 3).
+        Returns a stage report with the loss history."""
+        t0 = time.perf_counter()
+        loss_fn = loss_fn or self._default_loss_fn()
+        batch_fn = batch_fn or self._default_batch_fn(seq_len, batch_size, seed)
+        if mask is None and optimizer is None:
+            mask = lightweight.trainable_mask(self.params, mode=mode)
+        # a caller-supplied optimizer owns its own masking: no mode-derived
+        # mask is made for it, so the counts below claim no freezes
+        if optimizer is None:
+            lr_fn = lr if (callable(lr) or not warmup) else \
+                schedule.cosine_warmup(lr, warmup=warmup, total=steps)
+            optimizer = optimizers.adamw(lr_fn, weight_decay=weight_decay, mask=mask)
+        step_fn = make_train_step(self.model, optimizer, loss_fn=loss_fn)
+        state = TrainState(self.params, optimizer.init(self.params))
+        loop = LoopConfig(steps=steps, ckpt_dir=ckpt_dir,
+                          log_every=max(1, min(log_every, steps)))
+        log = print if verbose else (lambda *a, **k: None)
+        _, history = run_training(step_fn, state, batch_fn, loop,
+                                  to_device=self._to_device, log_fn=log)
+        self.mask = mask
+        self._bump()
+        info = {"mode": mode, "steps": steps,
+                "total": lightweight.count_params(self.params),
+                "loss_first": history[0]["loss"] if history else None,
+                "loss_final": history[-1]["loss"] if history else None}
+        if mask is not None:
+            tr, tot = lightweight.count_trainable(self.params, mask)
+            info.update(trainable=tr, reduction=1.0 - tr / max(tot, 1))
+        self._record("finetune", t0, info)
+        return dict(info, history=history)
+
+    # ---- evaluation ----
+
+    @torch.no_grad()
+    def evaluate(self, params=None, *, num_batches: int = 8, seq_len: int = 32,
+                 batch_size: int = 16, seed: int = 0, loss_fn: Callable | None = None,
+                 batch_fn: Callable | None = None) -> float:
+        """Held-out metric, higher = better: mean accuracy for classification
+        configs, negative mean loss for LMs, over batches 1000.. of the
+        stream.  Evaluates the session's params unless a tree is passed."""
+        params = self.params if params is None else params
+        loss_fn = loss_fn or self._default_loss_fn()
+        batch_fn = batch_fn or self._default_batch_fn(seq_len, batch_size, seed)
+        vals = []
+        for i in range(1000, 1000 + num_batches):
+            m = loss_fn(params, self._to_device(batch_fn(i)))[1]
+            vals.append(float(m["acc"]) if "acc" in m else -float(m["loss"]))
+        return float(np.mean(vals))
 
     # ---- serve ----
 
@@ -208,7 +311,7 @@ class Session:
         page_size) at the current weights version; a cached handle is
         returned reset."""
         if mesh is not None:
-            _not_yet("Session.serve(mesh=...)", "item 13")
+            _not_yet("Session.serve(mesh=...)", "item 8")
         t0 = time.perf_counter()
         key = (batch_size, max_len, weight_cache, paged, page_size)
         h = self._serve.get(key)
@@ -238,6 +341,10 @@ class Session:
             "stages": [{"stage": r.stage, "seconds": round(r.seconds, 4), **r.info}
                        for r in self._records],
         }
+        if self.mask is not None:
+            tr, tot = lightweight.count_trainable(self.params, self.mask)
+            out["trainable"] = tr
+            out["trainable_reduction"] = 1.0 - tr / max(tot, 1)
         return out
 
 

@@ -1,1 +1,1 @@
-"""Serving step functions (the training steps come with ROADMAP.md, Queue 1 item 5)."""
+"""Train, eval and serving steps, and the training loop."""

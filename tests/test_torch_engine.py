@@ -92,8 +92,8 @@ def test_cuda_kernel_decisions_equal_reference_compiled_for_bert_base():
                                 device="cuda", dtype="bfloat16")
                 assert tm == jm, (name, tokens, phase)
                 seen[(name, tokens, phase)] = tm
-        # no backward kernel yet: training never plans the forward-only kernel
-        assert TE.choose_mode(tcfg, shapes, 1024, "train", device="cuda")[0] != "kernel"
+        seen[(name, 2048, "train")] = TE.choose_mode(tcfg, shapes, 2048, "train",
+                                                     device="cuda", dtype="bfloat16")[0]
     # the decisions the serving path relies on (factorized weights, M = 8 x 128
     # at prefill and 8 at decode; the logits head sees the last position only)
     for name in ("wq", "wk", "wv", "wo", "w_up", "w_down"):
@@ -101,6 +101,10 @@ def test_cuda_kernel_decisions_equal_reference_compiled_for_bert_base():
     for name in ("wq", "wk", "wv", "wo", "w_up"):
         assert seen[(name, 8, "decode")] == "kernel"
     assert seen[("w_down", 8, "decode")] == "factorized"
+    # fine-tuning at 16 x 128 tokens: every attention and FFN matrix trains
+    # through the kernels (forward, dL/dx over W^T, and the cores backward)
+    for name in ("wq", "wk", "wv", "wo", "w_up", "w_down"):
+        assert seen[(name, 2048, "train")] == "kernel", name
     assert seen[("embed_T", 8, "prefill")] == "factorized"
     assert seen[("embed_T", 8, "decode")] == "factorized"
 

@@ -15,6 +15,7 @@ steps (3e-2 on O(1) values, as tests/test_kernels.py allows)."""
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ import torch
 
 from repro.core import mpo as JM
 from repro.kernels import decode_attention as JDA
+from repro.kernels.mpo_linear import _bwd_cores_call
 from repro.kernels.mpo_linear import mpo_linear as j_mpo_linear
 from repro.kernels.ref import mpo_linear_ref
 from repro_torch import configs
@@ -118,8 +120,11 @@ def test_hopper_gate_admits_every_bert_base_matrix():
             for tile in TMK.TILES:
                 split, njp = TMK._launch_plan(tuple(sh), tile)
                 assert TMK._smem_bytes(sh, split, njp, tile) <= TMK.SMEM_LIMIT
-            # no forward-only kernel for training, no float16 kernel
-            assert not TMK.kernel_eligible(sh, train=True)
+            # training: dL/dx over W^T and the cores backward fit too; no
+            # float16 kernel
+            assert TMK.kernel_eligible(sh, train=True, dtype="bfloat16")
+            split, pi, pj = TMK._bwd_plan(tuple(sh))
+            assert TMK._bwd_smem_bytes(sh, split, pi, pj) <= TMK.SMEM_LIMIT
             assert not TMK.kernel_eligible(sh, dtype="float16")
 
 
@@ -138,6 +143,7 @@ def test_mpo_linear_rejects_other_devices():
                        torch.from_numpy(x).to("meta"))
 
 
+@pytest.mark.cuda
 def test_cuda_mpo_linear_matches_plain(cuda):
     for name, s in _bert_matrix_shapes().items():
         if name == "embed":
@@ -158,6 +164,94 @@ def test_cuda_mpo_linear_matches_plain(cuda):
                 ref = TMK.mpo_linear_plain(cs, xx).float()
                 tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
                 assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+
+
+# --------------------------------------------------------------------------
+# MPO-linear cores backward
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dims,n,bond,m", [
+    ((24, 36), 3, None, 37), ((64, 96), 3, 8, 19), ((64, 64), 5, 8, 16),
+    ((128, 48), 4, 6, 5)])                # tests/test_kernel_vjp.py's shapes
+def test_mpo_linear_bwd_cores_plain_matches_pallas_and_grad(dims, n, bond, m):
+    """The plain cores-backward against the reference's ``_bwd_cores_call``
+    (interpret mode, non-aligned M padded by it) and against ``jax.grad`` of
+    ``sum(dy * mpo_linear_ref(cores, x))``; float32, 2e-5 relative."""
+    cores, x = _mpo_inputs(dims, n, bond, m)
+    dy = np.random.default_rng(9).standard_normal((m, dims[1])).astype(np.float32)
+    jc = [jnp.asarray(c) for c in cores]
+    pallas = _bwd_cores_call(jc, jnp.asarray(x), jnp.asarray(dy), 16, True)
+    grad = jax.grad(lambda cs: jnp.sum(mpo_linear_ref(list(cs), jnp.asarray(x)) * dy))(
+        tuple(jc))
+    calls = TMK.mpo_linear_bwd_cores_plain.calls
+    got = TMK.mpo_linear_bwd_cores([torch.from_numpy(c) for c in cores],
+                                   torch.from_numpy(x), torch.from_numpy(dy))
+    assert TMK.mpo_linear_bwd_cores_plain.calls == calls + 1    # CPU -> plain version
+    for k, g in enumerate(got):
+        assert g.dtype == torch.float32 and tuple(g.shape) == cores[k].shape
+        for ref in (pallas[k], grad[k]):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(g.numpy(), ref, rtol=TOL["float32"],
+                                       atol=TOL["float32"] * np.abs(ref).max())
+    # only the cores asked for
+    some = TMK.mpo_linear_bwd_cores([torch.from_numpy(c) for c in cores], torch.from_numpy(x),
+                                    torch.from_numpy(dy), needs=[k % 2 == 0 for k in range(n)])
+    assert [g is None for g in some] == [k % 2 == 1 for k in range(n)]
+    torch.testing.assert_close(some[0], got[0])
+
+
+def test_bwd_plan_refuses_and_blocks_stay_bounded():
+    assert TMK._bwd_plan(((1, 64, 64, 1),)) is None                   # one core
+    assert TMK._bwd_plan(((1, 4, 4, 8), (4, 4, 4, 1))) is None         # broken chain
+    # no split leaves a suffix of at most 64 x 64
+    assert TMK._bwd_plan(((1, 128, 128, 2), (2, 128, 128, 1))) is None
+    assert not TMK.kernel_eligible([(1, 128, 128, 2), (2, 128, 128, 1)], train=True)
+    for name, s in _bert_matrix_shapes().items():
+        if name == "embed":
+            continue
+        for sms in (132, 114, 8):
+            nb = TMK.bwd_blocks(s, sms)
+            assert 1 <= nb <= sms, (name, sms, nb)
+
+
+def test_mpo_linear_bwd_cores_rejects_other_devices():
+    cores, x = _mpo_inputs((24, 36), 3, None, 4)
+    dy = np.zeros((4, 36), np.float32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TMK.mpo_linear_bwd_cores([torch.from_numpy(c).to("meta") for c in cores],
+                                 torch.from_numpy(x).to("meta"), torch.from_numpy(dy).to("meta"))
+
+
+@pytest.mark.cuda
+def test_cuda_mpo_linear_bwd_cores_matches_plain(cuda):
+    """The CUDA cores-backward against its plain version at every bert-base
+    attention/FFN shape, ragged and training M, both dtypes, and two runs
+    bit-identical (no atomics)."""
+    for name, s in _bert_matrix_shapes().items():
+        if name == "embed":
+            continue
+        rng = np.random.default_rng(0)
+        cores = [torch.from_numpy((rng.standard_normal(c) * 0.35).astype(np.float32))
+                 for c in s]
+        i_dim = math.prod(c[1] for c in s)
+        j_dim = math.prod(c[2] for c in s)
+        for m in (37, 2048):
+            x = torch.from_numpy(rng.standard_normal((m, i_dim)).astype(np.float32))
+            dy = torch.from_numpy(rng.standard_normal((m, j_dim)).astype(np.float32))
+            for dtype in (torch.float32, torch.bfloat16):
+                cs = [c.to(cuda, dtype) for c in cores]
+                xx, dd = x.to(cuda, dtype), dy.to(cuda, dtype)
+                launches = TMK.mpo_linear_bwd_cores.launches
+                got = TMK.mpo_linear_bwd_cores(cs, xx, dd)
+                again = TMK.mpo_linear_bwd_cores(cs, xx, dd)
+                torch.cuda.synchronize()
+                assert TMK.mpo_linear_bwd_cores.launches == launches + 2
+                assert all(torch.equal(a, b) for a, b in zip(got, again))
+                tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+                for g, r in zip(got, TMK.mpo_linear_bwd_cores_plain(cs, xx, dd)):
+                    r = r.float()
+                    assert (g.float() - r).abs().max() <= tol * r.abs().max(), (name, m, dtype)
 
 
 # --------------------------------------------------------------------------
@@ -221,6 +315,7 @@ def test_flash_rejects_other_devices():
         TDA.flash_decode_attention(*args)
 
 
+@pytest.mark.cuda
 def test_cuda_flash_matches_plain(cuda):
     for kv, g, dh, softcap in ((12, 1, 64, None), (8, 5, 128, None), (8, 5, 128, 30.0)):
         args = _paged_inputs(8, kv, g, dh, 16, 16, [0, 1, 17, 128, 129, 200, 255, 256])

@@ -257,10 +257,17 @@ def test_report_and_later_stages(pair):
     assert 0 < rep["compression_ratio"] < 1
     assert rep["compression_ratio"] == compression_ratio(ts.params)
     assert sum(c.numel() for c in cores) < rep["params_total"]
-    for call in (ts.finetune, ts.squeeze, ts.save, ts.serve_pool):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # finetune is ported (tests/test_torch_train.py); the later stages raise
+    # naming their ROADMAP.md item
+    fresh = TSession.init(ts.cfg, device="cpu")
+    rep = fresh.finetune(steps=1, seq_len=8, batch_size=2)
+    assert {"trainable", "reduction", "loss_first", "loss_final", "history"} <= set(rep)
+    assert fresh.report()["stage"] == "finetune"
+    for call, item in ((ts.squeeze, "item 2"), (ts.save, "item 3"),
+                       (ts.serve_pool, "item 4")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 8"):
         ts.serve(2, 16, mesh=object())
 
 

@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's serving path, on one NVIDIA GPU.
+"""Where the time goes on the port's serving and fine-tuning paths, on one
+NVIDIA GPU.
 
-    python3 tools/torch_serve_profile.py
+    python3 tools/torch_serve_profile.py           # serving
+    python3 tools/torch_serve_profile.py --train   # one LFA fine-tuning step
 
-Serves full-width bert-base (bfloat16, 8 prompts of 128 tokens, paged KV
+Serving: full-width bert-base (bfloat16, 8 prompts of 128 tokens, paged KV
 cache, ``serve(8, 256)``) with the weight cache and factorized through the
 MPO-linear kernel.  After a warm-up generation it traces one prefill and
 ``STEPS`` decode steps with ``torch.profiler`` and prints, per run, one
 JSON line: host wall time per prefill and per decode step, device busy time
 (the sum of kernel times) and the device's idle share, and the kernels that
-take the most device time.  Exits non-zero without a card.
+take the most device time.
+
+``--train``: full-width bert-base LFA fine-tuning at 16 x 128 tokens
+(``Session.finetune``), one warm-up step, then one traced step: wall time,
+device busy time, idle share and the kernels by device time.
+
+Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -42,6 +50,24 @@ def _device_ms(prof) -> float:
     return sum(e.self_device_time_total for e in _kernels(prof)) / 1e3
 
 
+def _train(s) -> None:
+    """One traced LFA fine-tuning step of ``s`` after one warm-up step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ft = dict(mode="lfa", seq_len=128, batch_size=16, steps=1, log_every=1)
+    s.finetune(seed=1, **ft)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pt:
+        t0 = time.perf_counter()
+        s.finetune(**ft)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = _device_ms(pt)
+    print(json.dumps({"train_step": "bert-base lfa 16x128 bfloat16", "wall_ms": 1e3 * wall,
+                      "device_ms": dev, "idle_share": 1 - dev / (1e3 * wall),
+                      "top": _top(pt, 16)}), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -54,6 +80,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     s = Session.init("bert-base", smoke=False, seed=0)
+    if "--train" in sys.argv[1:]:
+        _train(s)
+        return 0
     prompts = np.random.default_rng(0).integers(0, s.cfg.vocab_size, (8, 128))
     for wc in (True, False):
         h = s.serve(8, 256, paged=True, weight_cache=wc)
