@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig, scaled_down
 ARCHS = {
     "qwen3-14b": "qwen3_14b",
     "bert-base": "bert_base",
+    "mamba2-130m": "mamba2_130m",
 }
 
 

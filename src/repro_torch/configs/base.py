@@ -79,6 +79,14 @@ class ModelConfig:
         return {"bfloat16": torch.bfloat16, "float32": torch.float32,
                 "float16": torch.float16}[self.dtype]
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

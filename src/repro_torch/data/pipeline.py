@@ -79,10 +79,10 @@ class SyntheticCLS:
 
 
 def make_batch_fn(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0):
-    """Batch function ``step -> numpy batch dict`` for the dense family (the
-    vlm and encdec inputs come with those families, ROADMAP.md Queue 1
-    item 7)."""
-    if cfg.family != "dense":
+    """Batch function ``step -> numpy batch dict`` for the token-only families,
+    dense and ssm (the vlm and encdec inputs come with those families,
+    ROADMAP.md Queue 1 item 7)."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7")
     lm = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch, seed=seed)

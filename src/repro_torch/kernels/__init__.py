@@ -4,6 +4,8 @@
                          backward, with the autograd function around both
                          (CUDA C++);
 - ``decode_attention`` — flash decode attention over a paged KV cache (CUDA C++);
+- ``ssd_scan``         — the chunked Mamba2 SSD scan of SSM prefill, carrying
+                         the state across chunks (CUDA C++);
 - ``_build``           — ``nvcc`` build of ``csrc/`` and ``ctypes`` loading.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain

@@ -1,12 +1,13 @@
-"""``Model``: the dense transformer as an ``nn.Module`` — the port of
-``repro.models.model``.
+"""``Model``: a model family as an ``nn.Module`` — the port of
+``repro.models.model``.  ``build`` dispatches by family, ``dense`` to
+``models.transformer`` and ``ssm`` to ``models.mamba``.
 
 Parameters are registered under the reference's key paths
 (``embed.cores.c0``, ``layers.attn.wq.cores.central``, ``layers.ln1.scale``,
-…) with the stacked leading layer dim kept, so ``state_dict()`` keys match
-the reference's parameter tree and ``core.carry.load_jax_params`` can load
-it.  The layer math stays in plain functions on tensors: ``tree()`` hands
-them the parameters as a nested dict.
+``layers.in_proj.cores.c0``, …) with the stacked leading layer dim kept, so
+``state_dict()`` keys match the reference's parameter tree and
+``core.carry.load_jax_params`` can load it.  The layer math stays in plain
+functions on tensors: ``tree()`` hands them the parameters as a nested dict.
 """
 
 from __future__ import annotations
@@ -19,7 +20,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import engine_for
-from repro_torch.models import transformer
+from repro_torch.models import mamba, transformer
+
+# family -> module of its init / forward / serving functions; the other
+# families come with ROADMAP.md, Queue 1 item 7
+FAMILIES = {"dense": transformer, "ssm": mamba}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -66,7 +71,7 @@ class _Tree(nn.Module):
 
 
 class Model(_Tree):
-    """The dense-family model for ``cfg``, weights drawn from ``seed`` on the
+    """The model of ``cfg``'s family, weights drawn from ``seed`` on the
     CPU and placed on ``device`` (the card unless the caller asks for the
     CPU).  ``model(batch)`` is the teacher-forced forward; serving goes
     through ``init_cache`` / ``prefill`` / ``decode_step`` with an explicit
@@ -78,30 +83,35 @@ class Model(_Tree):
     """
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
+        mod = family_module(cfg)
         gen = torch.Generator().manual_seed(seed)
-        params = transformer.init(gen, cfg)
+        params = mod.init(gen, cfg)
         dev = resolve_device(device)
         super().__init__(_to(params, dev))
         self.cfg = cfg
         self.device = dev
+        self.mod = mod
 
     def forward(self, batch: dict, phase: str = "train") -> torch.Tensor:
-        return transformer.forward(self.tree(), batch, self.cfg, phase=phase)
+        return self.mod.forward(self.tree(), batch, self.cfg, phase=phase)
 
     def forward_hidden(self, batch: dict, phase: str = "train") -> torch.Tensor:
-        return transformer.forward_hidden(self.tree(), batch, self.cfg, phase=phase)
+        return self.mod.forward_hidden(self.tree(), batch, self.cfg, phase=phase)
 
     def logits_head(self, hidden: torch.Tensor, phase: str = "train") -> torch.Tensor:
-        return transformer.logits_head(self.tree(), hidden, self.cfg, phase=phase)
+        return self.mod.logits_head(self.tree(), hidden, self.cfg, phase=phase)
 
-    def init_cache(self, batch: int, max_len: int, **kw) -> dict:
-        return transformer.init_cache(self.cfg, batch, max_len, device=self.device, **kw)
+    def init_cache(self, batch: int, max_len: int, **kw):
+        """The serving cache: the KV cache (a dict; ``paged=True`` pages it)
+        for ``dense``, the ``(L, B, H, N, P)`` f32 state tensor for ``ssm``,
+        which has no KV sequence to page (``paged=True`` raises)."""
+        return self.mod.init_cache(self.cfg, batch, max_len, device=self.device, **kw)
 
     def prefill(self, params, batch, cache, phase: str = "prefill"):
-        return transformer.prefill(params, batch, cache, self.cfg, phase=phase)
+        return self.mod.prefill(params, batch, cache, self.cfg, phase=phase)
 
     def decode_step(self, params, tokens, cache, phase: str = "decode"):
-        return transformer.decode_step(params, tokens, cache, self.cfg, phase=phase)
+        return self.mod.decode_step(params, tokens, cache, self.cfg, phase=phase)
 
     def cache_weights(self, params: dict) -> dict:
         """Serving-time weight cache: contract decode-``cached`` matrices to
@@ -114,10 +124,17 @@ def _to(tree: dict, device) -> dict:
             for k, v in tree.items()}
 
 
-def build(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
-    """The model for ``cfg``; the dense family only in this slice (the others
-    raise, ROADMAP.md Queue 1 item 7)."""
-    if cfg.family != "dense":
+def family_module(cfg: ModelConfig):
+    """The module of ``cfg``'s family; the families not yet ported raise
+    naming their ROADMAP.md item."""
+    mod = FAMILIES.get(cfg.family)
+    if mod is None:
         raise NotImplementedError(
             f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7")
+    return mod
+
+
+def build(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
+    """The model for ``cfg``: the ``dense`` and ``ssm`` families (the others
+    raise, ROADMAP.md Queue 1 item 7)."""
     return Model(cfg, seed=seed, device=device)

@@ -55,6 +55,30 @@ def apply_layernorm(params, x, eps: float = 1e-5):
 
 
 # --------------------------------------------------------------------------
+# stacked layers
+# --------------------------------------------------------------------------
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def stack_layers(init_fn, gen: torch.Generator, n_layers: int) -> dict:
+    """``n_layers`` draws of ``init_fn(gen)`` stacked along a leading layer
+    dim, as the reference's scan-stacked params."""
+    return _stack([init_fn(gen) for _ in range(n_layers)])
+
+
+def index_layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (params or a cache): views, no copy."""
+    if isinstance(tree, dict):
+        return {k: index_layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# --------------------------------------------------------------------------
 # rotary embeddings
 # --------------------------------------------------------------------------
 

@@ -41,18 +41,6 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
             "mlp": nn.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, cfg.mpo)}
 
 
-def _stack(trees: list) -> dict:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
-def _index(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Parameters under the reference's key paths, the layer params stacked
     along a leading layer dim (one layer when ``share_layers``)."""
@@ -62,7 +50,7 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     n_stored = 1 if cfg.share_layers else cfg.num_layers
     params = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, cfg=cfg.mpo),
-        "layers": _stack([init_layer(gen, cfg) for _ in range(n_stored)]),
+        "layers": nn.stack_layers(lambda g: init_layer(g, cfg), gen, n_stored),
         "final_norm": nn.init_rmsnorm(cfg.d_model),
     }
     if not cfg.tie_embeddings:
@@ -94,10 +82,10 @@ def _run_stack(cfg: ModelConfig, params, x, *, positions, mask, mask_local,
                caches=None, phase="train"):
     """The layer stack; ``caches`` (leading layer dim) is updated in place."""
     for i in range(cfg.num_layers):
-        layer = _index(params["layers"], 0 if cfg.share_layers else i)
+        layer = nn.index_layer(params["layers"], 0 if cfg.share_layers else i)
         # alternating local/global attention: even layers local
         m = mask_local if cfg.local_window is not None and i % 2 == 0 else mask
-        cache = None if caches is None else _index(caches, i)
+        cache = None if caches is None else nn.index_layer(caches, i)
         if cfg.remat and cache is None and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
                 lambda x, layer, m: _layer_fwd(cfg, x, layer, positions=positions,

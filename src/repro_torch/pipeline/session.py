@@ -15,9 +15,11 @@
 
 A densified weight-cache snapshot is only valid for the cores it was taken
 from: ``finetune`` bumps the weights version, so a later ``serve``
-re-densifies from the tuned cores.  Conversion and squeezing
-(``from_dense``, ``squeeze``), the serving pool and fleet, and persistence
-come with later slices of the port; those entry points raise
+re-densifies from the tuned cores.  The ``dense`` family
+runs every stage here; the ``ssm`` family (mamba2-130m) serves, and its
+fine-tuning waits for a backward of the SSD scan kernel.  Conversion and
+squeezing (``from_dense``, ``squeeze``), the serving pool and fleet, and
+persistence come with later slices of the port; those entry points raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.  The session's
 device is the card unless the caller passes ``device="cpu"``; there is no
 silent move to the CPU.
@@ -54,10 +56,12 @@ class StageRecord:
 
 class ServeHandle:
     """A bound serving session: prefill/decode steps over a weight snapshot
-    taken ONCE at construction (KV-cache allocation + ``cache_weights``
+    taken ONCE at construction (cache allocation + ``cache_weights``
     densification).  Carries the weights version it was built from so
-    ``Session.serve`` can detect staleness.  The KV cache is updated in
-    place; ``reset`` rewinds it to the empty state kept from construction.
+    ``Session.serve`` can detect staleness.  The cache — the KV cache's dict
+    of tensors, or the SSM family's ``(L, B, H, N, P)`` state tensor — is
+    updated in place; ``reset`` rewinds it to the empty state kept from
+    construction.
     Example::
 
         handle = session.serve(batch_size=8, max_len=64)
@@ -77,16 +81,15 @@ class ServeHandle:
         t0 = time.perf_counter()
         with torch.no_grad():
             self.params, self._cache0 = self._init_serve(params, batch_size, max_len)
-        self.cache = {k: v.clone() for k, v in self._cache0.items()}
+        self.cache = lightweight.tree_map(torch.clone, self._cache0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.perf_counter() - t0
 
     @torch.no_grad()
     def reset(self) -> "ServeHandle":
-        """Rewind the (in-place updated) KV cache to its empty initial state."""
-        for k, v in self._cache0.items():
-            self.cache[k].copy_(v)
+        """Rewind the (in-place updated) cache to its empty initial state."""
+        lightweight.tree_map(torch.Tensor.copy_, self.cache, self._cache0)
         return self
 
     def _tensor(self, x) -> torch.Tensor:
@@ -252,7 +255,12 @@ class Session:
         forward and backward.  The parameters update in place, so ``donate``
         has nothing to do and is accepted for the reference's signature;
         ``ckpt_dir`` comes with persistence (ROADMAP.md, Queue 1 item 3).
-        Returns a stage report with the loss history."""
+        Returns a stage report with the loss history.  The ``ssm`` family
+        raises: its SSD scan kernel has no backward yet (ROADMAP.md, Queue 1
+        item 10), and the plain version may not stand in for it on the card."""
+        if self.cfg.family == "ssm":
+            _not_yet("Session.finetune of the ssm family (a backward for the SSD "
+                     "scan kernel)", "item 10")
         t0 = time.perf_counter()
         loss_fn = loss_fn or self._default_loss_fn()
         batch_fn = batch_fn or self._default_batch_fn(seq_len, batch_size, seed)

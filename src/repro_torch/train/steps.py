@@ -46,14 +46,14 @@ def lm_loss(model: Model, params, batch):
     ``jax.checkpoint``-ed scan body)."""
     cfg = model.cfg
     chunk = cfg.loss_chunk
-    hidden = transformer.forward_hidden(params, batch, cfg, phase="train")
+    hidden = model.mod.forward_hidden(params, batch, cfg, phase="train")
     labels = batch["labels"]
     s = hidden.shape[1]
     # global next-token shift (boundary-safe under chunking)
     shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], IGNORE)], dim=1)
 
     def head_ce(h, lab):
-        return cross_entropy(transformer.logits_head(params, h, cfg, phase="train"), lab)
+        return cross_entropy(model.mod.logits_head(params, h, cfg, phase="train"), lab)
 
     if chunk and s % chunk == 0 and s > chunk:
         ce = torch.zeros((), device=hidden.device)
@@ -69,7 +69,7 @@ def lm_loss(model: Model, params, batch):
     else:
         ce, n = head_ce(hidden, shifted)
     loss = ce / torch.clamp(n.float(), min=1.0)
-    aux = torch.zeros((), device=hidden.device)      # dense family: no aux loss
+    aux = torch.zeros((), device=hidden.device)      # dense and ssm families: no aux loss
     return loss + 0.01 * aux, {"loss": loss, "aux": aux, "tokens": n}
 
 
@@ -141,7 +141,8 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
     """``ServeSteps(prefill, decode, init_serve)`` for batched serving.
 
     ``init_serve(params, batch, max_len)`` runs ONCE per serving session: it
-    allocates the KV cache (per-slot positions; paged when ``paged``) and —
+    allocates the cache (the KV cache with per-slot positions, paged when
+    ``paged``; the SSM state tensor for the ``ssm`` family) and —
     when ``weight_cache`` — contracts every factorized matrix whose decode
     plan is ``cached`` into its dense W, returning ``(serve_params, cache)``.
     Pass the returned ``serve_params`` to the steps.  The weight cache is a

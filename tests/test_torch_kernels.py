@@ -11,7 +11,10 @@ Tolerances: float32 results summed in another order agree to ~1e-6
 relative (2e-5 allowed, as tests/test_kernels.py allows the Pallas kernel).
 bfloat16: the Pallas kernel rounds its running sum to bf16 after every i1
 step while the plain version rounds once, so they differ by a few bf16
-steps (3e-2 on O(1) values, as tests/test_kernels.py allows)."""
+steps (3e-2 on O(1) values, as tests/test_kernels.py allows).  The SSD scan
+rounds y to bf16 once in both, from f32 sums in another order: one bf16
+step apart at most (8e-2 allowed on O(1) values, as tests/test_kernels.py
+allows the Pallas kernel against its oracle)."""
 
 import math
 
@@ -26,9 +29,12 @@ from repro.kernels import decode_attention as JDA
 from repro.kernels.mpo_linear import _bwd_cores_call
 from repro.kernels.mpo_linear import mpo_linear as j_mpo_linear
 from repro.kernels.ref import mpo_linear_ref
+from repro.kernels.ref import ssd_scan_ref as j_ssd_scan_ref
+from repro.kernels.ssd_scan import ssd_scan as j_ssd_scan
 from repro_torch import configs
 from repro_torch.kernels import decode_attention as TDA
 from repro_torch.kernels import mpo_linear as TMK
+from repro_torch.kernels import ssd_scan as TSSD
 from repro_torch.models import model as TModel
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -126,6 +132,27 @@ def test_hopper_gate_admits_every_bert_base_matrix():
             split, pi, pj = TMK._bwd_plan(tuple(sh))
             assert TMK._bwd_smem_bytes(sh, split, pi, pj) <= TMK.SMEM_LIMIT
             assert not TMK.kernel_eligible(sh, dtype="float16")
+
+
+def test_hopper_gate_admits_mamba2_matrices():
+    """mamba2-130m's in_proj (768 -> 3352, out factors (419, 2, 2, 2, 1)),
+    out_proj (1536 -> 768) and tied head: both orientations fit the forward
+    kernel's shared memory at both tiles, and the backward too."""
+    from repro_torch.core.layers import cores_to_list
+    from repro_torch.models import mamba as TMB
+    with torch.device("meta"):
+        params = TMB.init(torch.Generator(), configs.get_config("mamba2-130m"))
+    mats = {name: [tuple(c.shape[1:]) for c in cores_to_list(params["layers"][name]["cores"])]
+            for name in ("in_proj", "out_proj")}
+    mats["embed"] = [tuple(c.shape) for c in cores_to_list(params["embed"]["cores"])]
+    assert mats["in_proj"][0] == (1, 3, 419, 64)
+    for name, s in mats.items():
+        t = [(d0, j, i, d1) for d0, i, j, d1 in s]
+        for sh in (s, t):
+            assert TMK.kernel_eligible(sh, dtype="bfloat16", train=True), (name, sh)
+            for tile in TMK.TILES:
+                split, njp = TMK._launch_plan(tuple(sh), tile)
+                assert TMK._smem_bytes(sh, split, njp, tile) <= TMK.SMEM_LIMIT
 
 
 def test_hopper_gate_refuses_what_the_kernel_cannot_take():
@@ -329,3 +356,90 @@ def test_cuda_flash_matches_plain(cuda):
             ref = TDA.flash_decode_attention_plain(*t, softcap=softcap).float()
             tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
             assert (out.float() - ref).abs().max() <= tol * ref.abs().max()
+
+
+# --------------------------------------------------------------------------
+# chunked SSD scan
+# --------------------------------------------------------------------------
+
+
+def _ssd_inputs(b, s, h, p, n, dtype="float32", seed=0):
+    """The inputs of tests/test_kernels.py's SSD case, drawn with numpy; in
+    bf16, x, dt, B and C are rounded to bf16 values for both sides (the port
+    takes dt in f32, the Pallas kernel casts it to f32)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a_log = (rng.standard_normal(h) * 0.5).astype(np.float32)
+    bm = (rng.standard_normal((b, s, n)) * 0.3).astype(np.float32)
+    cm = (rng.standard_normal((b, s, n)) * 0.3).astype(np.float32)
+    d = np.ones(h, np.float32)
+    if dtype == "bfloat16":
+        x, dt, bm, cm = (_bf16_np(a) for a in (x, dt, bm, cm))
+    return x, dt, a_log, bm, cm, d
+
+
+def _ssd_torch(args, dtype, device="cpu"):
+    x, dt, a_log, bm, cm, d = (torch.from_numpy(a).to(device) for a in args)
+    tdt = getattr(torch, dtype)
+    return x.to(tdt), dt, a_log, bm.to(tdt), cm.to(tdt), d
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 2, 8, 8), (2, 64, 3, 8, 16), (2, 128, 4, 16, 32)])
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_plain_matches_pallas_and_ref(shape, chunk, dtype):
+    """The plain version against the Pallas kernel (interpret mode) and its
+    sequential oracle, at tests/test_kernels.py's shapes and chunks."""
+    args = _ssd_inputs(*shape, dtype=dtype)
+    jdt = getattr(jnp, dtype)
+    jargs = [jnp.asarray(a) for a in args]
+    for k in (0, 1, 3, 4):
+        jargs[k] = jargs[k].astype(jdt)
+    y_pallas = np.asarray(j_ssd_scan(*jargs, chunk=chunk, interpret=True), np.float32)
+    y_ref = np.asarray(j_ssd_scan_ref(*jargs), np.float32)
+    calls = TSSD.ssd_scan_plain.calls
+    y, state = TSSD.ssd_scan(*_ssd_torch(args, dtype), chunk)
+    assert TSSD.ssd_scan_plain.calls == calls + 1      # CPU -> plain version
+    b, s, h, p, n = shape
+    assert y.dtype == getattr(torch, dtype) and tuple(y.shape) == (b, s, h, p)
+    assert state.dtype == torch.float32 and tuple(state.shape) == (b, h, n, p)
+    tol = 2e-5 if dtype == "float32" else 8e-2
+    for ref in (y_pallas, y_ref):
+        np.testing.assert_allclose(y.float().numpy(), ref, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_rejects_what_it_cannot_take():
+    args = _ssd_torch(_ssd_inputs(1, 48, 2, 8, 8), "float32")
+    with pytest.raises(ValueError, match="not divisible by chunk"):
+        TSSD.ssd_scan(*args, 32)                       # q = 32 does not divide 48
+    with pytest.raises(ValueError, match="unsupported device"):
+        TSSD.ssd_scan(*[a.to("meta") for a in args], 16)
+    # what the kernel takes: q <= 128, N <= 128, P <= 64
+    TSSD._check(*args, 16)
+    for shape, q in (((1, 258, 2, 8, 8), 129), ((1, 48, 2, 8, 129), 16),
+                     ((1, 48, 2, 65, 8), 16)):
+        big = _ssd_torch(_ssd_inputs(*shape), "float32")
+        with pytest.raises(ValueError, match="does not take"):
+            TSSD._check(*big, q)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_matches_plain(cuda):
+    """The CUDA kernel against its plain version: the mamba2-130m head
+    geometry (H=24, P=64, N=128) at a 4-chunk prompt, a 100-token prompt
+    (q = 100) and a ragged small case, both dtypes; y within 1e-4 (f32) or
+    one bf16 step doubled (2^-7) of its largest magnitude, the final state
+    within 1e-4 relative."""
+    for shape, chunk in (((2, 512, 24, 64, 128), 128), ((2, 100, 24, 64, 128), 128),
+                         ((3, 48, 5, 16, 16), 16)):
+        for dtype in ("float32", "bfloat16"):
+            args = _ssd_torch(_ssd_inputs(*shape, dtype=dtype, seed=1), dtype, cuda)
+            launches = TSSD.ssd_scan.launches
+            y, state = TSSD.ssd_scan(*args, chunk)
+            torch.cuda.synchronize()
+            assert TSSD.ssd_scan.launches == launches + 1
+            ry, rstate = TSSD.ssd_scan_plain(*args, chunk)
+            tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+            assert (y.float() - ry.float()).abs().max() <= tol * ry.float().abs().max()
+            assert (state - rstate).abs().max() <= 1e-4 * rstate.abs().max()

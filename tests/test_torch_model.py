@@ -272,11 +272,13 @@ def test_report_and_later_stages(pair):
 
 
 def test_other_families_raise():
-    cfg = dataclasses.replace(tconfigs.smoke_config("bert-base"), family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TModel.build(cfg, device="cpu")
+    # dense and ssm are ported (ssm: tests/test_torch_mamba.py); the rest raise
+    for family in ("hybrid", "moe", "encdec", "vlm"):
+        cfg = dataclasses.replace(tconfigs.smoke_config("bert-base"), family=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7"):
+            TModel.build(cfg, device="cpu")
     with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get_config("mamba2-130m")
+        tconfigs.get_config("zamba2-7b")
 
 
 def test_default_device_is_the_card():

@@ -2,11 +2,13 @@
 """Where the time goes on the port's serving and fine-tuning paths, on one
 NVIDIA GPU.
 
-    python3 tools/torch_serve_profile.py           # serving
-    python3 tools/torch_serve_profile.py --train   # one LFA fine-tuning step
+    python3 tools/torch_serve_profile.py                      # serving bert-base
+    python3 tools/torch_serve_profile.py --arch mamba2-130m   # serving mamba2-130m
+    python3 tools/torch_serve_profile.py --train              # one LFA fine-tuning step
 
 Serving: full-width bert-base (bfloat16, 8 prompts of 128 tokens, paged KV
-cache, ``serve(8, 256)``) with the weight cache and factorized through the
+cache, ``serve(8, 256)``) or mamba2-130m (bfloat16, 8 prompts of 512 tokens,
+``serve(8, 544)``) with the weight cache and factorized through the
 MPO-linear kernel.  After a warm-up generation it traces one prefill and
 ``STEPS`` decode steps with ``torch.profiler`` and prints, per run, one
 JSON line: host wall time per prefill and per decode step, device busy time
@@ -31,6 +33,8 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 STEPS = 4
+# arch -> (prompt tokens, serve max_len, paged KV cache)
+SERVE = {"bert-base": (128, 256, True), "mamba2-130m": (512, 544, False)}
 
 
 def _kernels(prof):
@@ -79,13 +83,16 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    s = Session.init("bert-base", smoke=False, seed=0)
-    if "--train" in sys.argv[1:]:
+    argv = sys.argv[1:]
+    arch = argv[argv.index("--arch") + 1] if "--arch" in argv else "bert-base"
+    s = Session.init(arch, smoke=False, seed=0)
+    if "--train" in argv:
         _train(s)
         return 0
-    prompts = np.random.default_rng(0).integers(0, s.cfg.vocab_size, (8, 128))
+    prompt, max_len, paged = SERVE[arch]
+    prompts = np.random.default_rng(0).integers(0, s.cfg.vocab_size, (8, prompt))
     for wc in (True, False):
-        h = s.serve(8, 256, paged=True, weight_cache=wc)
+        h = s.serve(8, max_len, paged=paged, weight_cache=wc)
         h.generate({"tokens": prompts}, 4)                  # warm-up
         h.reset()
         torch.cuda.synchronize()
@@ -105,7 +112,7 @@ def main() -> int:
             decode_wall = (time.perf_counter() - t0) / STEPS
         dev_prefill, dev_decode = _device_ms(pp), _device_ms(pd) / STEPS
         print(json.dumps({
-            "weight_cache": wc, "prefill_wall_ms": 1e3 * prefill_wall,
+            "arch": arch, "weight_cache": wc, "prefill_wall_ms": 1e3 * prefill_wall,
             "prefill_device_ms": dev_prefill,
             "prefill_idle_share": 1 - dev_prefill / (1e3 * prefill_wall),
             "decode_wall_ms_per_step": 1e3 * decode_wall,
