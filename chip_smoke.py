@@ -12,15 +12,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the card, at the shapes the serving paths give it, with the tolerances
    below; kernel, plain-version and library-yardstick times (CUDA events,
    L2 flushed before every timed launch) and the least time the card could
-   take (``bound_ms``).  The SSD scan at mamba2-130m's path shape (8 x 512,
+   take (``bound_ms``).  The MPO-linear forward runs the tensor-core kernel
+   (``csrc/mpo_linear_mma.cu``) in bf16 and ``csrc/mpo_linear.cu`` in f32;
+   every bf16 case also checks that two launches give the same bits and
+   that its plan's shared memory and workspace match the CUDA source's and
+   stay under a quarter of a bf16 W.  The SSD scan at mamba2-130m's path shape (8 x 512,
    24 heads of 64, state 128, chunk 128), a 100-token prompt (q = 100) and
    one 4096-token prompt (32 chunks), both dtypes; the MPO-linear forward
-   also at mamba2-130m's in_proj (768 -> 3352) and out_proj (1536 -> 768),
-   M = 8 and 4096.
+   at bert-base's matrices (M = 8 and 1024; bf16 also M = 1 and a ragged
+   100 at attn), at mamba2-130m's in_proj (768 -> 3352; bf16 also M = 1 and
+   100) and out_proj (1536 -> 768), M = 8 and 4096, and its tied head (768
+   -> 50432, bf16, M = 8).
 3. path — full-width bert-base served from 8 prompts of 128 tokens,
    ``serve(8, 256, paged=True)``, 32 generated tokens, once with the weight
    cache and once factorized through the MPO-linear kernel.  Launch counts
-   are zeroed just before each run and read just after.  Then full-width
+   are zeroed just before each run and read just after; every bf16 path
+   must launch the tensor-core forward (factorized bert-base, mamba2-130m
+   both ways through its tied head, fine-tuning) and no plain version, and
+   the float32 runs of phase 4 the f32 forward.  Then full-width
    mamba2-130m (bf16) served from 8 prompts of 512 tokens, ``serve(8,
    544)``, 32 generated tokens, both ways: 24 SSD-scan launches a prefill,
    no plain-version call; then each run's bf16 prefill layer by layer, every
@@ -50,6 +59,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -185,23 +195,71 @@ def main() -> int:
             "w_down": cores_to_list(layer0["w_down"])}
     results = {}
 
+    mma_lib = MK._mma_lib()
+
     def fwd_case(mname, cores32, m, dtype, phase="kernels"):
+        """The MPO-linear forward through ``MK.mpo_linear`` (bf16: the
+        tensor-core kernel, f32: mpo_linear.cu) against its plain version;
+        bf16 also: two launches give the same bits, the plan's shared memory
+        and workspace match the CUDA source's, and the workspace stays under
+        a quarter of a bf16 W's bytes."""
         tdt = getattr(torch, dtype)
         cores = [c.to(tdt).contiguous() for c in cores32]
         i_dim = math.prod(c.shape[1] for c in cores)
         j_dim = math.prod(c.shape[2] for c in cores)
         x = torch.randn(m, i_dim, generator=gen).to(dev, tdt)
+        counter = MK.mpo_linear_mma if dtype == "bfloat16" else MK.mpo_linear
+        kname = "mpo_linear_fwd_mma" if dtype == "bfloat16" else "mpo_linear_fwd"
+        before = counter.launches
         y = MK.mpo_linear(cores, x)
+        extra = {}
+        if dtype == "bfloat16":
+            again = MK.mpo_linear(cores, x)
+            torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                fail(f"mpo_linear_fwd_mma {mname} M={m}: two launches differ")
+            shapes = tuple(tuple(c.shape) for c in cores)
+            plan = MK._mma_plan(shapes, m)
+            dims = (ctypes.c_int * (4 * len(cores)))(*[d for sh in shapes for d in sh])
+            smem_c = mma_lib.mpo_linear_mma_smem(dims, len(cores), plan.split, plan.bm)
+            ws_c = 4 * mma_lib.mpo_linear_mma_workspace(dims, len(cores), plan.split, m,
+                                                        plan.splits)
+            if (smem_c, ws_c) != (plan.smem, plan.workspace):
+                fail(f"mpo_linear_fwd_mma {mname}: the plan's shared memory / workspace "
+                     f"{plan.smem} / {plan.workspace} differ from the CUDA source's "
+                     f"{smem_c} / {ws_c}")
+            if 4 * plan.workspace >= 2 * i_dim * j_dim:
+                fail(f"mpo_linear_fwd_mma {mname} M={m}: workspace {plan.workspace} B is "
+                     f"not below a quarter of a bf16 W's {2 * i_dim * j_dim} B")
+            # the previous bf16 forward, all on the CUDA cores (the bf16
+            # instantiation of csrc/mpo_linear.cu, which the wrapper no longer
+            # routes to), timed as the yardstick
+            tile = 1 if m <= MK.SMALL_M else 0
+            split_c, njp_c = MK._launch_plan(shapes, tile)
+            y_c = torch.empty_like(y)
+            ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
+            stream = torch.cuda.current_stream().cuda_stream
+            cuda_core = lambda: MK._lib().mpo_linear_fwd(
+                ptrs, dims, len(cores), split_c, njp_c, tile, x.data_ptr(), y_c.data_ptr(), m,
+                1, stream)
+            if cuda_core() != 0:
+                fail(f"the CUDA-core bf16 forward did not launch at {mname} M={m}")
+            extra = dict(split=plan.split, bm=plan.bm, tc=plan.tc, splits=plan.splits,
+                         smem_bytes=plan.smem, workspace_bytes=plan.workspace,
+                         w_bf16_bytes=2 * i_dim * j_dim, deterministic=True,
+                         cuda_core_kernel_ms=timed(cuda_core))
         torch.cuda.synchronize()
+        if counter.launches == before:
+            fail(f"{kname} {mname} M={m}: MK.mpo_linear did not launch it")
         ref = MK.mpo_linear_plain(cores, x)
-        err = check("mpo_linear_fwd", y, ref, dtype, f"{mname} M={m} {dtype}")
+        err = check(kname, y, ref, dtype, f"{mname} M={m} {dtype}")
         isz = x.element_size()
         nbytes = isz * (x.numel() + sum(c.numel() for c in cores) + m * j_dim)
         ops = 2 * m * i_dim * j_dim
         w = mpo.reconstruct(cores)
         rec = dict(
-            kernel="mpo_linear_fwd", matrix=mname, shapes=[list(c.shape) for c in cores],
-            M=m, dtype=dtype, max_abs_err=err, tol=TOL[dtype],
+            kernel=kname, matrix=mname, shapes=[list(c.shape) for c in cores],
+            M=m, dtype=dtype, max_abs_err=err, tol=TOL[dtype], **extra,
             kernel_ms=timed(lambda: MK.mpo_linear(cores, x)),
             plain_ms=timed(lambda: MK.mpo_linear_plain(cores, x)),
             library_ms=timed(lambda: torch.matmul(x, mpo.reconstruct(cores))),
@@ -216,6 +274,8 @@ def main() -> int:
         for m in (8, BATCH * PROMPT):
             for dtype in ("bfloat16", "float32"):
                 results[("mpo", mname, m, dtype)] = fwd_case(mname, cores32, m, dtype)
+    for m in (1, 100):                       # one row, and a ragged M
+        results[("mpo", "attn", m, "bfloat16")] = fwd_case("attn", mats["attn"], m, "bfloat16")
 
     def flash_case(kv, g, dh, dtype, softcap, lens):
         tdt = getattr(torch, dtype)
@@ -328,13 +388,22 @@ def main() -> int:
             for dtype in ("bfloat16", "float32"):
                 results[("mpo", mname, m, dtype)] = fwd_case(f"mamba2-130m {mname}", cores32,
                                                              m, dtype)
+        if mname == "in_proj":
+            for m in (1, 100):
+                results[("mpo", mname, m, "bfloat16")] = fwd_case(
+                    f"mamba2-130m {mname}", cores32, m, "bfloat16")
+    # the tied head, E^T (768 -> 50432), at a decode step's M = 8
+    head = mpo.transpose_cores(cores_to_list(msess.params["embed"]["cores"]))
+    results[("mpo", "head", MAMBA_BATCH, "bfloat16")] = fwd_case(
+        "mamba2-130m head", head, MAMBA_BATCH, "bfloat16")
 
     # ---- 3. the serving paths at full width ----
     def kernel_mode(cfg):
         """``cfg`` with every factorized matmul in the kernel mode."""
         return dataclasses.replace(cfg, mpo=dataclasses.replace(cfg.mpo, mode="kernel"))
 
-    counters = ((MK.mpo_linear, "launches"), (DA.flash_decode_attention, "launches"),
+    counters = ((MK.mpo_linear, "launches"), (MK.mpo_linear_mma, "launches"),
+                (DA.flash_decode_attention, "launches"),
                 (SSD.ssd_scan, "launches"), (MK.mpo_linear_plain, "calls"),
                 (DA.flash_decode_attention_plain, "calls"), (SSD.ssd_scan_plain, "calls"))
     plains = ("mpo_linear_plain", "flash_decode_attention_plain", "ssd_scan_plain")
@@ -345,6 +414,7 @@ def main() -> int:
 
     def read_counts():
         return {"mpo_linear_fwd": MK.mpo_linear.launches,
+                "mpo_linear_fwd_mma": MK.mpo_linear_mma.launches,
                 "flash_decode_attention": DA.flash_decode_attention.launches,
                 "ssd_scan": SSD.ssd_scan.launches,
                 "mpo_linear_plain": MK.mpo_linear_plain.calls,
@@ -402,23 +472,31 @@ def main() -> int:
         if not finite or tokens.shape != (batch, NEW_TOKENS):
             fail(f"{arch} weight_cache={wc}: non-finite logits or cache, or tokens of "
                  f"shape {tuple(tokens.shape)}")
-        if not wc and (per_prefill["mpo_linear_fwd"] == 0 or per_decode["mpo_linear_fwd"] == 0):
-            fail(f"{arch} weight_cache=False: prefill or decode never launched the "
-                 "MPO-linear kernel")
+        # bf16 runs the tensor-core kernel, float32 mpo_linear.cu; a
+        # factorized run launches it in prefill and decode
+        fwd, other = (("mpo_linear_fwd_mma", "mpo_linear_fwd") if sess.cfg.dtype == "bfloat16"
+                      else ("mpo_linear_fwd", "mpo_linear_fwd_mma"))
+        if not wc and (per_prefill[fwd] == 0 or per_decode[fwd] == 0):
+            fail(f"{arch} weight_cache=False: prefill or decode never launched {fwd}")
+        if per_prefill[other] or per_decode[other]:
+            fail(f"{arch} weight_cache={wc}: {other} ran on a {sess.cfg.dtype} path")
         if any(per_prefill[k] or per_decode[k] for k in plains):
             fail(f"{arch} weight_cache={wc}: a plain version ran on the card's path")
         for k in kernels:
             path_launches[k] = path_launches.get(k, 0) + per_prefill[k] + per_decode[k]
+            by_path.setdefault(k, {})[f"{arch} serve weight_cache={wc}"] = (
+                per_prefill[k] + per_decode[k])
         return handle, per_prefill, per_decode, logits.float()
 
     prompts = np.random.default_rng(SEED).integers(
         0, session.cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
     path_launches = {}
+    by_path = {}             # kernel -> {path: launches}
     prefill_logits = {}
     for wc in (True, False):
         handle, _, per_decode, prefill_logits[wc] = serve_run(
-            session, "bert-base", prompts, MAX_LEN, ("mpo_linear_fwd", "flash_decode_attention"),
-            paged=True, weight_cache=wc)
+            session, "bert-base", prompts, MAX_LEN,
+            ("mpo_linear_fwd_mma", "flash_decode_attention"), paged=True, weight_cache=wc)
         if per_decode["flash_decode_attention"] == 0:
             fail(f"weight_cache={wc}: decode never launched the flash kernel")
     diff = (prefill_logits[True] - prefill_logits[False]).abs().max().item()
@@ -468,7 +546,7 @@ def main() -> int:
             hc = L.apply_logits(cpu_params["embed"], hidden.cpu(), cfg=ccfg.mpo,
                                 phase="prefill")
             herr = ((head.cpu().float() - hc.float()).norm() / hc.float().norm()).item()
-        if any(replay[k] != per_prefill[k] for k in ("mpo_linear_fwd", "ssd_scan")):
+        if any(replay[k] != per_prefill[k] for k in ("mpo_linear_fwd_mma", "ssd_scan")):
             fail(f"mamba2-130m bf16 weight_cache={wc}: the card's replay launched {replay}, "
                  f"the timed prefill {per_prefill}")
         emit(phase="path", arch="mamba2-130m", weight_cache=wc, layer_check="card_vs_cpu",
@@ -485,8 +563,11 @@ def main() -> int:
     mamba_logits = {}
     for wc in (True, False):
         handle, per_prefill, per_decode, mamba_logits[wc] = serve_run(
-            msess, "mamba2-130m", mprompts, MAMBA_MAX_LEN, ("mpo_linear_fwd", "ssd_scan"),
+            msess, "mamba2-130m", mprompts, MAMBA_MAX_LEN, ("mpo_linear_fwd_mma", "ssd_scan"),
             weight_cache=wc)
+        # both ways the tied head runs the bf16 kernel, in prefill and decode
+        if per_prefill["mpo_linear_fwd_mma"] == 0 or per_decode["mpo_linear_fwd_mma"] == 0:
+            fail(f"mamba2-130m weight_cache={wc}: the head never launched mpo_linear_fwd_mma")
         if per_prefill["ssd_scan"] != mcfg.num_layers or per_decode["ssd_scan"]:
             fail(f"mamba2-130m weight_cache={wc}: {per_prefill['ssd_scan']} SSD-scan "
                  f"launches a prefill (expected {mcfg.num_layers}), "
@@ -505,6 +586,7 @@ def main() -> int:
     # ---- 4. float32 token parity, then the smoke model card vs CPU ----
     s32 = Session.init("bert-base", smoke=False, seed=SEED, dtype="float32")
     runs = {}
+    zero_counts()
     for name, kw in (("paged_factorized", dict(paged=True, weight_cache=False)),
                      ("paged_cached", dict(paged=True, weight_cache=True)),
                      ("dense_cached", dict(paged=False, weight_cache=True))):
@@ -526,12 +608,20 @@ def main() -> int:
             row, step = (toks != ref_tokens).nonzero()[0].tolist()
             fail(f"float32 token parity: {name} differs from dense_cached at slot {row} "
                  f"step {step} (top-2 margin there {top2[row, step, 0] - top2[row, step, 1]})")
+    f32_counts = read_counts()
     emit(phase="parity", dtype="float32", runs=sorted(runs), identical=True,
-         tokens=NEW_TOKENS, min_top2_margin=min_margin)
+         tokens=NEW_TOKENS, min_top2_margin=min_margin, launches=f32_counts)
+    if (f32_counts["mpo_linear_fwd"] == 0 or f32_counts["mpo_linear_fwd_mma"]
+            or any(f32_counts[k] for k in plains)):
+        fail(f"float32 bert-base serving: launches {f32_counts}; the f32 kernel must run, "
+             "the bf16 kernel and the plain versions not")
+    path_launches["mpo_linear_fwd"] = f32_counts["mpo_linear_fwd"]
+    by_path["mpo_linear_fwd"] = {"bert-base float32 serve (three runs)": f32_counts["mpo_linear_fwd"]}
     del s32, runs
 
     m32 = Session.init("mamba2-130m", smoke=False, seed=SEED, dtype="float32")
     mruns = {}
+    zero_counts()
     for wc in (False, True):
         h = m32.serve(MAMBA_BATCH, MAMBA_MAX_LEN, weight_cache=wc)
         logits = h.prefill({"tokens": mprompts})
@@ -543,6 +633,12 @@ def main() -> int:
             toks.append(tok)
             steps.append(lg[:, -1])
         mruns[wc] = (torch.cat(toks, 1).cpu(), torch.stack(steps, 1).cpu())
+    f32_counts = read_counts()
+    if f32_counts["mpo_linear_fwd"] == 0 or f32_counts["mpo_linear_fwd_mma"]:
+        fail(f"float32 mamba2-130m serving: launches {f32_counts}")
+    path_launches["mpo_linear_fwd"] += f32_counts["mpo_linear_fwd"]
+    by_path["mpo_linear_fwd"]["mamba2-130m float32 serve (both runs)"] = (
+        f32_counts["mpo_linear_fwd"])
     top2 = mruns[True][1].topk(2, dim=-1).values
     if not torch.equal(mruns[False][0], mruns[True][0]):
         row, step = (mruns[False][0] != mruns[True][0]).nonzero()[0].tolist()
@@ -658,9 +754,11 @@ def main() -> int:
     rep = tsess.finetune(steps=TRAIN_STEPS, seed=SEED, **ft)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    tl = {"mpo_linear_fwd": MK.mpo_linear.launches,
+    tl = {"mpo_linear_fwd_mma": MK.mpo_linear_mma.launches,
           "mpo_linear_bwd_cores": MK.mpo_linear_bwd_cores.launches}
     plain = MK.mpo_linear_plain.calls + MK.mpo_linear_bwd_cores_plain.calls
+    if MK.mpo_linear.launches:
+        fail(f"fine-tuning (bf16): {MK.mpo_linear.launches} launches of the f32 forward")
     losses = [h["loss"] for h in rep["history"]]
     unchanged = all(torch.equal(v, tsess.model.state_dict()[k]) for k, v in central.items())
     emit(phase="train", arch="bert-base", dtype=tsess.cfg.dtype, mode="lfa", remat=tsess.cfg.remat,
@@ -680,7 +778,8 @@ def main() -> int:
              f"expected {LFA_COUNTS}")
     if not central or not unchanged:
         fail("fine-tuning: a central core changed under LFA")
-    path_launches["mpo_linear_fwd"] += tl["mpo_linear_fwd"]
+    path_launches["mpo_linear_fwd_mma"] += tl["mpo_linear_fwd_mma"]
+    by_path["mpo_linear_fwd_mma"]["bert-base finetune lfa"] = tl["mpo_linear_fwd_mma"]
     path_launches["mpo_linear_bwd_cores"] = tl["mpo_linear_bwd_cores"]
     del tsess
 
@@ -712,18 +811,25 @@ def main() -> int:
 
     # ---- 6. the kernels line ----
     mk = results[("mpo", "attn", 8, "bfloat16")]
+    mf = results[("mpo", "attn", 8, "float32")]
     fk = results[("flash", "path", "bfloat16")]
     bk = results[("bwd", "attn", tokens, "bfloat16")]
     sk = results[("ssd", "path", "bfloat16")]
-    entry = lambda name, route, source, replaces, rec, case: dict(
+    entry = lambda name, route, source, replaces, rec, case, **kw: dict(
         name=name, route=route, source=source, replaces=replaces,
         launches=path_launches[name], max_abs_err=rec["max_abs_err"],
         ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-        bound_by=rec["bound_by"], library_ms=rec["library_ms"], case=case)
+        bound_by=rec["bound_by"], library_ms=rec["library_ms"], case=case, **kw)
     emit(kernels=[
-        entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu",
+        entry("mpo_linear_fwd_mma", "cuda", "src/repro_torch/csrc/mpo_linear_mma.cu",
               "src/repro/kernels/mpo_linear.py:216", mk,
-              "bert-base attention matrix, M=8 (a decode step), bfloat16"),
+              "bert-base attention matrix, M=8 (a decode step), bfloat16",
+              launches_by_path=by_path["mpo_linear_fwd_mma"],
+              workspace_bytes=mk["workspace_bytes"]),
+        entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu",
+              "src/repro/kernels/mpo_linear.py:216", mf,
+              "bert-base attention matrix, M=8 (a decode step), float32",
+              launches_by_path=by_path["mpo_linear_fwd"]),
         entry("flash_decode_attention", "cuda", "src/repro_torch/csrc/decode_attention.cu",
               "src/repro/kernels/decode_attention.py:166", fk,
               "bert-base geometry KV=12 G=1 Dh=64 ps=16, 8 slots at 144 keys, bfloat16"),

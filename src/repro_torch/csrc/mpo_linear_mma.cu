@@ -1,0 +1,632 @@
+// MPO-linear forward in bfloat16 for Hopper: y[M, J] = x[M, I] @ W(cores),
+// with W rebuilt in f32 on chip and its product with x on the tensor cores.
+// W is never written to device memory.
+//
+// Replaces the Pallas TPU kernel repro/kernels/mpo_linear.py:_fwd_call /
+// _fwd_kernel for bfloat16 activations (float32 keeps csrc/mpo_linear.cu).
+//
+// Function.  The core chain is split at a bond s (kernels/mpo_linear.py:
+// _mma_plan): with I = (ip, is) and J = (jp, js) the row-major digit groups
+// of cores [0, s) and [s, n),
+//     W[ip, is, jp, js] = sum_d L[ip, jp, d] * R[d, is, js],
+// L the contraction of the prefix cores, R of the suffix cores, both in f32.
+// Each f32 value w of W enters the product as two bf16 values,
+// w_hi = bf16(w) and w_lo = bf16(w - w_hi), which together carry ~16 bits
+// of w; x * w_hi + x * w_lo is summed in f32 over all of I and y is rounded
+// to bf16 once.  That is the arithmetic of csrc/mpo_linear.cu and of the
+// plain version, in another order.
+//
+// Design.
+//   1. Two prologue kernels contract, once a call, the suffix cores into R
+//      (f32, d_s * Is * Js values, laid out [d][js][is]) and the prefix
+//      cores 0..s-2 into P[ipp, jpp, :] (f32), both into the workspace.
+//      With ip = (ipp, ik) and jp = (jpp, jk) split at the last prefix
+//      core, L[ip, jp, :] = P[ipp, jpp, :] . core_{s-1}[:, ik, jk, :].
+//   2. mma_kernel: one block owns a BM x 128 output tile and a contiguous
+//      range of BK = 32-row stages of I; 8 warps copy, rebuild and multiply
+//      (at BM = 128, 8 more form L, see kSplitWarps).  It copies R into shared
+//      memory with cp.async once, and double-buffers the x stage with
+//      cp.async.  L is double-buffered too: while a stage rebuilds W from
+//      this L (and, at BM = 128, multiplies), the next ip's L is formed in
+//      one step from P (16-byte loads
+//      of core rows, each applied to the two L vectors that read it, the sum
+//      over d_{s-1} split over up to 8 lanes and added in a fixed order).  The 32 x 128 W stage is rebuilt register-tiled:
+//      each thread owns 4 is rows x TC jp columns that share one js, so per
+//      d it reads one float4 of R and one float4 (float2) of L and does
+//      4 x TC FMAs (0.5 shared reads an FMA at TC = 4).  R ([d][js][is])
+//      and L ([q][d][jq]) are laid out so that a warp's reads are contiguous
+//      or broadcast.  The f32 values go to two bf16 stage tiles (hi, lo) at
+//      a padded row pitch of 272 bytes.  The warps then load x (ldmatrix)
+//      and W (ldmatrix.trans) fragments, conflict-free at the 80- and
+//      272-byte pitches, and issue mma.sync.m16n8k16 (bf16 in, f32
+//      accumulate) against W_hi and W_lo.
+//   3. Few rows (at most 64): the stages are split over S blocks per tile so
+//      the grid fills the card; each split writes f32 partials [S, M, J] and
+//      reduce_kernel sums them in split order and rounds once.  No atomics:
+//      two launches give the same bits.
+//
+// What bounds it on this card.  The product is M * I * J FMAs on the tensor
+// cores (doubled by the hi/lo pair), but the rebuild runs on the CUDA cores
+// in f32: ceil(M / BM) * I * J * d_s FMAs a call, and each block forms the
+// L of every (ip, jp) it touches, reading d_{s-1} x d_s core rows from L2
+// for each.  With 8 to 16 warps an SM and a barrier between the rebuild and
+// the product, both are latency-bound, the L step the most (it sets the pace
+// at bert-base's matrices, PERF.md).  The next step is the rebuild
+// itself as a batched [Is x d_s] . [d_s x njp] tensor-core product for each
+// js, then wgmma with TMA-fed stages and warps specialised to load, rebuild
+// and multiply, so the core rows' latency hides behind the products.
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MAXN = 8;
+constexpr int THREADS = 256;          // 8 warps
+constexpr int BN = 128;               // output tile columns
+constexpr int BK = 32;                // rows of I a stage
+constexpr int XP = BK + 8;            // x stage row pitch (bf16): 80 B
+constexpr int WP = BN + 8;            // W stage row pitch (bf16): 272 B
+constexpr int PC = 8;                 // digit pairs a prologue block
+
+struct Args {
+  const bf16* core[MAXN];
+  int bond[MAXN + 1];  // d_0 .. d_n  (d_0 = d_n = 1)
+  int fin[MAXN];       // i_k
+  int fout[MAXN];      // j_k
+  int sin[MAXN];       // place value of core k's i digit within its group (ip or is)
+  int sout[MAXN];      // the same for the j digit (jp or js)
+  int n, s;
+  int I, J, Is, Js, Ip, Jp;
+  int M;
+  int ds, dmax;
+  int Isb;             // rows of one ip within a stage: min(Is, BK)
+  int nq;              // ip values a stage covers: BK / Isb
+  int njq;             // jp values a tile covers: BN / Js
+  int nst;             // stages over I
+  int per;             // stages a split
+  int S;               // splits
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// R[d][js][is] for the suffix cores s..n-1, contracted right to left, PC
+// (is, js) pairs a block, every thread on one (pair, row) output.
+__global__ void __launch_bounds__(THREADS) suffix_kernel(Args a, float* __restrict__ R) {
+  extern __shared__ float sbuf[];
+  float* in = sbuf;                 // [PC][dmax]
+  float* out = sbuf + PC * a.dmax;  // [PC][dmax]
+  const int npair = a.Is * a.Js;
+  const int pc0 = blockIdx.x * PC;
+  const int np = min(PC, npair - pc0);
+  for (int k = a.n - 1; k >= a.s; --k) {
+    const bf16* c = a.core[k];
+    const int d0 = a.bond[k], d1 = a.bond[k + 1];
+    const long row = (long)a.fin[k] * a.fout[k] * d1;
+    for (int e = threadIdx.x; e < np * d0; e += THREADS) {
+      const int p = e / d0, r = e % d0;
+      const int pair = pc0 + p;
+      const int is = pair / a.Js, js = pair % a.Js;
+      const int ik = (is / a.sin[k]) % a.fin[k];
+      const int jk = (js / a.sout[k]) % a.fout[k];
+      const long base = r * row + ((long)ik * a.fout[k] + jk) * d1;
+      float acc;
+      if (k == a.n - 1) {
+        acc = repro::ld(c, base);  // d_n = 1
+      } else {
+        acc = 0.f;
+        const float* v = in + p * a.dmax;
+#pragma unroll 8
+        for (int b = 0; b < d1; ++b) acc += repro::ld(c, base + b) * v[b];
+      }
+      if (k == a.s) R[((long)r * a.Js + js) * a.Is + is] = acc;
+      else out[p * a.dmax + r] = acc;
+    }
+    __syncthreads();
+    float* t = in;
+    in = out;
+    out = t;
+  }
+}
+
+// P[ipp, jpp, :] for the prefix cores 0..s-2, left to right, PC digit pairs
+// a block: ip = ipp * i_{s-1} + ik and jp = jpp * j_{s-1} + jk, so each
+// stage's L[ip, jp, :] = P[ipp, jpp, :] . core_{s-1}[:, ik, jk, :] is one
+// step.  P = [1] when s = 1.
+__global__ void __launch_bounds__(THREADS) prefix_kernel(Args a, float* __restrict__ P) {
+  extern __shared__ float sbuf[];
+  float* in = sbuf;                 // [PC][dmax]
+  float* out = sbuf + PC * a.dmax;  // [PC][dmax]
+  if (a.s == 1) {
+    if (threadIdx.x == 0) P[0] = 1.f;
+    return;
+  }
+  const int fi = a.fin[a.s - 1], fo = a.fout[a.s - 1];
+  const int Jpp = a.Jp / fo;
+  const int npair = a.Ip / fi * Jpp;
+  const int pc0 = blockIdx.x * PC;
+  const int np = min(PC, npair - pc0);
+  for (int k = 0; k < a.s - 1; ++k) {
+    const bf16* c = a.core[k];
+    const int d0 = a.bond[k], d1 = a.bond[k + 1];
+    const long row = (long)a.fin[k] * a.fout[k] * d1;
+    for (int e = threadIdx.x; e < np * d1; e += THREADS) {
+      const int p = e / d1, col = e % d1;
+      const int pair = pc0 + p;
+      const int ip = pair / Jpp * fi, jp = pair % Jpp * fo;
+      const int ik = (ip / a.sin[k]) % a.fin[k];
+      const int jk = (jp / a.sout[k]) % a.fout[k];
+      const long base = ((long)ik * a.fout[k] + jk) * d1 + col;
+      float v;
+      if (k == 0) {
+        v = repro::ld(c, base);  // d_0 = 1
+      } else {
+        v = 0.f;
+        const float* u = in + p * a.dmax;
+#pragma unroll 8
+        for (int r = 0; r < d0; ++r) v += u[r] * repro::ld(c, r * row + base);
+      }
+      if (k == a.s - 2) P[(long)pair * d1 + col] = v;
+      else out[p * a.dmax + col] = v;
+    }
+    __syncthreads();
+    float* t = in;
+    in = out;
+    out = t;
+  }
+}
+
+// Shared memory of mma_kernel, in bytes (kernels/mpo_linear.py:_mma_smem_bytes
+// mirrors it): R, the two x stages, two L buffers, the W_hi / W_lo stages.
+__host__ __device__ inline size_t round16(size_t b) { return (b + 15) / 16 * 16; }
+__host__ __device__ inline size_t lt_bytes(const Args& a) {
+  return round16(sizeof(float) * (size_t)a.nq * a.ds * a.njq);
+}
+inline size_t mma_smem(const Args& a, int bm) {
+  return sizeof(float) * (size_t)a.ds * a.Is * a.Js + 2 * sizeof(bf16) * (size_t)bm * XP +
+         2 * lt_bytes(a) + 2 * sizeof(bf16) * (size_t)BK * WP;
+}
+// floats of P: the prefix contraction through cores 0..s-2
+inline long p_floats(const Args& a) {
+  return a.s == 1 ? 1 : (long)(a.Ip / a.fin[a.s - 1]) * (a.Jp / a.fout[a.s - 1]) * a.bond[a.s - 1];
+}
+
+// 128-row tiles add 8 warps that form the next stage's L while the first 8
+// rebuild and multiply (one block an SM at 128 registers); smaller tiles keep
+// 8 warps, two blocks an SM, and form L between the two
+template <int BM>
+constexpr bool kSplitWarps = BM >= 128;
+
+template <int BM, int TC>
+__global__ void __launch_bounds__(kSplitWarps<BM> ? 2 * THREADS : THREADS,
+                                  kSplitWarps<BM> ? 1 : 2)
+mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
+           const float* __restrict__ Rg, const float* __restrict__ P,
+           float* __restrict__ part) {
+  constexpr int WARPS_M = BM >= 128 ? 2 : 1;
+  constexpr int WARPS_N = 8 / WARPS_M;
+  constexpr int WTM = BM / WARPS_M;
+  constexpr int WTN = BN / WARPS_N;
+  constexpr int MT = WTM / 16, NT = WTN / 8;
+  static_assert(NT % 2 == 0, "W fragments are loaded two n-tiles at a time");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rsz = a.ds * a.Is * a.Js;
+  float* Rs = reinterpret_cast<float*>(smem);                  // [ds][Js][Is]
+  bf16* xs = reinterpret_cast<bf16*>(Rs + rsz);                // [2][BM][XP]
+  float* Lt0 = reinterpret_cast<float*>(xs + 2 * BM * XP);     // 2 x [nq][ds][njq]
+  float* Lt1 = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Lt0) + lt_bytes(a));
+  bf16* Whi = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(Lt1) + lt_bytes(a));
+  bf16* Wlo = Whi + BK * WP;                                   // [BK][WP]
+
+  constexpr bool WS = kSplitWarps<BM>;
+  const bool lwarp = WS && threadIdx.x >= THREADS;  // an L warp
+  const int tid = threadIdx.x % THREADS, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int c0 = blockIdx.x * BN;
+  const int split = blockIdx.y;
+  const int m0 = blockIdx.z * BM;
+  const int st0 = split * a.per;
+  const int st1 = min(a.nst, st0 + a.per);
+  const int jp0 = c0 / a.Js;
+
+  auto load_x = [&](int st, int buf) {
+    const int i0 = st * BK;
+    bf16* dst = xs + buf * BM * XP;
+    for (int e = tid; e < BM * (BK / 8); e += THREADS) {
+      const int r = e / (BK / 8), ch = e % (BK / 8);
+      const int m = m0 + r, i = i0 + ch * 8;
+      const bool ok = m < a.M && i < a.I;       // I % 8 == 0: whole chunks
+      cp_async16(dst + r * XP + ch * 8, ok ? x + (long)m * a.I + i : x, ok ? 16 : 0);
+    }
+  };
+
+  // L[ip, jp0 + jq, :] of a stage's ip, one step from P through the last
+  // prefix core, written to Lb; zero for ip or jp past the matrix's edge.
+  // With ds % 8 == 0 on a 16-byte aligned core a task reads 8 columns of a
+  // core row in one 16-byte load and applies it to the VG <= 2 vectors of
+  // the stage that read the same row (jq equal mod j_{s-1}, one jk: half the
+  // L2 traffic; more vectors a task spill registers), and the RP lanes of
+  // one task split the sum over r and add their parts by a fixed butterfly
+  // (same bits every launch).
+  auto lstage = [&](int st, float* Lb) {
+    const int ipb = st * BK / a.Is;
+    const int nvec = a.nq * a.njq;
+    const int k = a.s - 1;
+    const bf16* c = a.core[k];
+    const int d0 = a.bond[k], fi = a.fin[k], fo = a.fout[k];
+    const int Jpp = a.Jp / fo;
+    const long row = (long)fi * fo * a.ds;
+    if (a.ds % 8 == 0 && (reinterpret_cast<uintptr_t>(c) & 15) == 0) {
+      const int per_jk = a.njq % fo == 0 ? a.njq / fo : 1;
+      const int VG = per_jk % 2 == 0 ? 2 : 1;
+      const int nvt = nvec / VG;             // vector groups
+      const int n8 = a.ds / 8;
+      const int ntask = nvt * n8;
+      int RP = 1;
+      while (RP < 8 && ntask * RP * 2 <= THREADS) RP *= 2;
+      const int part = tid % RP;
+      const long rstride = row / 8;
+      for (int t0 = 0; t0 < ntask; t0 += THREADS / RP) {
+        const int task = t0 + tid / RP;
+        const int vt = task / n8, c8 = task % n8;
+        const int q = vt / (a.njq / VG), rem = vt % (a.njq / VG);
+        const int ip = ipb + q;
+        // the group's jq: jqb and jqb + fo, one jk
+        const int jqb = rem % fo + fo * (rem / fo) * VG;
+        float v[2][8];
+        const float* u[2];
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int jp = jp0 + jqb + fo * g;
+          u[g] = (g < VG && jp < a.Jp) ? P + ((long)(ip / fi) * Jpp + jp / fo) * d0 : nullptr;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[g][e] = 0.f;
+        }
+        if (task < ntask && ip < a.Ip && u[0] != nullptr) {
+          const uint4* src = reinterpret_cast<const uint4*>(
+              c + ((long)(ip % fi) * fo + (jp0 + jqb) % fo) * a.ds + 8 * c8);
+#pragma unroll 8
+          for (int r = part; r < d0; r += RP) {
+            const uint4 raw = __ldg(src + r * rstride);
+            const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+            float f[8];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 t = __bfloat1622float2(h[e]);
+              f[2 * e] = t.x;
+              f[2 * e + 1] = t.y;
+            }
+#pragma unroll
+            for (int g = 0; g < 2; ++g) {
+              if (u[g] == nullptr) continue;
+              const float ur = __ldg(u[g] + r);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) v[g][e] = fmaf(ur, f[e], v[g][e]);
+            }
+          }
+        }
+#pragma unroll
+        for (int o = 1; o < RP; o *= 2)
+#pragma unroll
+          for (int g = 0; g < 2; ++g)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[g][e] += __shfl_xor_sync(0xffffffffu, v[g][e], o);
+        if (task < ntask && part == 0) {
+#pragma unroll
+          for (int g = 0; g < 2; ++g) {
+            if (g >= VG) break;
+            const int jq = jqb + fo * g;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) Lb[(q * a.ds + 8 * c8 + e) * a.njq + jq] = v[g][e];
+          }
+        }
+      }
+    } else {
+      for (int e = tid; e < nvec * a.ds; e += THREADS) {
+        const int vi = e / a.ds, col = e % a.ds;
+        const int q = vi / a.njq, jq = vi % a.njq;
+        const int ip = ipb + q, jp = jp0 + jq;
+        float v = 0.f;
+        if (ip < a.Ip && jp < a.Jp) {
+          const long base = ((long)(ip % fi) * fo + jp % fo) * a.ds + col;
+          const float* u = P + ((long)(ip / fi) * Jpp + jp / fo) * d0;
+#pragma unroll 8
+          for (int r = 0; r < d0; ++r) v += __ldg(u + r) * repro::ld(c, r * row + base);
+        }
+        Lb[(q * a.ds + col) * a.njq + jq] = v;
+      }
+    }
+  };
+
+  // the W stage: thread patches of 4 is rows (one ip) x TC jp columns (one js)
+  auto rebuild = [&](int st, const float* Lt) {
+    const int isoff = st * BK % a.Is;  // 0 when Is < BK
+    const int G = a.Isb / 4;
+    const int U = G * a.Js;
+    const int NJG = a.njq / TC;
+    const int npatch = U * a.nq * NJG;  // BK * BN / (4 * TC)
+    const int rstep = a.Js * a.Is;
+    for (int p = tid; p < npatch; p += THREADS) {
+      const int u = p % U, v = p / U;
+      const int g = u % G, js = u / G;
+      const int jg = v % NJG, q = v / NJG;
+      const float* rp = Rs + js * a.Is + isoff + 4 * g;
+      const float* lp = Lt + q * a.ds * a.njq + jg * TC;
+      float acc[4][TC];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < TC; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < a.ds; ++d) {
+        const float4 rv = *reinterpret_cast<const float4*>(rp + d * rstep);
+        const float rr[4] = {rv.x, rv.y, rv.z, rv.w};
+        float lv[TC];
+        if constexpr (TC == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(lp + d * a.njq);
+          lv[0] = t.x; lv[1] = t.y; lv[2] = t.z; lv[3] = t.w;
+        } else {
+          const float2 t = *reinterpret_cast<const float2*>(lp + d * a.njq);
+          lv[0] = t.x; lv[1] = t.y;
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < TC; ++c) acc[r][c] = fmaf(lv[c], rr[r], acc[r][c]);
+      }
+      const int kk0 = q * a.Isb + 4 * g;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < TC; ++c) {
+          const int idx = (kk0 + r) * WP + (jg * TC + c) * a.Js + js;
+          const float w = acc[r][c];
+          const bf16 hi = __float2bfloat16(w);
+          Whi[idx] = hi;
+          Wlo[idx] = __float2bfloat16(w - __bfloat162float(hi));
+        }
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  auto product = [&](int buf) {
+    const bf16* xb = xs + buf * BM * XP;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(af[mt], xb + (wm * WTM + mt * 16 + (lane & 15)) * XP + kk + (lane >> 4) * 8);
+      const int krow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        const int ncol = wn * WTN + nt * 8 + (lane >> 4) * 8;
+        uint32_t bh[4], bl[4];
+        ldmatrix_x4_trans(bh, Whi + krow * WP + ncol);
+        ldmatrix_x4_trans(bl, Wlo + krow * WP + ncol);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][nt], af[mt], bh[0], bh[1]);
+          mma_bf16(acc[mt][nt], af[mt], bl[0], bl[1]);
+          mma_bf16(acc[mt][nt + 1], af[mt], bh[2], bh[3]);
+          mma_bf16(acc[mt][nt + 1], af[mt], bl[2], bl[3]);
+        }
+      }
+    }
+  };
+
+  if (!lwarp) {
+    for (int e = tid; e < rsz / 4; e += THREADS) cp_async16(Rs + 4 * e, Rg + 4 * e, 16);
+    if (st0 < st1) load_x(st0, 0);
+    cp_async_commit();
+  }
+  if ((!WS || lwarp) && st0 < st1) lstage(st0, Lt0);
+  float* Lcur = Lt0;
+  float* Lnext = Lt1;
+  for (int st = st0; st < st1; ++st) {
+    const int buf = (st - st0) & 1;
+    if (!lwarp) {
+      if (st + 1 < st1) load_x(st + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait1();  // R and this stage's x have landed
+    }
+    __syncthreads();     // ... and this stage's L
+    // the next stage's L (when its ip changes) alongside this stage's W
+    const bool newL = st + 1 < st1 && (st + 1) * BK % a.Is == 0;
+    if ((!WS || lwarp) && newL) lstage(st + 1, Lnext);
+    if (!lwarp) {
+      rebuild(st, Lcur);
+      if (WS) asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS));  // the 8 W warps
+      else __syncthreads();
+      product(buf);
+    }
+    __syncthreads();
+    if (newL) {
+      float* t = Lcur;
+      Lcur = Lnext;
+      Lnext = t;
+    }
+  }
+  if (lwarp) return;
+
+  // epilogue: one rounding to bf16 (or the split's f32 partial), ragged
+  // M and J edges masked
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = c0 + wn * WTN + nt * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * WTM + mt * 16 + (lane >> 2) + 8 * h;
+        if (m >= a.M) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (col + e >= a.J) continue;
+          const float v = acc[mt][nt][2 * h + e];
+          if (a.S == 1) y[(long)m * a.J + col + e] = __float2bfloat16(v);
+          else part[((long)split * a.M + m) * a.J + col + e] = v;
+        }
+      }
+    }
+}
+
+// y = bf16(sum of the S partials, in split order)
+__global__ void __launch_bounds__(THREADS)
+reduce_kernel(const float* __restrict__ part, bf16* __restrict__ y, long mj, int S) {
+  for (long i = blockIdx.x * (long)THREADS + threadIdx.x; i < mj; i += (long)gridDim.x * THREADS) {
+    float v = 0.f;
+    for (int k = 0; k < S; ++k) v += part[k * mj + i];
+    y[i] = __float2bfloat16(v);
+  }
+}
+
+// Fills a from the core shapes; false when the kernel cannot take them.
+bool make_args(Args& a, const void* const* cores, const int* shapes, int n, int split, int M,
+               int S) {
+  if (n < 2 || n > MAXN || split < 1 || split >= n || S < 1) return false;
+  a.n = n;
+  a.s = split;
+  a.I = a.J = a.Is = a.Js = 1;
+  a.dmax = 1;
+  for (int k = 0; k < n; ++k) {
+    a.core[k] = cores ? static_cast<const bf16*>(cores[k]) : nullptr;
+    a.bond[k] = shapes[4 * k];
+    a.fin[k] = shapes[4 * k + 1];
+    a.fout[k] = shapes[4 * k + 2];
+    a.I *= a.fin[k];
+    a.J *= a.fout[k];
+    if (k >= split) {
+      a.Is *= a.fin[k];
+      a.Js *= a.fout[k];
+    }
+    a.dmax = a.bond[k] > a.dmax ? a.bond[k] : a.dmax;
+  }
+  a.bond[n] = shapes[4 * (n - 1) + 3];
+  a.dmax = a.bond[n] > a.dmax ? a.bond[n] : a.dmax;
+  a.Ip = a.I / a.Is;
+  a.Jp = a.J / a.Js;
+  a.M = M;
+  a.ds = a.bond[split];
+  for (int k = n - 1, pi = 1, po = 1; k >= 0; --k) {
+    if (k == split - 1) pi = po = 1;
+    a.sin[k] = pi;
+    a.sout[k] = po;
+    pi *= a.fin[k];
+    po *= a.fout[k];
+  }
+  if (a.I % 8 || a.Is % 4 || (a.Is % BK && BK % a.Is) || BN % a.Js) return false;
+  a.Isb = a.Is < BK ? a.Is : BK;
+  a.nq = BK / a.Isb;
+  a.njq = BN / a.Js;
+  a.nst = (a.I + BK - 1) / BK;
+  a.per = (a.nst + S - 1) / S;
+  a.S = S;
+  return (a.nst + a.per - 1) / a.per == S;
+}
+
+template <int BM, int TC>
+int launch_main(const Args& a, const void* x, void* y, const float* R, const float* P,
+                float* part, cudaStream_t st) {
+  const size_t smem = mma_smem(a, BM);
+  cudaError_t err = repro::allow_smem(mma_kernel<BM, TC>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.J + BN - 1) / BN, a.S, (a.M + BM - 1) / BM);
+  mma_kernel<BM, TC><<<grid, kSplitWarps<BM> ? 2 * THREADS : THREADS, smem, st>>>(a, static_cast<const bf16*>(x),
+                                                  static_cast<bf16*>(y), R, P, part);
+  return (int)cudaGetLastError();
+}
+
+template <int BM>
+int launch_tc(int tc, const Args& a, const void* x, void* y, const float* R, const float* P,
+              float* part, cudaStream_t st) {
+  if (tc == 4 && a.njq % 4 == 0) return launch_main<BM, 4>(a, x, y, R, P, part, st);
+  if (tc == 2 && a.njq % 2 == 0) return launch_main<BM, 2>(a, x, y, R, P, part, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Floats of workspace one call takes: R, P, then (S > 1) the [S, M, J]
+// partials.
+extern "C" long mpo_linear_mma_workspace(const int* shapes, int n, int split, int M, int S) {
+  Args a;
+  if (!make_args(a, nullptr, shapes, n, split, M, S)) return -1;
+  return (long)a.ds * a.Is * a.Js + p_floats(a) + (S > 1 ? (long)S * M * a.J : 0);
+}
+
+// Dynamic shared memory of the main kernel at row tile bm, in bytes.
+extern "C" long mpo_linear_mma_smem(const int* shapes, int n, int split, int bm) {
+  Args a;
+  if (!make_args(a, nullptr, shapes, n, split, 1, 1)) return -1;
+  return (long)mma_smem(a, bm);
+}
+
+// cores: n bf16 device pointers; shapes: n * 4 ints (d0, i, j, d1) per core.
+// bm: 16, 64 or 128 rows an output tile; tc: 4 or 2 jp columns a rebuild
+// patch; S: splits of I.  x [M, I] and y [M, J] bf16; ws: the workspace.
+// Returns cudaGetLastError() after the launches (0 = launched).
+extern "C" int mpo_linear_mma_fwd(const void* const* cores, const int* shapes, int n, int split,
+                                  int bm, int tc, int S, const void* x, void* y, int M, void* ws,
+                                  void* stream) {
+  Args a;
+  if (!make_args(a, cores, shapes, n, split, M, S)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* R = static_cast<float*>(ws);
+  const long rsz = (long)a.ds * a.Is * a.Js;
+  float* P = R + rsz;
+  float* part = P + p_floats(a);
+  const size_t ssmem = 2 * sizeof(float) * PC * a.dmax;
+  suffix_kernel<<<(a.Is * a.Js + PC - 1) / PC, THREADS, ssmem, st>>>(a, R);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  prefix_kernel<<<(p_floats(a) / a.bond[a.s - 1] + PC - 1) / PC, THREADS, ssmem, st>>>(a, P);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  if (bm == 128) rc = launch_tc<128>(tc, a, x, y, R, P, part, st);
+  else if (bm == 64) rc = launch_tc<64>(tc, a, x, y, R, P, part, st);
+  else if (bm == 16) rc = launch_tc<16>(tc, a, x, y, R, P, part, st);
+  else rc = (int)cudaErrorInvalidValue;
+  if (rc || S == 1) return rc;
+  const long mj = (long)M * a.J;
+  const int blocks = (int)((mj + THREADS - 1) / THREADS < 4096 ? (mj + THREADS - 1) / THREADS : 4096);
+  reduce_kernel<<<blocks, THREADS, 0, st>>>(part, static_cast<bf16*>(y), mj, S);
+  return (int)cudaGetLastError();
+}

@@ -1,31 +1,39 @@
 """Fused, differentiable MPO-linear: ``y = x @ W(cores)`` with W rebuilt on
 chip and never written to device memory, forward and backward.
 
-Two CUDA kernels replace the Pallas TPU kernels of
+Three CUDA kernels replace the Pallas TPU kernels of
 ``repro/kernels/mpo_linear.py``:
 
-* ``mpo_linear`` (``csrc/mpo_linear.cu``) replaces ``_fwd_call`` /
-  ``_fwd_kernel``.  The core chain is split at a bond s,
-  ``W[ip, is, jp, js] = sum_d L[ip, jp, d] R[d, is, js]``; each block keeps
-  the suffix contraction R in shared memory, rebuilds W sub-blocks from it
-  and the prefix vectors L, and loops over all of I with f32 accumulators.
+* ``mpo_linear_mma`` (``csrc/mpo_linear_mma.cu``) replaces ``_fwd_call`` /
+  ``_fwd_kernel`` for bfloat16.  The core chain is split at a bond s,
+  ``W[ip, is, jp, js] = sum_d L[ip, jp, d] R[d, is, js]``; R is contracted
+  once a call, each block rebuilds W stages in f32 from R and the prefix
+  vectors L and multiplies them on the tensor cores (``mma.sync``), W
+  entering as the exact pair ``bf16(W)`` + ``bf16(W - bf16(W))``; few rows
+  split I across blocks and sum the f32 partials in a second pass.
+* ``mpo_linear`` (``csrc/mpo_linear.cu``) is the same forward for float32,
+  on the CUDA cores: each block keeps R in shared memory, rebuilds W
+  sub-blocks and loops over all of I with f32 accumulators.  ``mpo_linear``
+  is also the entry point of both: bfloat16 goes to ``mpo_linear_mma``.
 * ``mpo_linear_bwd_cores`` (``csrc/mpo_linear_bwd.cu``) replaces
   ``_bwd_cores_call`` / ``_bwd_cores_kernel``: tiles of ``dW = x^T dy`` are
   formed in shared memory only and pulled back through the same split into
   per-core gradients, without atomics, so two runs give the same bits.
 
 ``MPOLinearFn`` is the autograd function around them (the reference's
-``_mpo_linear`` custom VJP): ``dL/dx`` is the forward kernel over i/j-swapped
+``_mpo_linear`` custom VJP): ``dL/dx`` is the forward over i/j-swapped
 cores, ``dL/dcores`` the backward kernel.  Each wrapper launches its kernel
 for CUDA tensors and takes its plain version only for CPU tensors.
-``kernel_eligible`` is the engine's gate: it admits what the kernels handle
-(the TPU's 8 x 128 tile alignment and 16 MiB VMEM budget do not apply on
-Hopper); with ``train=True`` both orientations and the backward must fit.
+``kernel_eligible`` is the engine's gate: it admits what the kernel of the
+activation dtype handles (the TPU's 8 x 128 tile alignment and 16 MiB VMEM
+budget do not apply on Hopper); with ``train=True`` both orientations and
+the backward must fit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Sequence
@@ -82,6 +90,114 @@ def _launch_plan(shapes: tuple, tile: int = 0) -> tuple[int, int] | None:
         if best is None or cost < best[0]:
             best = (cost, s, njp)
     return None if best is None else best[1:]
+
+
+# must match csrc/mpo_linear_mma.cu: the output tile's columns, the rows of
+# I a stage, the x and W stage row pitches (bf16)
+MMA_BN, MMA_BK = 128, 32
+MMA_XP, MMA_WP = MMA_BK + 8, MMA_BN + 8
+MMA_SMS = 132                        # the H100's SMs: split I up to two waves
+SPLIT_M = 64                         # at most this many rows: I split across blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class MmaPlan:
+    split: int          # bond s of the L / R split
+    bm: int             # rows an output tile: 16, 64 or 128
+    tc: int             # jp columns a rebuild patch: 4 or 2
+    splits: int         # S, blocks that share one tile's stages of I
+    smem: int           # dynamic shared memory of the main kernel, bytes
+    workspace: int      # bytes of scratch: R, P, then the [S, M, J] f32 partials
+
+
+def _mma_geometry(shapes: Sequence[tuple], s: int) -> dict | None:
+    """The stage and tile geometry of bond s, as ``make_args`` in the CUDA
+    source derives it, or None when the kernel cannot take it: I in whole
+    16-byte chunks, whole 4-row patches of is that divide or are divided by
+    a stage, whole js groups in a tile and at least two jp a tile."""
+    i_dim = math.prod(c[1] for c in shapes)
+    i_s = math.prod(c[1] for c in shapes[s:])
+    j_s = math.prod(c[2] for c in shapes[s:])
+    if i_dim % 8 or i_s % 4 or (i_s % MMA_BK and MMA_BK % i_s) or MMA_BN % j_s:
+        return None
+    njq = MMA_BN // j_s
+    if njq < 2:
+        return None
+    isb = min(i_s, MMA_BK)
+    j_dim = math.prod(c[2] for c in shapes)
+    # P: the prefix cores 0..s-2 contracted for every (ip, jp) digit pair
+    p = 1 if s == 1 else (i_dim // i_s // shapes[s - 1][1] * (j_dim // j_s // shapes[s - 1][2])
+                          * shapes[s - 1][0])
+    return dict(ds=shapes[s][0], i_s=i_s, j_s=j_s, nq=MMA_BK // isb, njq=njq,
+                tc=4 if njq % 4 == 0 else 2, p=p)
+
+
+def _mma_smem_bytes(g: dict, bm: int) -> int:
+    """``mma_smem`` in the CUDA source: R, two x stages, two L buffers and
+    the W_hi / W_lo stages."""
+    lt = -(-4 * g["nq"] * g["ds"] * g["njq"] // 16) * 16
+    return (4 * g["ds"] * g["i_s"] * g["j_s"] + 2 * 2 * bm * MMA_XP + 2 * lt
+            + 2 * 2 * MMA_BK * MMA_WP)
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_split(shapes: tuple) -> int | None:
+    """The bond the bf16 kernel splits at, or None.  Among the bonds it can
+    take whose shared memory fits at the largest tile and whose scratch R
+    and P stay within an eighth of a bf16 W, the least work a block does
+    per stage: the W rebuild (``BK * BN * d_s`` FMAs, dearer per FMA with
+    2-column patches) and the prefix vectors of the stage's (ip, jp), one
+    step through the last prefix core, amortized over the stages that share
+    one ip."""
+    n = len(shapes)
+    if not 2 <= n <= MAXN or shapes[0][0] != 1 or shapes[-1][3] != 1:
+        return None
+    if any(a[3] != b[0] for a, b in zip(shapes, shapes[1:])):
+        return None
+    w_bytes = 2 * math.prod(c[1] for c in shapes) * math.prod(c[2] for c in shapes)
+    best = None
+    for s in range(1, n):
+        g = _mma_geometry(shapes, s)
+        if g is None or _mma_smem_bytes(g, 128) > SMEM_LIMIT:
+            continue
+        if 4 * (g["ds"] * g["i_s"] * g["j_s"] + g["p"]) * 8 > w_bytes:
+            continue
+        rebuild = MMA_BK * MMA_BN * g["ds"] * (1 + 1 / g["tc"])
+        step = shapes[s - 1][0] * shapes[s - 1][3]
+        prefix = g["nq"] * g["njq"] * step / max(1, g["i_s"] // MMA_BK)
+        if best is None or rebuild + prefix < best[0]:
+            best = (rebuild + prefix, s)
+    return None if best is None else best[1]
+
+
+def _mma_splits(i_dim: int, j_dim: int, m: int, bm: int) -> int:
+    """S: 1 above ``SPLIT_M`` rows or when the tiles already fill two waves
+    of the card; else enough splits of I's stages for about two waves, at
+    most one a stage and few enough that the f32 partials stay within an
+    eighth of a bf16 W (with R and P, the scratch stays under a quarter)."""
+    nst = -(-i_dim // MMA_BK)
+    blocks = -(-j_dim // MMA_BN) * -(-m // bm)
+    if m > SPLIT_M or blocks >= 2 * MMA_SMS:
+        return 1
+    s = min(nst, -(-2 * MMA_SMS // blocks), max(1, i_dim // (16 * m)))
+    per = -(-nst // s)
+    return -(-nst // per)
+
+
+@functools.lru_cache(maxsize=4096)
+def _mma_plan(shapes: tuple, m: int) -> MmaPlan | None:
+    """The bf16 kernel's launch for these core shapes at ``m`` rows, or None
+    when it cannot take the shapes."""
+    s = _mma_split(shapes)
+    if s is None:
+        return None
+    g = _mma_geometry(shapes, s)
+    bm = 16 if m <= 16 else 64 if m <= SPLIT_M else 128
+    i_dim = math.prod(c[1] for c in shapes)
+    j_dim = math.prod(c[2] for c in shapes)
+    splits = _mma_splits(i_dim, j_dim, m, bm)
+    ws = 4 * (g["ds"] * g["i_s"] * g["j_s"] + g["p"] + (splits * m * j_dim if splits > 1 else 0))
+    return MmaPlan(s, bm, g["tc"], splits, _mma_smem_bytes(g, bm), ws)
 
 
 # the dW tile edge (and KC, the rows staged per step) must match
@@ -145,20 +261,24 @@ def kernel_eligible(shapes: Sequence[tuple], *, dtype: str = "float32",
                     train: bool = False) -> bool:
     """Can the Hopper kernels run these core shapes in this activation dtype?
 
-    The forward needs 2..8 cores, a float32 or bfloat16 activation, and a
-    bond whose suffix contraction fits one block's shared memory
-    (``_launch_plan``; the 64 x 64 tile needs the most, so it decides for
-    both tiles).  ``train`` also needs the forward over the i/j-swapped
-    cores (``dL/dx``) and the cores-backward kernel (``_bwd_plan``)."""
+    float32 runs ``csrc/mpo_linear.cu``: 2..8 cores and a bond whose suffix
+    contraction fits one block's shared memory (``_launch_plan``; the 64 x 64
+    tile needs the most, so it decides for both tiles).  bfloat16 runs
+    ``csrc/mpo_linear_mma.cu``, whose bond must also give whole stage and
+    tile groups (``_mma_plan``).  ``train`` also needs the forward over the
+    i/j-swapped cores (``dL/dx``) and the cores-backward kernel
+    (``_bwd_plan``)."""
     if dtype not in ("float32", "bfloat16"):
         return False
     shapes = tuple(tuple(int(d) for d in s) for s in shapes)
-    if _launch_plan(shapes) is None:
+    fits = ((lambda sh: _launch_plan(sh) is not None) if dtype == "float32"
+            else (lambda sh: _mma_split(sh) is not None))
+    if not fits(shapes):
         return False
     if not train:
         return True
     swapped = tuple((d0, j, i, d1) for d0, i, j, d1 in shapes)
-    return _launch_plan(swapped) is not None and _bwd_plan(shapes) is not None
+    return fits(swapped) and _bwd_plan(shapes) is not None
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -191,18 +311,33 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _mma_lib() -> ctypes.CDLL:
+    lib = _build.load("mpo_linear_mma")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mpo_linear_mma_smem.argtypes = [ctypes.POINTER(i32), i32, i32, i32]
+    lib.mpo_linear_mma_smem.restype = ctypes.c_long
+    lib.mpo_linear_mma_workspace.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32]
+    lib.mpo_linear_mma_workspace.restype = ctypes.c_long
+    lib.mpo_linear_mma_fwd.argtypes = [
+        ctypes.POINTER(ptr), ctypes.POINTER(i32), i32, i32, i32, i32, i32, ptr, ptr, i32,
+        ptr, ptr]
+    lib.mpo_linear_mma_fwd.restype = i32
+    return lib
+
+
 def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """``y[..., J] = x[..., I] @ W(cores)`` without W in device memory.
 
-    CUDA tensors launch the kernel (``mpo_linear.launches`` counts the
-    launches); CPU tensors take ``mpo_linear_plain``.  Raises on anything the
-    kernel does not take: other devices or dtypes, mixed dtypes,
-    non-contiguous inputs, shapes ``kernel_eligible`` refuses."""
+    CPU tensors take ``mpo_linear_plain``.  CUDA tensors launch the kernel
+    of their dtype: bfloat16 ``csrc/mpo_linear_mma.cu`` (``mpo_linear_mma``),
+    float32 ``csrc/mpo_linear.cu`` (``mpo_linear.launches`` counts those
+    launches).  Raises on anything the kernels do not take: other devices or
+    dtypes, mixed dtypes, non-contiguous inputs, shapes ``kernel_eligible``
+    refuses."""
     cores = list(cores)
     if x.device.type == "cpu":
         return mpo_linear_plain(cores, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"mpo_linear: unsupported device {x.device}")
     shapes = tuple(tuple(c.shape) for c in cores)
     if any(len(s) != 4 for s in shapes):
         raise ValueError(f"mpo_linear: cores must be 4-D, got {shapes}")
@@ -217,8 +352,12 @@ def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     j_dim = math.prod(s[2] for s in shapes)
     if x.shape[-1] != i_dim:
         raise ValueError(f"mpo_linear: x has {x.shape[-1]} features, W has {i_dim} rows")
+    if x.device.type != "cuda":
+        raise ValueError(f"mpo_linear: unsupported device {x.device}")
     lead = x.shape[:-1]
     m = math.prod(lead)
+    if x.dtype == torch.bfloat16:
+        return mpo_linear_mma(cores, shapes, j_dim, m, x)
     tile = 1 if m <= SMALL_M else 0
     plan = _launch_plan(shapes, tile)
     if plan is None:
@@ -230,10 +369,9 @@ def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return y
     ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
-    dims = (ctypes.c_int * (4 * len(cores)))(*[d for s in shapes for d in s])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib().mpo_linear_fwd(ptrs, dims, len(cores), split, njp, tile, x.data_ptr(),
-                               y.data_ptr(), m, DTYPES[x.dtype], stream)
+    rc = _lib().mpo_linear_fwd(ptrs, _dims(shapes), len(cores), split, njp, tile,
+                               x.data_ptr(), y.data_ptr(), m, DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"mpo_linear_fwd launch failed: CUDA error {rc}")
     mpo_linear.launches += 1
@@ -241,6 +379,45 @@ def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 mpo_linear.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _dims(shapes: tuple):
+    """The core shapes as the C entry points take them: 4 ints a core."""
+    return (ctypes.c_int * (4 * len(shapes)))(*[d for s in shapes for d in s])
+
+
+def mpo_linear_mma(cores: list, shapes: tuple, j_dim: int, m: int,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Launches ``csrc/mpo_linear_mma.cu`` on the bfloat16 inputs
+    ``mpo_linear`` checked (``mpo_linear_mma.launches`` counts its calls;
+    ``mpo_linear_mma.workspace_bytes`` is the last call's scratch: R, P and
+    the split-I partials, never W)."""
+    plan = _mma_plan(shapes, m)
+    if plan is None:
+        raise ValueError(f"mpo_linear: the bf16 kernel does not take core shapes {shapes}")
+    if m > 65535 * plan.bm:
+        raise ValueError(f"mpo_linear: {m} rows exceed the launch grid")
+    y = torch.empty(*x.shape[:-1], j_dim, dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    if x.data_ptr() % 16:
+        x = x.clone()                  # cp.async copies x in 16-byte chunks
+    ws = torch.empty(plan.workspace // 4, dtype=torch.float32, device=x.device)
+    ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _mma_lib().mpo_linear_mma_fwd(ptrs, _dims(shapes), len(cores), plan.split, plan.bm,
+                                       plan.tc, plan.splits, x.data_ptr(), y.data_ptr(), m,
+                                       ws.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"mpo_linear_mma_fwd launch failed: CUDA error {rc}")
+    mpo_linear_mma.launches += 1
+    mpo_linear_mma.workspace_bytes = plan.workspace
+    return y
+
+
+mpo_linear_mma.launches = 0
+mpo_linear_mma.workspace_bytes = 0
 
 
 # --------------------------------------------------------------------------

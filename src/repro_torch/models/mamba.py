@@ -117,6 +117,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, paged: bool = Fals
     return init_ssm_state(cfg, batch, device=device)
 
 
+def reset_cache(state: torch.Tensor) -> torch.Tensor:
+    """Rewind the SSM state made by ``init_cache`` to zeros, in place."""
+    return state.zero_()
+
+
 # --------------------------------------------------------------------------
 # pure-SSM model (mamba2-130m)
 # --------------------------------------------------------------------------

@@ -107,6 +107,11 @@ class Model(_Tree):
         which has no KV sequence to page (``paged=True`` raises)."""
         return self.mod.init_cache(self.cfg, batch, max_len, device=self.device, **kw)
 
+    def reset_cache(self, cache):
+        """Rewind a cache made by ``init_cache`` to its initial contents in
+        place, allocating nothing."""
+        return self.mod.reset_cache(cache)
+
     def prefill(self, params, batch, cache, phase: str = "prefill"):
         return self.mod.prefill(params, batch, cache, self.cfg, phase=phase)
 

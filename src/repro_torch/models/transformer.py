@@ -192,6 +192,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     }
 
 
+def reset_cache(cache: dict) -> dict:
+    """Rewind a cache made by ``init_cache`` to its initial contents, in
+    place: zero K/V and positions and, when paged, every page back on the
+    free list with an unmapped page table."""
+    for name in ("k", "v", "k_pages", "v_pages", "pos"):
+        if name in cache:
+            cache[name].zero_()
+    if "page_table" in cache:
+        free = cache["free_list"]
+        cache["page_table"].fill_(-1)
+        free.copy_(torch.arange(free.shape[-1], dtype=free.dtype, device=free.device)
+                   .expand_as(free))
+        cache["free_count"].fill_(free.shape[-1])
+    return cache
+
+
 def cache_kv_len(cache) -> int:
     """Key span the decode masks cover: ``max_len`` for dense caches, page
     capacity (``MP * page_size``) for paged ones."""

@@ -60,8 +60,8 @@ class ServeHandle:
     densification).  Carries the weights version it was built from so
     ``Session.serve`` can detect staleness.  The cache — the KV cache's dict
     of tensors, or the SSM family's ``(L, B, H, N, P)`` state tensor — is
-    updated in place; ``reset`` rewinds it to the empty state kept from
-    construction.
+    updated in place, and ``reset`` rewinds it in place: the handle holds
+    one cache.
     Example::
 
         handle = session.serve(batch_size=8, max_len=64)
@@ -78,10 +78,10 @@ class ServeHandle:
         self.device = model.device
         self._prefill, self._decode, self._init_serve = make_serve_steps(
             model, weight_cache=weight_cache, paged=paged, page_size=page_size)
+        self._reset_cache = model.reset_cache
         t0 = time.perf_counter()
         with torch.no_grad():
-            self.params, self._cache0 = self._init_serve(params, batch_size, max_len)
-        self.cache = lightweight.tree_map(torch.clone, self._cache0)
+            self.params, self.cache = self._init_serve(params, batch_size, max_len)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.perf_counter() - t0
@@ -89,7 +89,7 @@ class ServeHandle:
     @torch.no_grad()
     def reset(self) -> "ServeHandle":
         """Rewind the (in-place updated) cache to its empty initial state."""
-        lightweight.tree_map(torch.Tensor.copy_, self.cache, self._cache0)
+        self._reset_cache(self.cache)
         return self
 
     def _tensor(self, x) -> torch.Tensor:

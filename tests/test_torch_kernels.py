@@ -184,10 +184,12 @@ def test_cuda_mpo_linear_matches_plain(cuda):
             for dtype in (torch.float32, torch.bfloat16):
                 cs = [c.to(cuda, dtype) for c in cores]
                 xx = x.to(cuda, dtype)
-                launches = TMK.mpo_linear.launches
+                # bfloat16 runs the tensor-core kernel, float32 mpo_linear.cu
+                counter = TMK.mpo_linear_mma if dtype == torch.bfloat16 else TMK.mpo_linear
+                launches = counter.launches
                 y = TMK.mpo_linear(cs, xx)
                 torch.cuda.synchronize()
-                assert TMK.mpo_linear.launches == launches + 1
+                assert counter.launches == launches + 1
                 ref = TMK.mpo_linear_plain(cs, xx).float()
                 tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
                 assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
