@@ -11,35 +11,42 @@ Phases, each printing JSON lines; any failure exits non-zero:
 2. kernels — each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the serving paths give it, with the tolerances
    below; kernel, plain-version and library-yardstick times (CUDA events,
-   L2 flushed before every timed launch) and the least time the card could
-   take (``bound_ms``).  The MPO-linear forward runs the tensor-core kernel
-   (``csrc/mpo_linear_mma.cu``) in bf16 and ``csrc/mpo_linear.cu`` in f32;
-   every bf16 case also checks that two launches give the same bits and
-   that its plan's shared memory and workspace match the CUDA source's and
-   stay under a quarter of a bf16 W.  The SSD scan at mamba2-130m's path shape (8 x 512,
-   24 heads of 64, state 128, chunk 128), a 100-token prompt (q = 100) and
-   one 4096-token prompt (32 chunks), both dtypes; the MPO-linear forward
-   at bert-base's matrices (M = 8 and 1024; bf16 also M = 1 and a ragged
-   100 at attn), at mamba2-130m's in_proj (768 -> 3352; bf16 also M = 1 and
-   100) and out_proj (1536 -> 768), M = 8 and 4096, and its tied head (768
-   -> 50432, bf16, M = 8).
+   L2 flushed before every timed call, the host's enqueue hidden behind a
+   GPU spin: the card's time alone) and the least time the card could take
+   (``bound_ms``).  The MPO-linear forward runs the tensor-core kernel
+   (``csrc/mpo_linear_mma.cu``) in both dtypes, with ``csrc/mpo_linear.cu``
+   timed beside every float32 case (``prev_ms``), and ``csrc/mpo_linear.cu``
+   itself at a narrow float32 matrix the tensor-core plan refuses (smoke
+   bert-base's wq); every case checks that two launches give the same bits,
+   and every tensor-core case that its plan's shared memory and workspace
+   match the CUDA source's and stay under a quarter of a bf16 W.  Flash
+   decode (split-K) at bert-base's and qwen3-14b's geometry, ragged lengths,
+   softcap, page and split boundaries, both dtypes, two launches
+   bit-identical, the previous serial kernel timed beside it (``prev_ms``).
+   The SSD scan at mamba2-130m's path shape (8 x 512, 24 heads of 64, state 128, chunk
+   128), a 100-token prompt (q = 100) and one 4096-token prompt (32 chunks),
+   both dtypes; the MPO-linear forward at bert-base's matrices (M = 1, 8,
+   100 at attn and 1024), at mamba2-130m's in_proj (768 -> 3352; M = 1, 8,
+   100 and 4096) and out_proj (1536 -> 768; M = 8 and 4096), and its tied
+   head (768 -> 50432, M = 8), both dtypes.
 3. path — full-width bert-base served from 8 prompts of 128 tokens,
    ``serve(8, 256, paged=True)``, 32 generated tokens, once with the weight
    cache and once factorized through the MPO-linear kernel.  Launch counts
-   are zeroed just before each run and read just after; every bf16 path
-   must launch the tensor-core forward (factorized bert-base, mamba2-130m
-   both ways through its tied head, fine-tuning) and no plain version, and
-   the float32 runs of phase 4 the f32 forward.  Then full-width
-   mamba2-130m (bf16) served from 8 prompts of 512 tokens, ``serve(8,
-   544)``, 32 generated tokens, both ways: 24 SSD-scan launches a prefill,
-   no plain-version call; then each run's bf16 prefill layer by layer, every
-   block and the head on the card against the same on the CPU (plain
-   versions) from the same input.
+   are zeroed just before each run and read just after; every full-width
+   path must launch the tensor-core forward (factorized bert-base,
+   mamba2-130m both ways through its tied head, fine-tuning, the float32
+   runs of phase 4), never the CUDA-core one, and no plain version.  Then
+   full-width mamba2-130m (bf16) served from 8 prompts of 512 tokens,
+   ``serve(8, 544)``, 32 generated tokens, both ways: 24 SSD-scan launches a
+   prefill, no plain-version call; then each run's bf16 prefill layer by
+   layer, every block and the head on the card against the same on the CPU
+   (plain versions) from the same input.
 4. parity — float32 bert-base: greedy tokens of paged + factorized, paged +
    weight cache and the dense cache must be identical; float32 mamba2-130m:
-   greedy tokens with and without the weight cache identical; then the
-   smoke bert-base and mamba2-130m models on the card against the same
-   models on the CPU (plain versions).
+   greedy tokens with and without the weight cache identical (each with its
+   wall time); then the smoke bert-base and mamba2-130m models on the card
+   against the same models on the CPU (plain versions), launching the
+   forward kernels the float32 plan names for their matrices (both).
 5. train — (a) the MPO-linear cores-backward kernel against its plain
    version at bert-base's attention, w_up and w_down shapes, M = 2048 (16 x
    128 tokens) and a ragged M, both dtypes, with its times, and the forward
@@ -50,8 +57,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and read just after, finite losses, the LFA parameter counts, central
    cores bit-unchanged, ms per step; (c) the float32 smoke model with every
    matmul in the kernel mode: one train step's gradients and a 3-step loss
-   trajectory on the card against the same on the CPU (plain versions).
-6. ``{"kernels": [...]}`` — one entry per kernel of the paths.
+   trajectory on the card against the same on the CPU (plain versions),
+   launching both forward kernels as the float32 plan says.
+6. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths.
 7. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -164,12 +172,21 @@ def main() -> int:
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
 
     def timed(fn, reps=10):
-        """Mean ms of ``fn`` over ``reps`` launches, L2 flushed before each."""
+        """Mean device ms of ``fn`` over ``reps`` calls, L2 flushed before
+        each.  A GPU spin of three times ``fn``'s host time (at ~2 GHz) is
+        queued between the flush and the start event, so the host enqueues
+        ``fn``'s launches while the card spins and the events time the
+        card's work alone, not the wrapper's host time."""
         fn()
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        fn()
+        cycles = int(2e9 * max(5e-5, 3 * (time.perf_counter() - h0)))
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(reps):
             flush_buf.zero_()
+            torch.cuda._sleep(cycles)
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             fn()
@@ -196,70 +213,64 @@ def main() -> int:
     results = {}
 
     mma_lib = MK._mma_lib()
+    kname = {"mma": "mpo_linear_fwd_mma", "cuda_core": "mpo_linear_fwd"}
 
     def fwd_case(mname, cores32, m, dtype, phase="kernels"):
-        """The MPO-linear forward through ``MK.mpo_linear`` (bf16: the
-        tensor-core kernel, f32: mpo_linear.cu) against its plain version;
-        bf16 also: two launches give the same bits, the plan's shared memory
-        and workspace match the CUDA source's, and the workspace stays under
-        a quarter of a bf16 W's bytes."""
+        """The MPO-linear forward through ``MK.mpo_linear`` against its plain
+        version: the kernel ``MK.forward_kernel`` names for the shapes (the
+        tensor-core kernel in both dtypes, ``csrc/mpo_linear.cu`` for narrow
+        float32 shapes); two launches give the same bits; for the
+        tensor-core kernel the plan's shared memory and workspace match the
+        CUDA source's, the workspace stays under a quarter of a bf16 W's
+        bytes, and in float32 ``csrc/mpo_linear.cu`` is timed beside it
+        (``prev_ms``)."""
         tdt = getattr(torch, dtype)
         cores = [c.to(tdt).contiguous() for c in cores32]
+        shapes = tuple(tuple(c.shape) for c in cores)
         i_dim = math.prod(c.shape[1] for c in cores)
         j_dim = math.prod(c.shape[2] for c in cores)
         x = torch.randn(m, i_dim, generator=gen).to(dev, tdt)
-        counter = MK.mpo_linear_mma if dtype == "bfloat16" else MK.mpo_linear
-        kname = "mpo_linear_fwd_mma" if dtype == "bfloat16" else "mpo_linear_fwd"
+        route = MK.forward_kernel(shapes, dtype)
+        counter = MK.mpo_linear_mma if route == "mma" else MK.mpo_linear_cuda_core
         before = counter.launches
         y = MK.mpo_linear(cores, x)
+        again = MK.mpo_linear(cores, x)
+        torch.cuda.synchronize()
+        if counter.launches != before + 2:
+            fail(f"{kname[route]} {mname} M={m} {dtype}: MK.mpo_linear did not launch it")
+        if not torch.equal(y, again):
+            fail(f"{kname[route]} {mname} M={m} {dtype}: two launches differ")
         extra = {}
-        if dtype == "bfloat16":
-            again = MK.mpo_linear(cores, x)
-            torch.cuda.synchronize()
-            if not torch.equal(y, again):
-                fail(f"mpo_linear_fwd_mma {mname} M={m}: two launches differ")
-            shapes = tuple(tuple(c.shape) for c in cores)
-            plan = MK._mma_plan(shapes, m)
+        if route == "mma":
+            plan = MK._mma_plan(shapes, m, dtype)
             dims = (ctypes.c_int * (4 * len(cores)))(*[d for sh in shapes for d in sh])
-            smem_c = mma_lib.mpo_linear_mma_smem(dims, len(cores), plan.split, plan.bm)
+            code = MK.DTYPES[tdt]
+            smem_c = mma_lib.mpo_linear_mma_smem(dims, len(cores), plan.split, plan.bm, code)
             ws_c = 4 * mma_lib.mpo_linear_mma_workspace(dims, len(cores), plan.split, m,
-                                                        plan.splits)
+                                                        plan.splits, code)
             if (smem_c, ws_c) != (plan.smem, plan.workspace):
-                fail(f"mpo_linear_fwd_mma {mname}: the plan's shared memory / workspace "
-                     f"{plan.smem} / {plan.workspace} differ from the CUDA source's "
-                     f"{smem_c} / {ws_c}")
+                fail(f"mpo_linear_fwd_mma {mname} {dtype}: the plan's shared memory / "
+                     f"workspace {plan.smem} / {plan.workspace} differ from the CUDA "
+                     f"source's {smem_c} / {ws_c}")
             if 4 * plan.workspace >= 2 * i_dim * j_dim:
                 fail(f"mpo_linear_fwd_mma {mname} M={m}: workspace {plan.workspace} B is "
                      f"not below a quarter of a bf16 W's {2 * i_dim * j_dim} B")
-            # the previous bf16 forward, all on the CUDA cores (the bf16
-            # instantiation of csrc/mpo_linear.cu, which the wrapper no longer
-            # routes to), timed as the yardstick
-            tile = 1 if m <= MK.SMALL_M else 0
-            split_c, njp_c = MK._launch_plan(shapes, tile)
-            y_c = torch.empty_like(y)
-            ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
-            stream = torch.cuda.current_stream().cuda_stream
-            cuda_core = lambda: MK._lib().mpo_linear_fwd(
-                ptrs, dims, len(cores), split_c, njp_c, tile, x.data_ptr(), y_c.data_ptr(), m,
-                1, stream)
-            if cuda_core() != 0:
-                fail(f"the CUDA-core bf16 forward did not launch at {mname} M={m}")
             extra = dict(split=plan.split, bm=plan.bm, tc=plan.tc, splits=plan.splits,
                          smem_bytes=plan.smem, workspace_bytes=plan.workspace,
-                         w_bf16_bytes=2 * i_dim * j_dim, deterministic=True,
-                         cuda_core_kernel_ms=timed(cuda_core))
-        torch.cuda.synchronize()
-        if counter.launches == before:
-            fail(f"{kname} {mname} M={m}: MK.mpo_linear did not launch it")
+                         w_bf16_bytes=2 * i_dim * j_dim)
+            if dtype == "float32" and MK._launch_plan(shapes) is not None:
+                # the CUDA-core kernel the float32 path ran before, as the yardstick
+                extra["prev_ms"] = timed(lambda: MK.mpo_linear_cuda_core(cores, shapes, j_dim,
+                                                                          m, x))
         ref = MK.mpo_linear_plain(cores, x)
-        err = check(kname, y, ref, dtype, f"{mname} M={m} {dtype}")
+        err = check(kname[route], y, ref, dtype, f"{mname} M={m} {dtype}")
         isz = x.element_size()
         nbytes = isz * (x.numel() + sum(c.numel() for c in cores) + m * j_dim)
         ops = 2 * m * i_dim * j_dim
         w = mpo.reconstruct(cores)
         rec = dict(
-            kernel=kname, matrix=mname, shapes=[list(c.shape) for c in cores],
-            M=m, dtype=dtype, max_abs_err=err, tol=TOL[dtype], **extra,
+            kernel=kname[route], matrix=mname, shapes=[list(c.shape) for c in cores],
+            M=m, dtype=dtype, max_abs_err=err, tol=TOL[dtype], deterministic=True, **extra,
             kernel_ms=timed(lambda: MK.mpo_linear(cores, x)),
             plain_ms=timed(lambda: MK.mpo_linear_plain(cores, x)),
             library_ms=timed(lambda: torch.matmul(x, mpo.reconstruct(cores))),
@@ -275,7 +286,15 @@ def main() -> int:
             for dtype in ("bfloat16", "float32"):
                 results[("mpo", mname, m, dtype)] = fwd_case(mname, cores32, m, dtype)
     for m in (1, 100):                       # one row, and a ragged M
-        results[("mpo", "attn", m, "bfloat16")] = fwd_case("attn", mats["attn"], m, "bfloat16")
+        for dtype in ("bfloat16", "float32"):
+            results[("mpo", "attn", m, dtype)] = fwd_case("attn", mats["attn"], m, dtype)
+    # a narrow float32 matrix (smoke bert-base's wq at a smoke prefill's 4 x
+    # 12 rows): the tensor-core plan refuses it, the CUDA-core kernel runs
+    smoke_wq = [c[0].to(dev) for c in cores_to_list(Session.init(
+        configs.smoke_config("bert-base"), seed=SEED, device="cpu",
+        dtype="float32").params["layers"]["attn"]["wq"]["cores"])]
+    results[("mpo", "smoke wq", 48, "float32")] = fwd_case("smoke bert-base wq", smoke_wq, 48,
+                                                          "float32")
 
     def flash_case(kv, g, dh, dtype, softcap, lens):
         tdt = getattr(torch, dtype)
@@ -293,10 +312,26 @@ def main() -> int:
         table, lens_d, bias = table.to(dev), lens_t.to(dev), bias.to(dev)
         args = (q, kp, vp, table, lens_d, bias)
         out = DA.flash_decode_attention(*args, softcap=softcap)
+        again = DA.flash_decode_attention(*args, softcap=softcap)
+        # the previous kernel (one block per slot and head, every page in
+        # turn), reached by no path: the timed yardstick
+        prev = torch.empty_like(q)
+        stream = torch.cuda.current_stream().cuda_stream
+        serial = lambda: DA._lib().flash_decode_attention_serial(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(), lens_d.data_ptr(),
+            bias.data_ptr(), prev.data_ptr(), BATCH, kv, g, dh, p, ps, mp, 1.0 / math.sqrt(dh),
+            float(softcap or 0.0), DA.DTYPES[tdt], stream)
+        if serial() != 0:
+            fail(f"the serial flash kernel did not launch at KV={kv} G={g} Dh={dh}")
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            fail(f"flash_decode_attention KV={kv} G={g} Dh={dh} lengths {lens}: two launches "
+                 "differ")
         ref = DA.flash_decode_attention_plain(*args, softcap=softcap)
         err = check("flash_decode_attention", out, ref, dtype,
-                    f"KV={kv} G={g} Dh={dh} softcap={softcap}")
+                    f"KV={kv} G={g} Dh={dh} softcap={softcap} lengths {lens}")
+        check("flash_decode_attention_serial", prev, ref, dtype, f"KV={kv} G={g} Dh={dh}")
+        plan = DA._flash_plan(BATCH, kv, g, dh, ps, mp)
         isz = q.element_size()
         keys = int((npg * ps).sum())
         nbytes = (isz * (2 * q.numel() + 2 * keys * kv * dh) + 4 * int(npg.sum())
@@ -312,8 +347,9 @@ def main() -> int:
                 q, kg, vg, attn_mask=amask))
         rec = dict(kernel="flash_decode_attention", KV=kv, G=g, Dh=dh, page_size=ps,
                    lengths=lens, softcap=softcap, dtype=dtype, max_abs_err=err,
-                   tol=TOL[dtype],
+                   tol=TOL[dtype], splits=plan.splits, kt=plan.kt, deterministic=True,
                    kernel_ms=timed(lambda: DA.flash_decode_attention(*args, softcap=softcap)),
+                   prev_ms=timed(serial),
                    plain_ms=timed(lambda: DA.flash_decode_attention_plain(*args,
                                                                           softcap=softcap)),
                    library_ms=library_ms,
@@ -328,6 +364,10 @@ def main() -> int:
         flash_case(12, 1, 64, dtype, None, ragged)                 # bert-base geometry
         flash_case(8, 5, 128, dtype, None, ragged)                 # qwen3-14b geometry
         flash_case(8, 5, 128, dtype, 50.0, [5, 1, 0, 33, 129, 64, 250, 16])
+        # page and split boundaries: both plans give a full slot's 16 pages
+        # a split each (S = 16), so shorter slots leave splits empty
+        flash_case(12, 1, 64, dtype, None, [15, 16, 31, 32, 33, 64, 65, 240])
+        flash_case(8, 5, 128, dtype, None, [48, 63, 64, 65, 96, 127, 192, 256])
         # the serving path's own geometry: every slot at the same length
         results[("flash", "path", dtype)] = flash_case(12, 1, 64, dtype, None,
                                                        [PROMPT + 16] * BATCH)
@@ -390,19 +430,21 @@ def main() -> int:
                                                              m, dtype)
         if mname == "in_proj":
             for m in (1, 100):
-                results[("mpo", mname, m, "bfloat16")] = fwd_case(
-                    f"mamba2-130m {mname}", cores32, m, "bfloat16")
+                for dtype in ("bfloat16", "float32"):
+                    results[("mpo", mname, m, dtype)] = fwd_case(
+                        f"mamba2-130m {mname}", cores32, m, dtype)
     # the tied head, E^T (768 -> 50432), at a decode step's M = 8
     head = mpo.transpose_cores(cores_to_list(msess.params["embed"]["cores"]))
-    results[("mpo", "head", MAMBA_BATCH, "bfloat16")] = fwd_case(
-        "mamba2-130m head", head, MAMBA_BATCH, "bfloat16")
+    for dtype in ("bfloat16", "float32"):
+        results[("mpo", "head", MAMBA_BATCH, dtype)] = fwd_case(
+            "mamba2-130m head", head, MAMBA_BATCH, dtype)
 
     # ---- 3. the serving paths at full width ----
     def kernel_mode(cfg):
         """``cfg`` with every factorized matmul in the kernel mode."""
         return dataclasses.replace(cfg, mpo=dataclasses.replace(cfg.mpo, mode="kernel"))
 
-    counters = ((MK.mpo_linear, "launches"), (MK.mpo_linear_mma, "launches"),
+    counters = ((MK.mpo_linear_cuda_core, "launches"), (MK.mpo_linear_mma, "launches"),
                 (DA.flash_decode_attention, "launches"),
                 (SSD.ssd_scan, "launches"), (MK.mpo_linear_plain, "calls"),
                 (DA.flash_decode_attention_plain, "calls"), (SSD.ssd_scan_plain, "calls"))
@@ -413,7 +455,7 @@ def main() -> int:
             setattr(fn, attr, 0)
 
     def read_counts():
-        return {"mpo_linear_fwd": MK.mpo_linear.launches,
+        return {"mpo_linear_fwd": MK.mpo_linear_cuda_core.launches,
                 "mpo_linear_fwd_mma": MK.mpo_linear_mma.launches,
                 "flash_decode_attention": DA.flash_decode_attention.launches,
                 "ssd_scan": SSD.ssd_scan.launches,
@@ -472,10 +514,9 @@ def main() -> int:
         if not finite or tokens.shape != (batch, NEW_TOKENS):
             fail(f"{arch} weight_cache={wc}: non-finite logits or cache, or tokens of "
                  f"shape {tuple(tokens.shape)}")
-        # bf16 runs the tensor-core kernel, float32 mpo_linear.cu; a
-        # factorized run launches it in prefill and decode
-        fwd, other = (("mpo_linear_fwd_mma", "mpo_linear_fwd") if sess.cfg.dtype == "bfloat16"
-                      else ("mpo_linear_fwd", "mpo_linear_fwd_mma"))
+        # the full-width matrices run the tensor-core kernel, never the
+        # CUDA-core one; a factorized run launches it in prefill and decode
+        fwd, other = "mpo_linear_fwd_mma", "mpo_linear_fwd"
         if not wc and (per_prefill[fwd] == 0 or per_decode[fwd] == 0):
             fail(f"{arch} weight_cache=False: prefill or decode never launched {fwd}")
         if per_prefill[other] or per_decode[other]:
@@ -584,6 +625,7 @@ def main() -> int:
     del msess, handle
 
     # ---- 4. float32 token parity, then the smoke model card vs CPU ----
+    t_f32 = time.perf_counter()
     s32 = Session.init("bert-base", smoke=False, seed=SEED, dtype="float32")
     runs = {}
     zero_counts()
@@ -610,15 +652,17 @@ def main() -> int:
                  f"step {step} (top-2 margin there {top2[row, step, 0] - top2[row, step, 1]})")
     f32_counts = read_counts()
     emit(phase="parity", dtype="float32", runs=sorted(runs), identical=True,
-         tokens=NEW_TOKENS, min_top2_margin=min_margin, launches=f32_counts)
-    if (f32_counts["mpo_linear_fwd"] == 0 or f32_counts["mpo_linear_fwd_mma"]
+         tokens=NEW_TOKENS, min_top2_margin=min_margin, launches=f32_counts,
+         wall_s=time.perf_counter() - t_f32)
+    if (f32_counts["mpo_linear_fwd_mma"] == 0 or f32_counts["mpo_linear_fwd"]
             or any(f32_counts[k] for k in plains)):
-        fail(f"float32 bert-base serving: launches {f32_counts}; the f32 kernel must run, "
-             "the bf16 kernel and the plain versions not")
-    path_launches["mpo_linear_fwd"] = f32_counts["mpo_linear_fwd"]
-    by_path["mpo_linear_fwd"] = {"bert-base float32 serve (three runs)": f32_counts["mpo_linear_fwd"]}
+        fail(f"float32 bert-base serving: launches {f32_counts}; the tensor-core kernel must "
+             "run, the CUDA-core kernel and the plain versions not")
+    f32_mma = {"bert-base float32 serve (three runs)": f32_counts["mpo_linear_fwd_mma"]}
+    cuda_core = {}
     del s32, runs
 
+    t_f32 = time.perf_counter()
     m32 = Session.init("mamba2-130m", smoke=False, seed=SEED, dtype="float32")
     mruns = {}
     zero_counts()
@@ -634,11 +678,13 @@ def main() -> int:
             steps.append(lg[:, -1])
         mruns[wc] = (torch.cat(toks, 1).cpu(), torch.stack(steps, 1).cpu())
     f32_counts = read_counts()
-    if f32_counts["mpo_linear_fwd"] == 0 or f32_counts["mpo_linear_fwd_mma"]:
-        fail(f"float32 mamba2-130m serving: launches {f32_counts}")
-    path_launches["mpo_linear_fwd"] += f32_counts["mpo_linear_fwd"]
-    by_path["mpo_linear_fwd"]["mamba2-130m float32 serve (both runs)"] = (
-        f32_counts["mpo_linear_fwd"])
+    emit(phase="parity", arch="mamba2-130m", dtype="float32", launches=f32_counts,
+         wall_s=time.perf_counter() - t_f32)
+    if (f32_counts["mpo_linear_fwd_mma"] == 0 or f32_counts["mpo_linear_fwd"]
+            or any(f32_counts[k] for k in plains)):
+        fail(f"float32 mamba2-130m serving: launches {f32_counts}; the tensor-core kernel "
+             "must run, the CUDA-core kernel and the plain versions not")
+    f32_mma["mamba2-130m float32 serve (both runs)"] = f32_counts["mpo_linear_fwd_mma"]
     top2 = mruns[True][1].topk(2, dim=-1).values
     if not torch.equal(mruns[False][0], mruns[True][0]):
         row, step = (mruns[False][0] != mruns[True][0]).nonzero()[0].tolist()
@@ -657,6 +703,41 @@ def main() -> int:
              bf16_vs_f32_prefill_logits_rel_norm=((got - ref).norm() / ref.norm()).item())
     del m32, mruns
 
+    def f32_routes(params, train):
+        """The forward kernels the float32 plan sends this model's factorized
+        matmuls to: serving, every matrix as x @ W and the tied logits as
+        x @ E^T; the classification train step, every matrix but the
+        embedding (looked up, not multiplied) as x @ W and its i/j-swapped
+        form (dL/dx)."""
+        routes = set()
+
+        def walk(tree, name):
+            if "cores" in tree:
+                sh = [tuple(c.shape[-4:]) for c in cores_to_list(tree["cores"])]
+                swap = [(d0, j, i, d1) for d0, i, j, d1 in sh]
+                if name == "embed":
+                    forms = () if train else (swap,)
+                else:
+                    forms = (sh, swap) if train else (sh,)
+                routes.update(kname[MK.forward_kernel(f, "float32")] for f in forms)
+                return
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v, k)
+
+        walk(params, "")
+        return routes
+
+    def gate_routes(what, counts, params, train):
+        """Each forward kernel the float32 plan names launched, the other
+        not; returns ``{kernel: launches}``."""
+        want = f32_routes(params, train)
+        got = {k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd")}
+        if any((got[k] > 0) != (k in want) for k in got) or any(counts[k] for k in plains):
+            fail(f"{what}: launches {counts}; the float32 plan sends its matrices to "
+                 f"{sorted(want)}")
+        return got
+
     # the smoke models, every MPO matmul in the kernel mode: card vs CPU
     for arch, prompt, kw in (("bert-base", 12, dict(paged=True)), ("mamba2-130m", 32, {})):
         smoke = {}
@@ -664,14 +745,20 @@ def main() -> int:
             ss = Session.init(kernel_mode(configs.smoke_config(arch)), seed=SEED,
                               device=device)
             small = np.random.default_rng(SEED).integers(0, ss.cfg.vocab_size, (4, prompt))
+            zero_counts()
             h = ss.serve(4, prompt + 20, weight_cache=False, **kw)
             logits = h.prefill({"tokens": small}).float().cpu()
             toks = h.generate({"tokens": small}, 8).cpu()
             smoke[device] = (logits, toks)
+            if device == "cuda":
+                got = gate_routes(f"smoke {arch} (float32) on the card", read_counts(),
+                                  ss.params, train=False)
+                f32_mma[f"smoke {arch} serve"] = got["mpo_linear_fwd_mma"]
+                cuda_core[f"smoke {arch} serve"] = got["mpo_linear_fwd"]
         sdiff = (smoke["cuda"][0] - smoke["cpu"][0]).abs().max().item()
         sscale = smoke["cpu"][0].abs().max().item()
         emit(phase="parity", smoke=arch, mode="kernel", card_vs_cpu_logits_diff=sdiff,
-             scale=sscale, tol=SMOKE_TOL,
+             scale=sscale, tol=SMOKE_TOL, launches_on_card=got,
              tokens_identical=torch.equal(*[smoke[d][1] for d in smoke]))
         if sdiff > SMOKE_TOL * sscale or not torch.equal(smoke["cuda"][1], smoke["cpu"][1]):
             fail(f"smoke {arch} on the card differs from the CPU: logits {sdiff}, tokens "
@@ -757,8 +844,9 @@ def main() -> int:
     tl = {"mpo_linear_fwd_mma": MK.mpo_linear_mma.launches,
           "mpo_linear_bwd_cores": MK.mpo_linear_bwd_cores.launches}
     plain = MK.mpo_linear_plain.calls + MK.mpo_linear_bwd_cores_plain.calls
-    if MK.mpo_linear.launches:
-        fail(f"fine-tuning (bf16): {MK.mpo_linear.launches} launches of the f32 forward")
+    if MK.mpo_linear_cuda_core.launches:
+        fail(f"fine-tuning (bf16): {MK.mpo_linear_cuda_core.launches} launches of the "
+             "CUDA-core forward")
     losses = [h["loss"] for h in rep["history"]]
     unchanged = all(torch.equal(v, tsess.model.state_dict()[k]) for k, v in central.items())
     emit(phase="train", arch="bert-base", dtype=tsess.cfg.dtype, mode="lfa", remat=tsess.cfg.remat,
@@ -787,6 +875,7 @@ def main() -> int:
     def grads_and_losses(device):
         ss = Session.init(kernel_mode(configs.smoke_config("bert-base")), seed=SEED,
                           device=device)
+        zero_counts()
         seen = []
         rec_opt = OPT.Optimizer(init=lambda p: OPT.OptState(0, None),
                                 update=lambda g, st, p: seen.append(g) or st)
@@ -796,6 +885,10 @@ def main() -> int:
         step(TS.TrainState(ss.params, rec_opt.init(ss.params)), batch)
         grads = [g.detach().cpu() for g in lightweight.leaves(seen[0])]
         hist = ss.finetune(steps=3, seq_len=16, batch_size=4, log_every=1)["history"]
+        if device == "cuda":
+            got = gate_routes("the float32 smoke train steps on the card", read_counts(),
+                              ss.params, train=True)
+            cuda_core["smoke bert-base train (4 steps)"] = got["mpo_linear_fwd"]
         return grads, [h["loss"] for h in hist]
 
     card, cpu = grads_and_losses("cuda"), grads_and_losses("cpu")
@@ -809,38 +902,44 @@ def main() -> int:
         fail(f"smoke train step on the card differs from the CPU: grads {gdiff}, "
              f"losses {card[1]} vs {cpu[1]}")
 
-    # ---- 6. the kernels line ----
-    mk = results[("mpo", "attn", 8, "bfloat16")]
-    mf = results[("mpo", "attn", 8, "float32")]
+    # ---- 6. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
-    bk = results[("bwd", "attn", tokens, "bfloat16")]
-    sk = results[("ssd", "path", "bfloat16")]
-    entry = lambda name, route, source, replaces, rec, case, **kw: dict(
-        name=name, route=route, source=source, replaces=replaces,
-        launches=path_launches[name], max_abs_err=rec["max_abs_err"],
-        ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-        bound_by=rec["bound_by"], library_ms=rec["library_ms"], case=case, **kw)
-    emit(kernels=[
-        entry("mpo_linear_fwd_mma", "cuda", "src/repro_torch/csrc/mpo_linear_mma.cu",
-              "src/repro/kernels/mpo_linear.py:216", mk,
+    entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
+        name=name, route=route, source=source, replaces=replaces, launches=launches,
+        max_abs_err=rec["max_abs_err"], ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
+        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+        case=case, dtype=rec["dtype"], **kw)
+    fwd = ("src/repro_torch/csrc/mpo_linear_mma.cu", "src/repro/kernels/mpo_linear.py:216")
+    line = [
+        entry("mpo_linear_fwd_mma", "cuda", *fwd, results[("mpo", "attn", 8, "bfloat16")],
               "bert-base attention matrix, M=8 (a decode step), bfloat16",
-              launches_by_path=by_path["mpo_linear_fwd_mma"],
-              workspace_bytes=mk["workspace_bytes"]),
-        entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu",
-              "src/repro/kernels/mpo_linear.py:216", mf,
-              "bert-base attention matrix, M=8 (a decode step), float32",
-              launches_by_path=by_path["mpo_linear_fwd"]),
+              path_launches["mpo_linear_fwd_mma"],
+              launches_by_path=by_path["mpo_linear_fwd_mma"]),
+        entry("mpo_linear_fwd_mma", "cuda", *fwd, results[("mpo", "attn", 8, "float32")],
+              "bert-base attention matrix, M=8 (a decode step), float32", sum(f32_mma.values()),
+              launches_by_path=f32_mma,
+              prev_ms=results[("mpo", "attn", 8, "float32")]["prev_ms"]),
+        entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu", fwd[1],
+              results[("mpo", "smoke wq", 48, "float32")],
+              "smoke bert-base wq (narrow: the tensor-core plan refuses it), M=48, float32",
+              sum(cuda_core.values()), launches_by_path=cuda_core),
         entry("flash_decode_attention", "cuda", "src/repro_torch/csrc/decode_attention.cu",
               "src/repro/kernels/decode_attention.py:166", fk,
-              "bert-base geometry KV=12 G=1 Dh=64 ps=16, 8 slots at 144 keys, bfloat16"),
+              "bert-base geometry KV=12 G=1 Dh=64 ps=16, 8 slots at 144 keys, bfloat16",
+              path_launches["flash_decode_attention"], splits=fk["splits"],
+              prev_ms=fk["prev_ms"]),
         entry("mpo_linear_bwd_cores", "cuda", "src/repro_torch/csrc/mpo_linear_bwd.cu",
-              "src/repro/kernels/mpo_linear.py:303", bk,
-              f"bert-base attention matrix, M={tokens} (16 x 128 fine-tuning tokens), bfloat16"),
+              "src/repro/kernels/mpo_linear.py:303", results[("bwd", "attn", tokens, "bfloat16")],
+              f"bert-base attention matrix, M={tokens} (16 x 128 fine-tuning tokens), bfloat16",
+              path_launches["mpo_linear_bwd_cores"]),
         entry("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
-              "src/repro/kernels/ssd_scan.py:60", sk,
+              "src/repro/kernels/ssd_scan.py:60", results[("ssd", "path", "bfloat16")],
               f"mamba2-130m prefill: B={MAMBA_BATCH} S={MAMBA_PROMPT} H=24 P=64 N=128, "
-              "chunk 128, bfloat16"),
-    ])
+              "chunk 128, bfloat16", path_launches["ssd_scan"]),
+    ]
+    if any(e["launches"] == 0 for e in line):
+        fail(f"a kernel of the paths never launched: {[(e['name'], e['dtype'], e['launches']) for e in line]}")
+    emit(kernels=line)
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -1,10 +1,14 @@
-// Fused MPO-linear forward for Hopper: y[M, J] = x[M, I] @ W(cores), where W
-// is rebuilt from the MPO cores inside each block and never written to device
-// memory.
+// Fused MPO-linear forward for Hopper on the CUDA cores, float32: y[M, J] =
+// x[M, I] @ W(cores), where W is rebuilt from the MPO cores inside each block
+// and never written to device memory.
 //
 // Replaces the Pallas TPU kernel repro/kernels/mpo_linear.py:_fwd_call /
-// _fwd_kernel.  That kernel holds a whole f32 (I/i1, J/j1) W tile and every
-// remaining core in VMEM (256 KB to 3 MB a tile at bert-base widths) and
+// _fwd_kernel for the float32 core shapes the tensor-core kernel
+// (csrc/mpo_linear_mma.cu) does not take: matrices so narrow that no bond
+// keeps its scratch within an eighth of W, and chains whose bonds give no
+// whole stage and tile groups (kernels/mpo_linear.py:forward_kernel).  The
+// Pallas kernel holds a whole f32 (I/i1, J/j1) W tile and every remaining core
+// in VMEM (256 KB to 3 MB a tile at bert-base widths) and
 // carries the i1 reduction across sequential grid steps in the output dtype.
 // Neither transfers: a block has at most 227 KB of shared memory, and blocks
 // run in no order.
@@ -234,10 +238,10 @@ int launch_tile(int tile, const MpoArgs& a, const void* x, void* y, cudaStream_t
 
 // cores: n device pointers; shapes: n * 4 ints (d0, i, j, d1) per core.
 // tile: 0 = 64 x 64 output tiles, 1 = 16 x 16 (njp must be sized for it).
-// dtype: 0 = float32, 1 = bfloat16 (x, cores and y alike).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// x, cores and y float32.  Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int mpo_linear_fwd(const void* const* cores, const int* shapes, int n, int split,
-                              int njp, int tile, const void* x, void* y, int M, int dtype,
+                              int njp, int tile, const void* x, void* y, int M,
                               void* stream) {
   if (n < 2 || n > MAXN || split < 1 || split >= n) return (int)cudaErrorInvalidValue;
   MpoArgs a;
@@ -273,8 +277,5 @@ extern "C" int mpo_linear_fwd(const void* const* cores, const int* shapes, int n
     pi *= a.fin[k];
     po *= a.fout[k];
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_tile<float>(tile, a, x, y, st);
-  if (dtype == 1) return launch_tile<__nv_bfloat16>(tile, a, x, y, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_tile<float>(tile, a, x, y, static_cast<cudaStream_t>(stream));
 }

@@ -1,20 +1,27 @@
-// MPO-linear forward in bfloat16 for Hopper: y[M, J] = x[M, I] @ W(cores),
-// with W rebuilt in f32 on chip and its product with x on the tensor cores.
-// W is never written to device memory.
+// MPO-linear forward for Hopper: y[M, J] = x[M, I] @ W(cores), with W rebuilt
+// in f32 on chip and its product with x on the tensor cores, for bfloat16 and
+// float32 activations.  W is never written to device memory.
 //
 // Replaces the Pallas TPU kernel repro/kernels/mpo_linear.py:_fwd_call /
-// _fwd_kernel for bfloat16 activations (float32 keeps csrc/mpo_linear.cu).
+// _fwd_kernel (float32 core shapes the plan refuses keep csrc/mpo_linear.cu).
 //
 // Function.  The core chain is split at a bond s (kernels/mpo_linear.py:
 // _mma_plan): with I = (ip, is) and J = (jp, js) the row-major digit groups
 // of cores [0, s) and [s, n),
 //     W[ip, is, jp, js] = sum_d L[ip, jp, d] * R[d, is, js],
 // L the contraction of the prefix cores, R of the suffix cores, both in f32.
-// Each f32 value w of W enters the product as two bf16 values,
-// w_hi = bf16(w) and w_lo = bf16(w - w_hi), which together carry ~16 bits
-// of w; x * w_hi + x * w_lo is summed in f32 over all of I and y is rounded
-// to bf16 once.  That is the arithmetic of csrc/mpo_linear.cu and of the
-// plain version, in another order.
+// The products run in bf16 on the tensor cores (mma.sync, f32 accumulate),
+// with each f32 operand split into bf16 terms, each term bf16 of what the
+// terms before it leave:
+//   bfloat16: x is bf16 already; each f32 value w of W enters as
+//     w0 = bf16(w) and w1 = bf16(w - w0), ~16 bits of w; x.w0 + x.w1.
+//   float32: x and W each enter as three terms (x0 + x1 + x2, w0 + w1 + w2,
+//     ~24 bits each: float32's own precision), and the six products whose
+//     size is at least 2^-24 of the leading one are issued, smallest first:
+//     x2.w0, x1.w1, x1.w0, x0.w2, x0.w1, x0.w0.
+// Every product is exact in f32 and all are summed into one f32 accumulator
+// over all of I in a fixed order; y is rounded to its dtype once.  That is
+// the arithmetic of the plain version (f32 W, f32 product), in another order.
 //
 // Design.
 //   1. Two prologue kernels contract, once a call, the suffix cores into R
@@ -26,35 +33,41 @@
 //      range of BK = 32-row stages of I; 8 warps copy, rebuild and multiply
 //      (at BM = 128, 8 more form L, see kSplitWarps).  It copies R into shared
 //      memory with cp.async once, and double-buffers the x stage with
-//      cp.async.  L is double-buffered too: while a stage rebuilds W from
-//      this L (and, at BM = 128, multiplies), the next ip's L is formed in
-//      one step from P (16-byte loads
-//      of core rows, each applied to the two L vectors that read it, the sum
-//      over d_{s-1} split over up to 8 lanes and added in a fixed order).  The 32 x 128 W stage is rebuilt register-tiled:
+//      cp.async (16-byte chunks: 8 bf16 or 4 floats).  L is double-buffered
+//      too: while a stage rebuilds W from this L (and, at BM = 128,
+//      multiplies), the next ip's L is formed in one step from P (16-byte
+//      loads of core rows, each applied to the two L vectors that read it,
+//      the sum over d_{s-1} split over up to 8 lanes and added in a fixed
+//      order).  The 32 x 128 W stage is rebuilt register-tiled:
 //      each thread owns 4 is rows x TC jp columns that share one js, so per
 //      d it reads one float4 of R and one float4 (float2) of L and does
 //      4 x TC FMAs (0.5 shared reads an FMA at TC = 4).  R ([d][js][is])
 //      and L ([q][d][jq]) are laid out so that a warp's reads are contiguous
-//      or broadcast.  The f32 values go to two bf16 stage tiles (hi, lo) at
-//      a padded row pitch of 272 bytes.  The warps then load x (ldmatrix)
-//      and W (ldmatrix.trans) fragments, conflict-free at the 80- and
-//      272-byte pitches, and issue mma.sync.m16n8k16 (bf16 in, f32
-//      accumulate) against W_hi and W_lo.
+//      or broadcast.  The f32 values go to two (float32: three) bf16 stage
+//      tiles at a padded row pitch of 272 bytes; in float32 the same warps
+//      split the landed f32 x stage into three bf16 tiles at an 80-byte
+//      pitch.  The warps then load x (ldmatrix) and W (ldmatrix.trans)
+//      fragments, conflict-free at the 80- and 272-byte pitches, and issue
+//      mma.sync.m16n8k16 (bf16 in, f32 accumulate), one term of x at a time
+//      against the W terms it pairs with (bf16: w0 then w1).
 //   3. Few rows (at most 64): the stages are split over S blocks per tile so
 //      the grid fills the card; each split writes f32 partials [S, M, J] and
 //      reduce_kernel sums them in split order and rounds once.  No atomics:
 //      two launches give the same bits.
 //
 // What bounds it on this card.  The product is M * I * J FMAs on the tensor
-// cores (doubled by the hi/lo pair), but the rebuild runs on the CUDA cores
-// in f32: ceil(M / BM) * I * J * d_s FMAs a call, and each block forms the
-// L of every (ip, jp) it touches, reading d_{s-1} x d_s core rows from L2
-// for each.  With 8 to 16 warps an SM and a barrier between the rebuild and
-// the product, both are latency-bound, the L step the most (it sets the pace
-// at bert-base's matrices, PERF.md).  The next step is the rebuild
-// itself as a batched [Is x d_s] . [d_s x njp] tensor-core product for each
-// js, then wgmma with TMA-fed stages and warps specialised to load, rebuild
-// and multiply, so the core rows' latency hides behind the products.
+// cores (doubled by the bf16 W pair, six-fold in float32), but the rebuild
+// runs on the CUDA cores in f32: ceil(M / BM) * I * J * d_s FMAs a call, and
+// each block forms the L of every (ip, jp) it touches, reading d_{s-1} x d_s
+// core rows from L2 for each.  With 8 to 16 warps an SM and a barrier
+// between the rebuild and the product, both are latency-bound, the L step
+// the most (it sets the pace at bert-base's matrices, PERF.md).  float32
+// adds the x split, a third W tile and three times the products, and its
+// larger stages leave one block an SM at BM = 64 where bf16 has two.  The
+// next step is the rebuild itself as a batched [Is x d_s] . [d_s x njp]
+// tensor-core product for each js, then wgmma with TMA-fed stages and warps
+// specialised to load, rebuild and multiply, so the core rows' latency hides
+// behind the products.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -67,12 +80,18 @@ constexpr int MAXN = 8;
 constexpr int THREADS = 256;          // 8 warps
 constexpr int BN = 128;               // output tile columns
 constexpr int BK = 32;                // rows of I a stage
-constexpr int XP = BK + 8;            // x stage row pitch (bf16): 80 B
+constexpr int XP = BK + 8;            // bf16 x stage / term row pitch: 80 B
 constexpr int WP = BN + 8;            // W stage row pitch (bf16): 272 B
 constexpr int PC = 8;                 // digit pairs a prologue block
 
+// the bf16 terms an f32 value enters the products as: x (bf16 or f32) and W
+template <typename T>
+constexpr int kXTerms = sizeof(T) == 4 ? 3 : 1;
+template <typename T>
+constexpr int kWTerms = sizeof(T) == 4 ? 3 : 2;
+
 struct Args {
-  const bf16* core[MAXN];
+  const void* core[MAXN];
   int bond[MAXN + 1];  // d_0 .. d_n  (d_0 = d_n = 1)
   int fin[MAXN];       // i_k
   int fout[MAXN];      // j_k
@@ -121,6 +140,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 
 // R[d][js][is] for the suffix cores s..n-1, contracted right to left, PC
 // (is, js) pairs a block, every thread on one (pair, row) output.
+template <typename T>
 __global__ void __launch_bounds__(THREADS) suffix_kernel(Args a, float* __restrict__ R) {
   extern __shared__ float sbuf[];
   float* in = sbuf;                 // [PC][dmax]
@@ -129,7 +149,7 @@ __global__ void __launch_bounds__(THREADS) suffix_kernel(Args a, float* __restri
   const int pc0 = blockIdx.x * PC;
   const int np = min(PC, npair - pc0);
   for (int k = a.n - 1; k >= a.s; --k) {
-    const bf16* c = a.core[k];
+    const T* c = static_cast<const T*>(a.core[k]);
     const int d0 = a.bond[k], d1 = a.bond[k + 1];
     const long row = (long)a.fin[k] * a.fout[k] * d1;
     for (int e = threadIdx.x; e < np * d0; e += THREADS) {
@@ -162,6 +182,7 @@ __global__ void __launch_bounds__(THREADS) suffix_kernel(Args a, float* __restri
 // a block: ip = ipp * i_{s-1} + ik and jp = jpp * j_{s-1} + jk, so each
 // stage's L[ip, jp, :] = P[ipp, jpp, :] . core_{s-1}[:, ik, jk, :] is one
 // step.  P = [1] when s = 1.
+template <typename T>
 __global__ void __launch_bounds__(THREADS) prefix_kernel(Args a, float* __restrict__ P) {
   extern __shared__ float sbuf[];
   float* in = sbuf;                 // [PC][dmax]
@@ -176,7 +197,7 @@ __global__ void __launch_bounds__(THREADS) prefix_kernel(Args a, float* __restri
   const int pc0 = blockIdx.x * PC;
   const int np = min(PC, npair - pc0);
   for (int k = 0; k < a.s - 1; ++k) {
-    const bf16* c = a.core[k];
+    const T* c = static_cast<const T*>(a.core[k]);
     const int d0 = a.bond[k], d1 = a.bond[k + 1];
     const long row = (long)a.fin[k] * a.fout[k] * d1;
     for (int e = threadIdx.x; e < np * d1; e += THREADS) {
@@ -206,14 +227,18 @@ __global__ void __launch_bounds__(THREADS) prefix_kernel(Args a, float* __restri
 }
 
 // Shared memory of mma_kernel, in bytes (kernels/mpo_linear.py:_mma_smem_bytes
-// mirrors it): R, the two x stages, two L buffers, the W_hi / W_lo stages.
+// mirrors it): R, the two x stages (bf16 at pitch XP, f32 at pitch BK), two L
+// buffers, in float32 the three bf16 x terms, and the W term stages.
 __host__ __device__ inline size_t round16(size_t b) { return (b + 15) / 16 * 16; }
 __host__ __device__ inline size_t lt_bytes(const Args& a) {
   return round16(sizeof(float) * (size_t)a.nq * a.ds * a.njq);
 }
-inline size_t mma_smem(const Args& a, int bm) {
-  return sizeof(float) * (size_t)a.ds * a.Is * a.Js + 2 * sizeof(bf16) * (size_t)bm * XP +
-         2 * lt_bytes(a) + 2 * sizeof(bf16) * (size_t)BK * WP;
+template <typename T>
+size_t mma_smem(const Args& a, int bm) {
+  const size_t xstage = sizeof(T) == 4 ? sizeof(float) * BK : sizeof(bf16) * XP;
+  const size_t xterms = sizeof(T) == 4 ? kXTerms<T> * sizeof(bf16) * (size_t)bm * XP : 0;
+  return sizeof(float) * (size_t)a.ds * a.Is * a.Js + 2 * xstage * bm + 2 * lt_bytes(a) +
+         xterms + kWTerms<T> * sizeof(bf16) * (size_t)BK * WP;
 }
 // floats of P: the prefix contraction through cores 0..s-2
 inline long p_floats(const Args& a) {
@@ -226,12 +251,16 @@ inline long p_floats(const Args& a) {
 template <int BM>
 constexpr bool kSplitWarps = BM >= 128;
 
-template <int BM, int TC>
+template <typename T, int BM, int TC>
 __global__ void __launch_bounds__(kSplitWarps<BM> ? 2 * THREADS : THREADS,
                                   kSplitWarps<BM> ? 1 : 2)
-mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
+mma_kernel(Args a, const T* __restrict__ x, T* __restrict__ y,
            const float* __restrict__ Rg, const float* __restrict__ P,
            float* __restrict__ part) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int NX = kXTerms<T>, NW = kWTerms<T>;
+  constexpr int CH = 16 / sizeof(T);            // x elements a 16-byte chunk
+  constexpr int XSP = F32 ? BK : XP;            // x stage row pitch, elements
   constexpr int WARPS_M = BM >= 128 ? 2 : 1;
   constexpr int WARPS_N = 8 / WARPS_M;
   constexpr int WTM = BM / WARPS_M;
@@ -242,11 +271,12 @@ mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
   extern __shared__ __align__(16) unsigned char smem[];
   const int rsz = a.ds * a.Is * a.Js;
   float* Rs = reinterpret_cast<float*>(smem);                  // [ds][Js][Is]
-  bf16* xs = reinterpret_cast<bf16*>(Rs + rsz);                // [2][BM][XP]
-  float* Lt0 = reinterpret_cast<float*>(xs + 2 * BM * XP);     // 2 x [nq][ds][njq]
+  T* xs = reinterpret_cast<T*>(Rs + rsz);                      // [2][BM][XSP]
+  float* Lt0 = reinterpret_cast<float*>(xs + 2 * BM * XSP);    // 2 x [nq][ds][njq]
   float* Lt1 = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Lt0) + lt_bytes(a));
-  bf16* Whi = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(Lt1) + lt_bytes(a));
-  bf16* Wlo = Whi + BK * WP;                                   // [BK][WP]
+  // float32: the three bf16 terms of the stage's x, [NX][BM][XP]
+  bf16* xt = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(Lt1) + lt_bytes(a));
+  bf16* Wt = xt + (F32 ? NX * BM * XP : 0);                    // [NW][BK][WP]
 
   constexpr bool WS = kSplitWarps<BM>;
   const bool lwarp = WS && threadIdx.x >= THREADS;  // an L warp
@@ -261,28 +291,28 @@ mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
 
   auto load_x = [&](int st, int buf) {
     const int i0 = st * BK;
-    bf16* dst = xs + buf * BM * XP;
-    for (int e = tid; e < BM * (BK / 8); e += THREADS) {
-      const int r = e / (BK / 8), ch = e % (BK / 8);
-      const int m = m0 + r, i = i0 + ch * 8;
-      const bool ok = m < a.M && i < a.I;       // I % 8 == 0: whole chunks
-      cp_async16(dst + r * XP + ch * 8, ok ? x + (long)m * a.I + i : x, ok ? 16 : 0);
+    T* dst = xs + buf * BM * XSP;
+    for (int e = tid; e < BM * (BK / CH); e += THREADS) {
+      const int r = e / (BK / CH), ch = e % (BK / CH);
+      const int m = m0 + r, i = i0 + ch * CH;
+      const bool ok = m < a.M && i < a.I;       // I % CH == 0: whole chunks
+      cp_async16(dst + r * XSP + ch * CH, ok ? x + (long)m * a.I + i : x, ok ? 16 : 0);
     }
   };
 
   // L[ip, jp0 + jq, :] of a stage's ip, one step from P through the last
   // prefix core, written to Lb; zero for ip or jp past the matrix's edge.
   // With ds % 8 == 0 on a 16-byte aligned core a task reads 8 columns of a
-  // core row in one 16-byte load and applies it to the VG <= 2 vectors of
-  // the stage that read the same row (jq equal mod j_{s-1}, one jk: half the
-  // L2 traffic; more vectors a task spill registers), and the RP lanes of
-  // one task split the sum over r and add their parts by a fixed butterfly
-  // (same bits every launch).
+  // core row in 16-byte loads (one of bf16, two of f32) and applies them to
+  // the VG <= 2 vectors of the stage that read the same row (jq equal mod
+  // j_{s-1}, one jk: half the L2 traffic; more vectors a task spill
+  // registers), and the RP lanes of one task split the sum over r and add
+  // their parts by a fixed butterfly (same bits every launch).
   auto lstage = [&](int st, float* Lb) {
     const int ipb = st * BK / a.Is;
     const int nvec = a.nq * a.njq;
     const int k = a.s - 1;
-    const bf16* c = a.core[k];
+    const T* c = static_cast<const T*>(a.core[k]);
     const int d0 = a.bond[k], fi = a.fin[k], fo = a.fout[k];
     const int Jpp = a.Jp / fo;
     const long row = (long)fi * fo * a.ds;
@@ -295,7 +325,6 @@ mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
       int RP = 1;
       while (RP < 8 && ntask * RP * 2 <= THREADS) RP *= 2;
       const int part = tid % RP;
-      const long rstride = row / 8;
       for (int t0 = 0; t0 < ntask; t0 += THREADS / RP) {
         const int task = t0 + tid / RP;
         const int vt = task / n8, c8 = task % n8;
@@ -313,18 +342,24 @@ mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
           for (int e = 0; e < 8; ++e) v[g][e] = 0.f;
         }
         if (task < ntask && ip < a.Ip && u[0] != nullptr) {
-          const uint4* src = reinterpret_cast<const uint4*>(
-              c + ((long)(ip % fi) * fo + (jp0 + jqb) % fo) * a.ds + 8 * c8);
+          const T* src = c + ((long)(ip % fi) * fo + (jp0 + jqb) % fo) * a.ds + 8 * c8;
 #pragma unroll 8
           for (int r = part; r < d0; r += RP) {
-            const uint4 raw = __ldg(src + r * rstride);
-            const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
             float f[8];
+            if constexpr (F32) {
+              const float4 lo = __ldg(reinterpret_cast<const float4*>(src + r * row));
+              const float4 hi = __ldg(reinterpret_cast<const float4*>(src + r * row) + 1);
+              f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
+              f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
+            } else {
+              const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + r * row));
+              const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float2 t = __bfloat1622float2(h[e]);
-              f[2 * e] = t.x;
-              f[2 * e + 1] = t.y;
+              for (int e = 0; e < 4; ++e) {
+                const float2 t = __bfloat1622float2(h[e]);
+                f[2 * e] = t.x;
+                f[2 * e + 1] = t.y;
+              }
             }
 #pragma unroll
             for (int g = 0; g < 2; ++g) {
@@ -410,11 +445,37 @@ mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
 #pragma unroll
         for (int c = 0; c < TC; ++c) {
           const int idx = (kk0 + r) * WP + (jg * TC + c) * a.Js + js;
-          const float w = acc[r][c];
-          const bf16 hi = __float2bfloat16(w);
-          Whi[idx] = hi;
-          Wlo[idx] = __float2bfloat16(w - __bfloat162float(hi));
+          float w = acc[r][c];
+#pragma unroll
+          for (int t = 0; t < NW; ++t) {    // w_t = bf16(what w_0..w_{t-1} leave)
+            const bf16 h = __float2bfloat16(w);
+            Wt[t * BK * WP + idx] = h;
+            w -= __bfloat162float(h);
+          }
         }
+    }
+  };
+
+  // float32: the landed x stage into its three bf16 terms, 4 values a task
+  auto split_x = [&](int buf) {
+    const float* src = reinterpret_cast<const float*>(xs) + buf * BM * XSP;
+    for (int e = tid; e < BM * (BK / 4); e += THREADS) {
+      const int r = e / (BK / 4), c4 = e % (BK / 4);
+      const float4 v = *reinterpret_cast<const float4*>(src + r * XSP + 4 * c4);
+      float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int t = 0; t < NX; ++t) {
+        __nv_bfloat162 h[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          h[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+          const float2 b = __bfloat1622float2(h[k]);
+          f[2 * k] -= b.x;
+          f[2 * k + 1] -= b.y;
+        }
+        *reinterpret_cast<uint2*>(xt + (t * BM + r) * XP + 4 * c4) =
+            *reinterpret_cast<const uint2*>(h);
+      }
     }
   };
 
@@ -426,8 +487,10 @@ mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  auto product = [&](int buf) {
-    const bf16* xb = xs + buf * BM * XP;
+  // one bf16 x tile against W terms 0..nw-1: bf16 loads both W fragments of
+  // an n-tile pair and issues w0 then w1; float32 loads one W term at a time
+  // (fewer live registers) and issues the smallest first
+  auto product_term = [&](const bf16* xb, int nw) {
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[MT][4];
@@ -438,17 +501,41 @@ mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
 #pragma unroll
       for (int nt = 0; nt < NT; nt += 2) {
         const int ncol = wn * WTN + nt * 8 + (lane >> 4) * 8;
-        uint32_t bh[4], bl[4];
-        ldmatrix_x4_trans(bh, Whi + krow * WP + ncol);
-        ldmatrix_x4_trans(bl, Wlo + krow * WP + ncol);
+        if constexpr (!F32) {
+          uint32_t bh[4], bl[4];
+          ldmatrix_x4_trans(bh, Wt + krow * WP + ncol);
+          ldmatrix_x4_trans(bl, Wt + BK * WP + krow * WP + ncol);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][nt], af[mt], bh[0], bh[1]);
-          mma_bf16(acc[mt][nt], af[mt], bl[0], bl[1]);
-          mma_bf16(acc[mt][nt + 1], af[mt], bh[2], bh[3]);
-          mma_bf16(acc[mt][nt + 1], af[mt], bl[2], bl[3]);
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][nt], af[mt], bh[0], bh[1]);
+            mma_bf16(acc[mt][nt], af[mt], bl[0], bl[1]);
+            mma_bf16(acc[mt][nt + 1], af[mt], bh[2], bh[3]);
+            mma_bf16(acc[mt][nt + 1], af[mt], bl[2], bl[3]);
+          }
+        } else {
+#pragma unroll
+          for (int t = NW - 1; t >= 0; --t) {
+            if (t >= nw) continue;
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, Wt + t * BK * WP + krow * WP + ncol);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_bf16(acc[mt][nt], af[mt], b[0], b[1]);
+              mma_bf16(acc[mt][nt + 1], af[mt], b[2], b[3]);
+            }
+          }
         }
       }
+    }
+  };
+
+  auto product = [&](int buf) {
+    if constexpr (F32) {
+      // x_t pairs with the W terms that keep the product >= 2^-24 of x0.w0
+#pragma unroll
+      for (int t = NX - 1; t >= 0; --t) product_term(xt + t * BM * XP, NW - t);
+    } else {
+      product_term(reinterpret_cast<const bf16*>(xs) + buf * BM * XP, NW);
     }
   };
 
@@ -472,6 +559,7 @@ mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
     const bool newL = st + 1 < st1 && (st + 1) * BK % a.Is == 0;
     if ((!WS || lwarp) && newL) lstage(st + 1, Lnext);
     if (!lwarp) {
+      if constexpr (F32) split_x(buf);
       rebuild(st, Lcur);
       if (WS) asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS));  // the 8 W warps
       else __syncthreads();
@@ -486,7 +574,7 @@ mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
   }
   if (lwarp) return;
 
-  // epilogue: one rounding to bf16 (or the split's f32 partial), ragged
+  // epilogue: one rounding to y's dtype (or the split's f32 partial), ragged
   // M and J edges masked
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -501,33 +589,35 @@ mma_kernel(Args a, const bf16* __restrict__ x, bf16* __restrict__ y,
         for (int e = 0; e < 2; ++e) {
           if (col + e >= a.J) continue;
           const float v = acc[mt][nt][2 * h + e];
-          if (a.S == 1) y[(long)m * a.J + col + e] = __float2bfloat16(v);
+          if (a.S == 1) repro::st(y, (long)m * a.J + col + e, v);
           else part[((long)split * a.M + m) * a.J + col + e] = v;
         }
       }
     }
 }
 
-// y = bf16(sum of the S partials, in split order)
+// y = (sum of the S partials, in split order), rounded to y's dtype once
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-reduce_kernel(const float* __restrict__ part, bf16* __restrict__ y, long mj, int S) {
+reduce_kernel(const float* __restrict__ part, T* __restrict__ y, long mj, int S) {
   for (long i = blockIdx.x * (long)THREADS + threadIdx.x; i < mj; i += (long)gridDim.x * THREADS) {
     float v = 0.f;
     for (int k = 0; k < S; ++k) v += part[k * mj + i];
-    y[i] = __float2bfloat16(v);
+    repro::st(y, i, v);
   }
 }
 
-// Fills a from the core shapes; false when the kernel cannot take them.
+// Fills a from the core shapes for x elements of esize bytes; false when the
+// kernel cannot take them.
 bool make_args(Args& a, const void* const* cores, const int* shapes, int n, int split, int M,
-               int S) {
+               int S, int esize) {
   if (n < 2 || n > MAXN || split < 1 || split >= n || S < 1) return false;
   a.n = n;
   a.s = split;
   a.I = a.J = a.Is = a.Js = 1;
   a.dmax = 1;
   for (int k = 0; k < n; ++k) {
-    a.core[k] = cores ? static_cast<const bf16*>(cores[k]) : nullptr;
+    a.core[k] = cores ? cores[k] : nullptr;
     a.bond[k] = shapes[4 * k];
     a.fin[k] = shapes[4 * k + 1];
     a.fout[k] = shapes[4 * k + 2];
@@ -552,7 +642,8 @@ bool make_args(Args& a, const void* const* cores, const int* shapes, int n, int 
     pi *= a.fin[k];
     po *= a.fout[k];
   }
-  if (a.I % 8 || a.Is % 4 || (a.Is % BK && BK % a.Is) || BN % a.Js) return false;
+  // I in whole 16-byte chunks of x
+  if (a.I % (16 / esize) || a.Is % 4 || (a.Is % BK && BK % a.Is) || BN % a.Js) return false;
   a.Isb = a.Is < BK ? a.Is : BK;
   a.nq = BK / a.Isb;
   a.njq = BN / a.Js;
@@ -562,71 +653,83 @@ bool make_args(Args& a, const void* const* cores, const int* shapes, int n, int 
   return (a.nst + a.per - 1) / a.per == S;
 }
 
-template <int BM, int TC>
+template <typename T, int BM, int TC>
 int launch_main(const Args& a, const void* x, void* y, const float* R, const float* P,
                 float* part, cudaStream_t st) {
-  const size_t smem = mma_smem(a, BM);
-  cudaError_t err = repro::allow_smem(mma_kernel<BM, TC>, smem);
+  const size_t smem = mma_smem<T>(a, BM);
+  cudaError_t err = repro::allow_smem(mma_kernel<T, BM, TC>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.J + BN - 1) / BN, a.S, (a.M + BM - 1) / BM);
-  mma_kernel<BM, TC><<<grid, kSplitWarps<BM> ? 2 * THREADS : THREADS, smem, st>>>(a, static_cast<const bf16*>(x),
-                                                  static_cast<bf16*>(y), R, P, part);
+  mma_kernel<T, BM, TC><<<grid, kSplitWarps<BM> ? 2 * THREADS : THREADS, smem, st>>>(
+      a, static_cast<const T*>(x), static_cast<T*>(y), R, P, part);
   return (int)cudaGetLastError();
 }
 
-template <int BM>
+template <typename T, int BM>
 int launch_tc(int tc, const Args& a, const void* x, void* y, const float* R, const float* P,
               float* part, cudaStream_t st) {
-  if (tc == 4 && a.njq % 4 == 0) return launch_main<BM, 4>(a, x, y, R, P, part, st);
-  if (tc == 2 && a.njq % 2 == 0) return launch_main<BM, 2>(a, x, y, R, P, part, st);
+  if (tc == 4 && a.njq % 4 == 0) return launch_main<T, BM, 4>(a, x, y, R, P, part, st);
+  if (tc == 2 && a.njq % 2 == 0) return launch_main<T, BM, 2>(a, x, y, R, P, part, st);
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// Floats of workspace one call takes: R, P, then (S > 1) the [S, M, J]
-// partials.
-extern "C" long mpo_linear_mma_workspace(const int* shapes, int n, int split, int M, int S) {
-  Args a;
-  if (!make_args(a, nullptr, shapes, n, split, M, S)) return -1;
-  return (long)a.ds * a.Is * a.Js + p_floats(a) + (S > 1 ? (long)S * M * a.J : 0);
-}
-
-// Dynamic shared memory of the main kernel at row tile bm, in bytes.
-extern "C" long mpo_linear_mma_smem(const int* shapes, int n, int split, int bm) {
-  Args a;
-  if (!make_args(a, nullptr, shapes, n, split, 1, 1)) return -1;
-  return (long)mma_smem(a, bm);
-}
-
-// cores: n bf16 device pointers; shapes: n * 4 ints (d0, i, j, d1) per core.
-// bm: 16, 64 or 128 rows an output tile; tc: 4 or 2 jp columns a rebuild
-// patch; S: splits of I.  x [M, I] and y [M, J] bf16; ws: the workspace.
-// Returns cudaGetLastError() after the launches (0 = launched).
-extern "C" int mpo_linear_mma_fwd(const void* const* cores, const int* shapes, int n, int split,
-                                  int bm, int tc, int S, const void* x, void* y, int M, void* ws,
-                                  void* stream) {
-  Args a;
-  if (!make_args(a, cores, shapes, n, split, M, S)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* R = static_cast<float*>(ws);
+template <typename T>
+int launch(const Args& a, int bm, int tc, const void* x, void* y, float* ws, cudaStream_t st) {
+  float* R = ws;
   const long rsz = (long)a.ds * a.Is * a.Js;
   float* P = R + rsz;
   float* part = P + p_floats(a);
   const size_t ssmem = 2 * sizeof(float) * PC * a.dmax;
-  suffix_kernel<<<(a.Is * a.Js + PC - 1) / PC, THREADS, ssmem, st>>>(a, R);
+  suffix_kernel<T><<<(a.Is * a.Js + PC - 1) / PC, THREADS, ssmem, st>>>(a, R);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  prefix_kernel<<<(p_floats(a) / a.bond[a.s - 1] + PC - 1) / PC, THREADS, ssmem, st>>>(a, P);
+  prefix_kernel<T><<<(p_floats(a) / a.bond[a.s - 1] + PC - 1) / PC, THREADS, ssmem, st>>>(a, P);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  if (bm == 128) rc = launch_tc<128>(tc, a, x, y, R, P, part, st);
-  else if (bm == 64) rc = launch_tc<64>(tc, a, x, y, R, P, part, st);
-  else if (bm == 16) rc = launch_tc<16>(tc, a, x, y, R, P, part, st);
+  if (bm == 128) rc = launch_tc<T, 128>(tc, a, x, y, R, P, part, st);
+  else if (bm == 64) rc = launch_tc<T, 64>(tc, a, x, y, R, P, part, st);
+  else if (bm == 16) rc = launch_tc<T, 16>(tc, a, x, y, R, P, part, st);
   else rc = (int)cudaErrorInvalidValue;
-  if (rc || S == 1) return rc;
-  const long mj = (long)M * a.J;
+  if (rc || a.S == 1) return rc;
+  const long mj = (long)a.M * a.J;
   const int blocks = (int)((mj + THREADS - 1) / THREADS < 4096 ? (mj + THREADS - 1) / THREADS : 4096);
-  reduce_kernel<<<blocks, THREADS, 0, st>>>(part, static_cast<bf16*>(y), mj, S);
+  reduce_kernel<T><<<blocks, THREADS, 0, st>>>(part, static_cast<T*>(y), mj, a.S);
   return (int)cudaGetLastError();
+}
+
+int esize(int dtype) { return dtype == 0 ? 4 : dtype == 1 ? 2 : 0; }
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (x, cores and y alike).
+
+// Floats of workspace one call takes: R, P, then (S > 1) the [S, M, J]
+// partials.
+extern "C" long mpo_linear_mma_workspace(const int* shapes, int n, int split, int M, int S,
+                                         int dtype) {
+  Args a;
+  if (!esize(dtype) || !make_args(a, nullptr, shapes, n, split, M, S, esize(dtype))) return -1;
+  return (long)a.ds * a.Is * a.Js + p_floats(a) + (S > 1 ? (long)S * M * a.J : 0);
+}
+
+// Dynamic shared memory of the main kernel at row tile bm, in bytes.
+extern "C" long mpo_linear_mma_smem(const int* shapes, int n, int split, int bm, int dtype) {
+  Args a;
+  if (!esize(dtype) || !make_args(a, nullptr, shapes, n, split, 1, 1, esize(dtype))) return -1;
+  return (long)(dtype == 0 ? mma_smem<float>(a, bm) : mma_smem<bf16>(a, bm));
+}
+
+// cores: n device pointers; shapes: n * 4 ints (d0, i, j, d1) per core.
+// bm: 16, 64 or 128 rows an output tile; tc: 4 or 2 jp columns a rebuild
+// patch; S: splits of I.  x [M, I] and y [M, J]; ws: the workspace.
+// Returns cudaGetLastError() after the launches (0 = launched).
+extern "C" int mpo_linear_mma_fwd(const void* const* cores, const int* shapes, int n, int split,
+                                  int bm, int tc, int S, const void* x, void* y, int M, void* ws,
+                                  int dtype, void* stream) {
+  Args a;
+  if (!esize(dtype) || !make_args(a, cores, shapes, n, split, M, S, esize(dtype)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  return dtype == 0 ? launch<float>(a, bm, tc, x, y, w, st) : launch<bf16>(a, bm, tc, x, y, w, st);
 }

@@ -5,9 +5,11 @@ Each ``repro_torch/csrc/<name>.cu`` is compiled on its own into
 lists ``build/``), for ``sm_90a``, at first use.  The hash covers the
 source and the flags, so an edited source is rebuilt and an unchanged one
 is reused.  The C entry points take raw device pointers and the CUDA
-stream, launch, and return ``cudaGetLastError()``; the Python wrappers
-raise when that is not 0.  ``nvcc``'s ``-Xptxas -v`` report (registers,
-shared memory, spills) is kept beside each library as ``<name>-<hash>.log``.
+stream, launch on the current device, and return ``cudaGetLastError()``;
+the Python wrappers call them through ``launch``, which makes the tensors'
+device current and raises when that is not 0.  ``nvcc``'s ``-Xptxas -v``
+report (registers, shared memory, spills) is kept beside each library as
+``<name>-<hash>.log``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -95,3 +99,18 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _loaded[name] = ctypes.CDLL(str(build([name])[name]))
         return lib
+
+
+def launch(name: str, x: torch.Tensor, call) -> None:
+    """``call(stream)`` with tensor ``x``'s device current and its current
+    stream (the C entry points launch on the current device); raises when it
+    returns a CUDA error."""
+    idx = x.device.index
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if idx is None or idx == torch.cuda.current_device():
+        rc = call(stream)
+    else:
+        with torch.cuda.device(idx):
+            rc = call(stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

@@ -3,9 +3,11 @@
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py:_flash_jit``
 (``_flash_kernel`` with its page-clamped index maps).  The CUDA source is
 ``repro_torch/csrc/decode_attention.cu``; its header says what bounds it on
-an H100 and how the design answers: one block per (slot, kv head) walks only
-its own slot's pages, so the clamp trick is not needed, and the G query heads
-of a group share each page load.
+an H100 and how the design answers: each slot's pages are split into S
+contiguous ranges (``_flash_plan``), one block per (slot, kv head, split)
+walks only its own range, so the clamp trick is not needed, the G query
+heads of a group share each tile of keys, and a second pass combines the
+splits in split order.
 
 ``flash_decode_attention`` launches the kernel for CUDA tensors and calls
 ``flash_decode_attention_plain`` only for CPU tensors.  There is no fallback
@@ -15,6 +17,7 @@ from the kernel to the gather path: a failure raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -24,9 +27,41 @@ from repro_torch.kernels import _build
 
 MASK_VALUE = -2.3819763e38          # the fill attention_scores uses
 _TINY = 1e-30                       # zero-valid-keys guard (idle slots)
-THREADS, MAXR = 128, 16             # must match csrc/decode_attention.cu
+THREADS, MAXR, KT = 128, 16, 32     # must match csrc/decode_attention.cu
 SMEM_LIMIT = 227 * 1024
+# the blocks the H100 runs at once: 132 SMs, 8 of the split kernel's
+# 128-thread blocks an SM (64 registers a thread)
+SMS, BLOCKS_PER_SM = 132, 8
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _flash_smem(g: int, dh: int, kt: int, esize: int) -> int:
+    """``split_smem`` in the CUDA source: two buffers of K and V tiles in
+    the pages' dtype, q in f32, the scores and three f32 values a head."""
+    return -(-2 * 2 * kt * dh * esize // 16) * 16 + 4 * (g * dh + g * kt + 3 * g)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    splits: int         # S: blocks that share one (slot, kv head)'s pages
+    kt: int             # keys a tile
+    workspace: int      # floats of the splits' (m, l, acc), 0 when S = 1
+
+
+@functools.lru_cache(maxsize=1024)
+def _flash_plan(b: int, kv: int, g: int, dh: int, ps: int, mp: int) -> FlashPlan:
+    """The split kernel's launch.  S: as many splits as keep the B * KV * S
+    blocks within two waves of the card (a wave: the blocks it runs at once,
+    ``SMS * BLOCKS_PER_SM``), at most one a page of the table, so a full
+    slot gives every split a page (S = 1 where B * KV already fills two
+    waves).  kt: the keys of a split's pages at a full slot, at most 32, and
+    halved until the float32 buffers fit shared memory (every G * Dh <= 2048
+    fits at one key)."""
+    splits = max(1, min(mp, 2 * SMS * BLOCKS_PER_SM // max(b * kv, 1)))
+    kt = min(KT, ps * -(-mp // splits))
+    while kt > 1 and _flash_smem(g, dh, kt, 4) > SMEM_LIMIT:
+        kt //= 2
+    return FlashPlan(splits, kt, b * kv * splits * (2 * g + g * dh) if splits > 1 else 0)
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -71,10 +106,13 @@ flash_decode_attention_plain.calls = 0
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
+    i32, f32 = ctypes.c_int, ctypes.c_float
     lib.flash_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.flash_decode_attention.restype = ctypes.c_int
+        [ctypes.c_void_p] * 8 + [i32] * 9 + [f32, f32, i32, ctypes.c_void_p])
+    lib.flash_decode_attention.restype = i32
+    lib.flash_decode_attention_serial.argtypes = (
+        [ctypes.c_void_p] * 7 + [i32] * 7 + [f32, f32, i32, ctypes.c_void_p])
+    lib.flash_decode_attention_serial.restype = i32
     return lib
 
 
@@ -105,10 +143,9 @@ def _check(q, k_pages, v_pages, page_table, lengths, bias):
                          f"q {tuple(q.shape)}, pages {tuple(k_pages.shape)}, table "
                          f"{tuple(page_table.shape)}, lengths {tuple(lengths.shape)}, "
                          f"bias {tuple(bias.shape)}")
-    smem = 4 * (g * dh + ps * (dh + 1) + ps * dh + g * ps + 3 * g)
-    if g * dh > THREADS * MAXR or smem > SMEM_LIMIT or kv > 65535:
+    if g * dh > THREADS * MAXR or b * kv >= 2 ** 31 or mp > 65535:
         raise ValueError(f"flash_decode_attention: the kernel does not take "
-                         f"G={g}, Dh={dh}, page_size={ps}, KV={kv}")
+                         f"G={g}, Dh={dh}, KV={kv}, {mp} pages a slot")
 
 
 def flash_decode_attention(q, k_pages, v_pages, page_table, lengths, bias,
@@ -122,8 +159,9 @@ def flash_decode_attention(q, k_pages, v_pages, page_table, lengths, bias,
     bias:       (B, MP * ps) f32 — additive mask (0 keep / MASK_VALUE drop)
 
     Returns (B, KV, G, Dh) in q's dtype.  CUDA tensors launch the kernel
-    (``flash_decode_attention.launches`` counts the launches); CPU tensors
-    take ``flash_decode_attention_plain``."""
+    (``flash_decode_attention.launches`` counts the launches; the splits'
+    workspace comes from ``torch.empty``); CPU tensors take
+    ``flash_decode_attention_plain``."""
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, k_pages, v_pages, page_table,
                                             lengths, bias, softcap=softcap)
@@ -133,16 +171,16 @@ def flash_decode_attention(q, k_pages, v_pages, page_table, lengths, bias,
     b, kv, g, dh = q.shape
     p, ps = k_pages.shape[:2]
     out = torch.empty_like(q)
-    if b == 0:
+    if b * kv == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib().flash_decode_attention(
+    mp = page_table.shape[1]
+    plan = _flash_plan(b, kv, g, dh, ps, mp)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
+    _build.launch("flash_decode_attention", q, lambda stream: _lib().flash_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), bias.data_ptr(), out.data_ptr(), b, kv, g, dh, p, ps,
-        page_table.shape[1], 1.0 / math.sqrt(dh), float(softcap or 0.0),
-        DTYPES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_decode_attention launch failed: CUDA error {rc}")
+        lengths.data_ptr(), bias.data_ptr(), out.data_ptr(), ws.data_ptr(), b, kv, g, dh, p,
+        ps, mp, plan.splits, plan.kt, 1.0 / math.sqrt(dh), float(softcap or 0.0),
+        DTYPES[q.dtype], stream))
     flash_decode_attention.launches += 1
     return out
 

@@ -5,16 +5,21 @@ Three CUDA kernels replace the Pallas TPU kernels of
 ``repro/kernels/mpo_linear.py``:
 
 * ``mpo_linear_mma`` (``csrc/mpo_linear_mma.cu``) replaces ``_fwd_call`` /
-  ``_fwd_kernel`` for bfloat16.  The core chain is split at a bond s,
+  ``_fwd_kernel`` in both dtypes.  The core chain is split at a bond s,
   ``W[ip, is, jp, js] = sum_d L[ip, jp, d] R[d, is, js]``; R is contracted
   once a call, each block rebuilds W stages in f32 from R and the prefix
-  vectors L and multiplies them on the tensor cores (``mma.sync``), W
-  entering as the exact pair ``bf16(W)`` + ``bf16(W - bf16(W))``; few rows
-  split I across blocks and sum the f32 partials in a second pass.
-* ``mpo_linear`` (``csrc/mpo_linear.cu``) is the same forward for float32,
-  on the CUDA cores: each block keeps R in shared memory, rebuilds W
-  sub-blocks and loops over all of I with f32 accumulators.  ``mpo_linear``
-  is also the entry point of both: bfloat16 goes to ``mpo_linear_mma``.
+  vectors L and multiplies them on the tensor cores (``mma.sync``, bf16 in,
+  f32 accumulate), each f32 operand entering as bf16 terms: in bfloat16 W
+  as the pair ``bf16(W)`` + ``bf16(W - bf16(W))``, in float32 x and W as
+  three terms each (six products, ~24 bits); few rows split I across
+  blocks and sum the f32 partials in a second pass.
+* ``mpo_linear_cuda_core`` (``csrc/mpo_linear.cu``) is the same forward
+  for the float32 core shapes the tensor-core plan refuses (the narrow
+  matrices of the smoke configs, qwen3-14b's ``lm_head``), on the CUDA
+  cores: each block keeps R in shared memory, rebuilds W sub-blocks and
+  loops over all of I with f32 accumulators.  ``forward_kernel`` names the
+  kernel a call takes, from the core shapes and dtype alone; ``mpo_linear``
+  is the entry point of both.
 * ``mpo_linear_bwd_cores`` (``csrc/mpo_linear_bwd.cu``) replaces
   ``_bwd_cores_call`` / ``_bwd_cores_kernel``: tiles of ``dW = x^T dy`` are
   formed in shared memory only and pulled back through the same split into
@@ -93,9 +98,15 @@ def _launch_plan(shapes: tuple, tile: int = 0) -> tuple[int, int] | None:
 
 
 # must match csrc/mpo_linear_mma.cu: the output tile's columns, the rows of
-# I a stage, the x and W stage row pitches (bf16)
+# I a stage, the bf16 x and W stage row pitches, and the bf16 terms x and W
+# enter the products as
 MMA_BN, MMA_BK = 128, 32
 MMA_XP, MMA_WP = MMA_BK + 8, MMA_BN + 8
+MMA_TERMS = {"bfloat16": (1, 2), "float32": (3, 3)}
+# the row tile whose shared memory decides which bonds the plan takes: bf16
+# the largest (128); float32's stages are larger, so a bond it takes must fit
+# at 64 rows and runs 128 only where that fits too
+MMA_FIT_BM = {"bfloat16": 128, "float32": 64}
 MMA_SMS = 132                        # the H100's SMs: split I up to two waves
 SPLIT_M = 64                         # at most this many rows: I split across blocks
 
@@ -110,15 +121,17 @@ class MmaPlan:
     workspace: int      # bytes of scratch: R, P, then the [S, M, J] f32 partials
 
 
-def _mma_geometry(shapes: Sequence[tuple], s: int) -> dict | None:
+def _mma_geometry(shapes: Sequence[tuple], s: int, dtype: str = "bfloat16") -> dict | None:
     """The stage and tile geometry of bond s, as ``make_args`` in the CUDA
     source derives it, or None when the kernel cannot take it: I in whole
-    16-byte chunks, whole 4-row patches of is that divide or are divided by
-    a stage, whole js groups in a tile and at least two jp a tile."""
+    16-byte chunks of x (8 bf16, 4 floats), whole 4-row patches of is that
+    divide or are divided by a stage, whole js groups in a tile and at least
+    two jp a tile."""
     i_dim = math.prod(c[1] for c in shapes)
     i_s = math.prod(c[1] for c in shapes[s:])
     j_s = math.prod(c[2] for c in shapes[s:])
-    if i_dim % 8 or i_s % 4 or (i_s % MMA_BK and MMA_BK % i_s) or MMA_BN % j_s:
+    chunk = 8 if dtype == "bfloat16" else 4
+    if i_dim % chunk or i_s % 4 or (i_s % MMA_BK and MMA_BK % i_s) or MMA_BN % j_s:
         return None
     njq = MMA_BN // j_s
     if njq < 2:
@@ -132,23 +145,27 @@ def _mma_geometry(shapes: Sequence[tuple], s: int) -> dict | None:
                 tc=4 if njq % 4 == 0 else 2, p=p)
 
 
-def _mma_smem_bytes(g: dict, bm: int) -> int:
-    """``mma_smem`` in the CUDA source: R, two x stages, two L buffers and
-    the W_hi / W_lo stages."""
+def _mma_smem_bytes(g: dict, bm: int, dtype: str = "bfloat16") -> int:
+    """``mma_smem`` in the CUDA source: R, two x stages (bf16 at the padded
+    pitch, f32 at ``MMA_BK`` floats), two L buffers, in float32 the three
+    bf16 x terms, and the bf16 W term stages."""
+    nx, nw = MMA_TERMS[dtype]
     lt = -(-4 * g["nq"] * g["ds"] * g["njq"] // 16) * 16
-    return (4 * g["ds"] * g["i_s"] * g["j_s"] + 2 * 2 * bm * MMA_XP + 2 * lt
-            + 2 * 2 * MMA_BK * MMA_WP)
+    xstage = 2 * MMA_XP if dtype == "bfloat16" else 4 * MMA_BK
+    xterms = 2 * nx * bm * MMA_XP if dtype == "float32" else 0
+    return (4 * g["ds"] * g["i_s"] * g["j_s"] + 2 * xstage * bm + 2 * lt + xterms
+            + 2 * nw * MMA_BK * MMA_WP)
 
 
 @functools.lru_cache(maxsize=None)
-def _mma_split(shapes: tuple) -> int | None:
-    """The bond the bf16 kernel splits at, or None.  Among the bonds it can
-    take whose shared memory fits at the largest tile and whose scratch R
-    and P stay within an eighth of a bf16 W, the least work a block does
-    per stage: the W rebuild (``BK * BN * d_s`` FMAs, dearer per FMA with
-    2-column patches) and the prefix vectors of the stage's (ip, jp), one
-    step through the last prefix core, amortized over the stages that share
-    one ip."""
+def _mma_split(shapes: tuple, dtype: str = "bfloat16") -> int | None:
+    """The bond the tensor-core kernel splits at in this dtype, or None.
+    Among the bonds it can take whose shared memory fits at ``MMA_FIT_BM``
+    rows and whose scratch R and P stay within an eighth of a bf16 W, the
+    least work a block does per stage: the W rebuild
+    (``BK * BN * d_s`` FMAs, dearer per FMA with 2-column patches) and the
+    prefix vectors of the stage's (ip, jp), one step through the last prefix
+    core, amortized over the stages that share one ip."""
     n = len(shapes)
     if not 2 <= n <= MAXN or shapes[0][0] != 1 or shapes[-1][3] != 1:
         return None
@@ -157,8 +174,8 @@ def _mma_split(shapes: tuple) -> int | None:
     w_bytes = 2 * math.prod(c[1] for c in shapes) * math.prod(c[2] for c in shapes)
     best = None
     for s in range(1, n):
-        g = _mma_geometry(shapes, s)
-        if g is None or _mma_smem_bytes(g, 128) > SMEM_LIMIT:
+        g = _mma_geometry(shapes, s, dtype)
+        if g is None or _mma_smem_bytes(g, MMA_FIT_BM[dtype], dtype) > SMEM_LIMIT:
             continue
         if 4 * (g["ds"] * g["i_s"] * g["j_s"] + g["p"]) * 8 > w_bytes:
             continue
@@ -185,19 +202,23 @@ def _mma_splits(i_dim: int, j_dim: int, m: int, bm: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def _mma_plan(shapes: tuple, m: int) -> MmaPlan | None:
-    """The bf16 kernel's launch for these core shapes at ``m`` rows, or None
-    when it cannot take the shapes."""
-    s = _mma_split(shapes)
+def _mma_plan(shapes: tuple, m: int, dtype: str = "bfloat16") -> MmaPlan | None:
+    """The tensor-core kernel's launch for these core shapes at ``m`` rows
+    in this dtype, or None when it cannot take the shapes.  Rows: 16 up to
+    16, 64 up to ``SPLIT_M``, else 128 (float32: 64 where 128 does not fit
+    shared memory)."""
+    s = _mma_split(shapes, dtype)
     if s is None:
         return None
-    g = _mma_geometry(shapes, s)
+    g = _mma_geometry(shapes, s, dtype)
     bm = 16 if m <= 16 else 64 if m <= SPLIT_M else 128
+    if _mma_smem_bytes(g, bm, dtype) > SMEM_LIMIT:
+        bm = 64
     i_dim = math.prod(c[1] for c in shapes)
     j_dim = math.prod(c[2] for c in shapes)
     splits = _mma_splits(i_dim, j_dim, m, bm)
     ws = 4 * (g["ds"] * g["i_s"] * g["j_s"] + g["p"] + (splits * m * j_dim if splits > 1 else 0))
-    return MmaPlan(s, bm, g["tc"], splits, _mma_smem_bytes(g, bm), ws)
+    return MmaPlan(s, bm, g["tc"], splits, _mma_smem_bytes(g, bm, dtype), ws)
 
 
 # the dW tile edge (and KC, the rows staged per step) must match
@@ -257,17 +278,44 @@ def _bwd_plan(shapes: tuple) -> tuple[int, int, int] | None:
     return None if best is None else best[1:]
 
 
+def forward_kernel(shapes: Sequence[tuple], dtype: str) -> str | None:
+    """The forward kernel ``mpo_linear`` launches for these core shapes on
+    the card, from the shapes and dtype alone (never after a failure):
+    ``"mma"`` (``csrc/mpo_linear_mma.cu``) wherever its plan takes them;
+    for float32 shapes it refuses but ``_launch_plan`` takes,
+    ``"cuda_core"`` (``csrc/mpo_linear.cu``); else None."""
+    return _route(tuple(tuple(int(d) for d in s) for s in shapes), dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _route(shapes: tuple, dtype: str) -> str | None:
+    if dtype not in ("float32", "bfloat16"):
+        return None
+    if _mma_split(shapes, dtype) is not None:
+        return "mma"
+    if dtype == "float32" and _launch_plan(shapes) is not None:
+        return "cuda_core"
+    return None
+
+
 def kernel_eligible(shapes: Sequence[tuple], *, dtype: str = "float32",
                     train: bool = False) -> bool:
     """Can the Hopper kernels run these core shapes in this activation dtype?
 
-    float32 runs ``csrc/mpo_linear.cu``: 2..8 cores and a bond whose suffix
+    bfloat16 runs ``csrc/mpo_linear_mma.cu``, whose bond must give whole
+    stage and tile groups (``_mma_split``).  float32 admits what
+    ``csrc/mpo_linear.cu`` takes: 2..8 cores and a bond whose suffix
     contraction fits one block's shared memory (``_launch_plan``; the 64 x 64
-    tile needs the most, so it decides for both tiles).  bfloat16 runs
-    ``csrc/mpo_linear_mma.cu``, whose bond must also give whole stage and
-    tile groups (``_mma_plan``).  ``train`` also needs the forward over the
-    i/j-swapped cores (``dL/dx``) and the cores-backward kernel
-    (``_bwd_plan``)."""
+    tile needs the most, so it decides for both tiles).  Of those, the
+    shapes the tensor-core plan takes in float32 run ``mpo_linear_mma.cu``
+    and the rest ``mpo_linear.cu`` (``forward_kernel``): at the repository's
+    configs that rest is six of smoke bert-base's seven matrices, the seven
+    narrow matrices of smoke qwen3-14b and smoke mamba2-130m's ``out_proj``
+    (W of 64 x 64 to 128 x 64: every bond's R and P exceed an eighth of it,
+    or its is group is not whole 4-row patches), and full-width qwen3-14b's
+    ``lm_head`` (no bond's js group divides the 128-column tile).
+    ``train`` also needs the forward over the i/j-swapped cores (``dL/dx``)
+    and the cores-backward kernel (``_bwd_plan``)."""
     if dtype not in ("float32", "bfloat16"):
         return False
     shapes = tuple(tuple(int(d) for d in s) for s in shapes)
@@ -306,7 +354,7 @@ def _lib() -> ctypes.CDLL:
     lib.mpo_linear_fwd.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     lib.mpo_linear_fwd.restype = ctypes.c_int
     return lib
 
@@ -315,13 +363,13 @@ def _lib() -> ctypes.CDLL:
 def _mma_lib() -> ctypes.CDLL:
     lib = _build.load("mpo_linear_mma")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mpo_linear_mma_smem.argtypes = [ctypes.POINTER(i32), i32, i32, i32]
+    lib.mpo_linear_mma_smem.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32]
     lib.mpo_linear_mma_smem.restype = ctypes.c_long
-    lib.mpo_linear_mma_workspace.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32]
+    lib.mpo_linear_mma_workspace.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32, i32]
     lib.mpo_linear_mma_workspace.restype = ctypes.c_long
     lib.mpo_linear_mma_fwd.argtypes = [
         ctypes.POINTER(ptr), ctypes.POINTER(i32), i32, i32, i32, i32, i32, ptr, ptr, i32,
-        ptr, ptr]
+        ptr, i32, ptr]
     lib.mpo_linear_mma_fwd.restype = i32
     return lib
 
@@ -330,11 +378,11 @@ def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """``y[..., J] = x[..., I] @ W(cores)`` without W in device memory.
 
     CPU tensors take ``mpo_linear_plain``.  CUDA tensors launch the kernel
-    of their dtype: bfloat16 ``csrc/mpo_linear_mma.cu`` (``mpo_linear_mma``),
-    float32 ``csrc/mpo_linear.cu`` (``mpo_linear.launches`` counts those
-    launches).  Raises on anything the kernels do not take: other devices or
-    dtypes, mixed dtypes, non-contiguous inputs, shapes ``kernel_eligible``
-    refuses."""
+    ``forward_kernel`` names: ``csrc/mpo_linear_mma.cu`` (``mpo_linear_mma``)
+    in both dtypes, or for the float32 shapes its plan refuses
+    ``csrc/mpo_linear.cu`` (``mpo_linear_cuda_core``); each wrapper counts
+    its launches.  Raises on anything the kernels do not take: other devices
+    or dtypes, mixed dtypes, non-contiguous inputs, shapes neither takes."""
     cores = list(cores)
     if x.device.type == "cpu":
         return mpo_linear_plain(cores, x)
@@ -354,31 +402,13 @@ def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mpo_linear: x has {x.shape[-1]} features, W has {i_dim} rows")
     if x.device.type != "cuda":
         raise ValueError(f"mpo_linear: unsupported device {x.device}")
-    lead = x.shape[:-1]
-    m = math.prod(lead)
-    if x.dtype == torch.bfloat16:
-        return mpo_linear_mma(cores, shapes, j_dim, m, x)
-    tile = 1 if m <= SMALL_M else 0
-    plan = _launch_plan(shapes, tile)
-    if plan is None:
-        raise ValueError(f"mpo_linear: the kernel does not take core shapes {shapes}")
-    split, njp = plan
-    if m > 65535 * TILES[tile][0]:
-        raise ValueError(f"mpo_linear: {m} rows exceed the launch grid")
-    y = torch.empty(*lead, j_dim, dtype=x.dtype, device=x.device)
-    if m == 0:
-        return y
-    ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib().mpo_linear_fwd(ptrs, _dims(shapes), len(cores), split, njp, tile,
-                               x.data_ptr(), y.data_ptr(), m, DTYPES[x.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"mpo_linear_fwd launch failed: CUDA error {rc}")
-    mpo_linear.launches += 1
-    return y
-
-
-mpo_linear.launches = 0
+    m = math.prod(x.shape[:-1])
+    dtype = "float32" if x.dtype == torch.float32 else "bfloat16"
+    route = _route(shapes, dtype)
+    if route is None:
+        raise ValueError(f"mpo_linear: no {dtype} kernel takes core shapes {shapes}")
+    fn = mpo_linear_mma if route == "mma" else mpo_linear_cuda_core
+    return fn(cores, shapes, j_dim, m, x)
 
 
 @functools.lru_cache(maxsize=None)
@@ -387,15 +417,43 @@ def _dims(shapes: tuple):
     return (ctypes.c_int * (4 * len(shapes)))(*[d for s in shapes for d in s])
 
 
+def mpo_linear_cuda_core(cores: list, shapes: tuple, j_dim: int, m: int,
+                         x: torch.Tensor) -> torch.Tensor:
+    """Launches ``csrc/mpo_linear.cu`` on the float32 inputs ``mpo_linear``
+    checked (``mpo_linear_cuda_core.launches`` counts its launches)."""
+    tile = 1 if m <= SMALL_M else 0
+    plan = _launch_plan(shapes, tile)
+    if plan is None or x.dtype != torch.float32:
+        raise ValueError(f"mpo_linear: the CUDA-core kernel does not take {x.dtype} "
+                         f"core shapes {shapes}")
+    split, njp = plan
+    if m > 65535 * TILES[tile][0]:
+        raise ValueError(f"mpo_linear: {m} rows exceed the launch grid")
+    y = torch.empty(*x.shape[:-1], j_dim, dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
+    _build.launch("mpo_linear_fwd", x, lambda stream: _lib().mpo_linear_fwd(
+        ptrs, _dims(shapes), len(cores), split, njp, tile, x.data_ptr(), y.data_ptr(), m,
+        stream))
+    mpo_linear_cuda_core.launches += 1
+    return y
+
+
+mpo_linear_cuda_core.launches = 0
+
+
 def mpo_linear_mma(cores: list, shapes: tuple, j_dim: int, m: int,
                    x: torch.Tensor) -> torch.Tensor:
-    """Launches ``csrc/mpo_linear_mma.cu`` on the bfloat16 inputs
-    ``mpo_linear`` checked (``mpo_linear_mma.launches`` counts its calls;
+    """Launches ``csrc/mpo_linear_mma.cu`` on the inputs ``mpo_linear``
+    checked, in their dtype (``mpo_linear_mma.launches`` counts its launches;
     ``mpo_linear_mma.workspace_bytes`` is the last call's scratch: R, P and
     the split-I partials, never W)."""
-    plan = _mma_plan(shapes, m)
+    dtype = "float32" if x.dtype == torch.float32 else "bfloat16"
+    plan = _mma_plan(shapes, m, dtype)
     if plan is None:
-        raise ValueError(f"mpo_linear: the bf16 kernel does not take core shapes {shapes}")
+        raise ValueError(f"mpo_linear: the tensor-core kernel does not take {dtype} "
+                         f"core shapes {shapes}")
     if m > 65535 * plan.bm:
         raise ValueError(f"mpo_linear: {m} rows exceed the launch grid")
     y = torch.empty(*x.shape[:-1], j_dim, dtype=x.dtype, device=x.device)
@@ -405,12 +463,9 @@ def mpo_linear_mma(cores: list, shapes: tuple, j_dim: int, m: int,
         x = x.clone()                  # cp.async copies x in 16-byte chunks
     ws = torch.empty(plan.workspace // 4, dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _mma_lib().mpo_linear_mma_fwd(ptrs, _dims(shapes), len(cores), plan.split, plan.bm,
-                                       plan.tc, plan.splits, x.data_ptr(), y.data_ptr(), m,
-                                       ws.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"mpo_linear_mma_fwd launch failed: CUDA error {rc}")
+    _build.launch("mpo_linear_mma_fwd", x, lambda stream: _mma_lib().mpo_linear_mma_fwd(
+        ptrs, _dims(shapes), len(cores), plan.split, plan.bm, plan.tc, plan.splits,
+        x.data_ptr(), y.data_ptr(), m, ws.data_ptr(), DTYPES[x.dtype], stream))
     mpo_linear_mma.launches += 1
     mpo_linear_mma.workspace_bytes = plan.workspace
     return y
@@ -534,12 +589,9 @@ def mpo_linear_bwd_cores(cores: Sequence[torch.Tensor], x: torch.Tensor,
     ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
     optrs = (ctypes.c_void_p * len(cores))(*[o.data_ptr() if o is not None else None
                                              for o in outs])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.mpo_linear_bwd_cores(ptrs, optrs, dims, len(cores), split, pi, pj, nblocks,
-                                  x.data_ptr(), dy.data_ptr(), m, DTYPES[x.dtype],
-                                  ws.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"mpo_linear_bwd_cores launch failed: CUDA error {rc}")
+    _build.launch("mpo_linear_bwd_cores", x, lambda stream: lib.mpo_linear_bwd_cores(
+        ptrs, optrs, dims, len(cores), split, pi, pj, nblocks, x.data_ptr(), dy.data_ptr(),
+        m, DTYPES[x.dtype], ws.data_ptr(), stream))
     mpo_linear_bwd_cores.launches += 1
     return outs
 

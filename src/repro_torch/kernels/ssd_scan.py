@@ -181,12 +181,10 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int):
     state = torch.empty((bs, h, n, p), dtype=torch.float32, device=x.device)
     if bs * h == 0:
         return y, state
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib().ssd_scan_fwd(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-                             c.data_ptr(), d_skip.data_ptr(), y.data_ptr(),
-                             state.data_ptr(), bs, s, h, p, n, q, DTYPES[x.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
+    _build.launch("ssd_scan", x, lambda stream: _lib().ssd_scan_fwd(
+        x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(), c.data_ptr(),
+        d_skip.data_ptr(), y.data_ptr(), state.data_ptr(), bs, s, h, p, n, q,
+        DTYPES[x.dtype], stream))
     ssd_scan.launches += 1
     return y, state
 

@@ -145,8 +145,12 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
     ``paged``; the SSM state tensor for the ``ssm`` family) and —
     when ``weight_cache`` — contracts every factorized matrix whose decode
     plan is ``cached`` into its dense W, returning ``(serve_params, cache)``.
-    Pass the returned ``serve_params`` to the steps.  The weight cache is a
-    SNAPSHOT of the cores: re-run ``init_serve`` after any core mutation.
+    Pass the returned ``serve_params`` to the steps.  ``serve_params`` is a
+    SNAPSHOT of the weights, as the reference's immutable arrays are: the
+    dense W it contracts, and a clone of every leaf it passes through
+    (the optimizers update the live tensors in place), so a handle keeps
+    serving the weights it was built from; at most one copy of the tree a
+    handle.  Re-run ``init_serve`` to serve weights changed since.
 
     ``decode(params, tokens, cache)`` returns ``(next_tokens (B, 1) int32,
     logits, cache)`` with greedy argmax; both steps update ``cache`` in place.
@@ -159,7 +163,9 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
     def init_serve(params, batch: int, max_len: int):
         cache = model.init_cache(batch, max_len, **cache_kw)
         serve_params = model.cache_weights(params) if weight_cache else params
-        return serve_params, cache
+        live = {id(t) for t in leaves(params)}
+        snapshot = tree_map(lambda t: t.detach().clone() if id(t) in live else t, serve_params)
+        return snapshot, cache
 
     def prefill_step(params, batch, cache):
         return model.prefill(params, batch, cache, phase="prefill")

@@ -172,9 +172,17 @@ def test_mpo_linear_rejects_other_devices():
 
 @pytest.mark.cuda
 def test_cuda_mpo_linear_matches_plain(cuda):
-    for name, s in _bert_matrix_shapes().items():
-        if name == "embed":
-            continue
+    """Every bert-base matrix in both dtypes (the tensor-core kernel), and
+    smoke bert-base's attention matrix, whose float32 shapes keep the
+    CUDA-core kernel."""
+    mats = _bert_matrix_shapes()
+    del mats["embed"]
+    with torch.device("meta"):
+        smoke = TModel.transformer.init(torch.Generator(), configs.smoke_config("bert-base"))
+    from repro_torch.core.layers import cores_to_list
+    mats["smoke wq"] = [tuple(c.shape[1:]) for c in cores_to_list(
+        smoke["layers"]["attn"]["wq"]["cores"])]
+    for name, s in mats.items():
         rng = np.random.default_rng(0)
         cores = [torch.from_numpy((rng.standard_normal(c) * 0.35).astype(np.float32))
                  for c in s]
@@ -182,10 +190,13 @@ def test_cuda_mpo_linear_matches_plain(cuda):
             x = torch.from_numpy(rng.standard_normal((m, cores[0].shape[1] * math.prod(
                 c.shape[1] for c in cores[1:]))).astype(np.float32))
             for dtype in (torch.float32, torch.bfloat16):
+                route = TMK.forward_kernel(s, str(dtype).split(".")[1])
+                if route is None:
+                    continue                     # smoke shapes: no bf16 kernel
+                assert route == ("cuda_core" if name == "smoke wq" else "mma")
                 cs = [c.to(cuda, dtype) for c in cores]
                 xx = x.to(cuda, dtype)
-                # bfloat16 runs the tensor-core kernel, float32 mpo_linear.cu
-                counter = TMK.mpo_linear_mma if dtype == torch.bfloat16 else TMK.mpo_linear
+                counter = TMK.mpo_linear_mma if route == "mma" else TMK.mpo_linear_cuda_core
                 launches = counter.launches
                 y = TMK.mpo_linear(cs, xx)
                 torch.cuda.synchronize()
@@ -344,6 +355,33 @@ def test_flash_rejects_other_devices():
         TDA.flash_decode_attention(*args)
 
 
+@pytest.mark.parametrize("b,kv,g,dh,mp", [
+    (8, 12, 1, 64, 16),                  # bert-base serving: 96 (slot, head) pairs
+    (8, 8, 5, 128, 16),                  # qwen3-14b geometry
+    (64, 12, 1, 64, 16),                 # 768 pairs: 2 splits fill two waves
+    (512, 12, 1, 64, 16),                # 6144 pairs already fill the card
+    (1, 1, 1, 2048, 16), (1, 1, 256, 8, 2)])   # the largest G * Dh
+def test_flash_plan_fills_two_waves_and_gives_every_split_a_page(b, kv, g, dh, mp):
+    plan = TDA._flash_plan(b, kv, g, dh, 16, mp)
+    waves = 2 * TDA.SMS * TDA.BLOCKS_PER_SM
+    assert 1 <= plan.splits <= mp                  # a full slot: a page a split at least
+    assert b * kv * plan.splits <= max(waves, b * kv)
+    if b * kv >= waves:
+        assert plan.splits == 1
+    else:
+        assert b * kv * (plan.splits + 1) > waves or plan.splits == mp
+    # the balanced page ranges of a full slot are never empty
+    ranges = [(s * mp // plan.splits, (s + 1) * mp // plan.splits) for s in range(plan.splits)]
+    assert all(hi > lo for lo, hi in ranges) and ranges[-1][1] == mp
+    # a tile holds a full slot's split (16-key pages), as far as shared memory allows
+    assert 1 <= plan.kt <= min(TDA.KT, 16 * max(hi - lo for lo, hi in ranges))
+    assert TDA._flash_smem(g, dh, plan.kt, 4) <= TDA.SMEM_LIMIT
+    assert plan.workspace == (b * kv * plan.splits * g * (dh + 2) if plan.splits > 1 else 0)
+    if g * dh <= 640:
+        assert plan.kt == min(TDA.KT, 16 * max(hi - lo for lo, hi in ranges))
+    assert (b, kv, plan.splits) != (8, 12, 1)      # bert-base serving splits its slots
+
+
 @pytest.mark.cuda
 def test_cuda_flash_matches_plain(cuda):
     for kv, g, dh, softcap in ((12, 1, 64, None), (8, 5, 128, None), (8, 5, 128, 30.0)):
@@ -358,6 +396,103 @@ def test_cuda_flash_matches_plain(cuda):
             ref = TDA.flash_decode_attention_plain(*t, softcap=softcap).float()
             tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
             assert (out.float() - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_split_boundaries_are_bit_identical(cuda):
+    """Lengths at page and split boundaries of the bert-base plan (S = 16
+    over 16 pages: a split a page at a full slot, several splits empty on
+    shorter slots), and a zero-length slot: within tolerance of the plain
+    version, zeros for the idle slot, and two launches give the same bits."""
+    lens = [0, 1, 16, 17, 127, 128, 129, 256]
+    args = _paged_inputs(8, 12, 1, 64, 16, 16, lens, seed=3)
+    assert TDA._flash_plan(8, 12, 1, 64, 16, 16).splits == 16
+    for dtype in (torch.float32, torch.bfloat16):
+        t = [torch.from_numpy(a).to(cuda) for a in args]
+        t[:3] = [a.to(dtype) for a in t[:3]]
+        out = TDA.flash_decode_attention(*t)
+        again = TDA.flash_decode_attention(*t)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert not out[0].any()
+        ref = TDA.flash_decode_attention_plain(*t).float()
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        assert (out.float() - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kv,g,dh,mp", [
+    (256, 12, 1, 64, 2),                 # 3072 pairs: one split, no combine pass
+    (3, 2, 3, 6, 3),                     # 12-byte bf16 rows: element loads
+    (3, 3, 2, 12, 2)])                   # 48-byte f32 rows, 24-byte bf16 rows
+def test_cuda_flash_one_split_and_unaligned_rows(cuda, b, kv, g, dh, mp):
+    lens = [(7 * i + 5) % (mp * 16 + 1) for i in range(b)]
+    args = _paged_inputs(b, kv, g, dh, 16, mp, lens, seed=4)
+    if b * kv >= 2 * TDA.SMS * TDA.BLOCKS_PER_SM:
+        assert TDA._flash_plan(b, kv, g, dh, 16, mp).splits == 1
+    for dtype in (torch.float32, torch.bfloat16):
+        t = [torch.from_numpy(a).to(cuda) for a in args]
+        t[:3] = [a.to(dtype) for a in t[:3]]
+        out = TDA.flash_decode_attention(*t, softcap=5.0)
+        again = TDA.flash_decode_attention(*t, softcap=5.0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        ref = TDA.flash_decode_attention_plain(*t, softcap=5.0).float()
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        assert (out.float() - ref).abs().max() <= tol * ref.abs().max(), (b, dh, dtype)
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: launches on cuda:1 while cuda:0 is "
+                    "current (run on a machine with two cards with `python -m pytest "
+                    "-q tests/test_torch_kernels.py -k two_cards`)")
+    return torch.device("cuda:1")
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_launch_on_the_tensors_device_two_cards(two_cards):
+    """Each of the five wrappers, given tensors on cuda:1 while cuda:0 is the
+    current device, launches there and matches its plain version."""
+    dev = two_cards
+    torch.cuda.set_device(0)
+    mats = _bert_matrix_shapes()
+    rng = np.random.default_rng(0)
+    wq = [torch.from_numpy((rng.standard_normal(c) * 0.35).astype(np.float32)).to(dev)
+          for c in mats["wq"]]
+    with torch.device("meta"):
+        smoke = TModel.transformer.init(torch.Generator(), configs.smoke_config("bert-base"))
+    from repro_torch.core.layers import cores_to_list
+    narrow = [torch.from_numpy((rng.standard_normal(c.shape[1:]) * 0.35).astype(np.float32))
+              .to(dev) for c in cores_to_list(smoke["layers"]["attn"]["wq"]["cores"])]
+    x = torch.from_numpy(rng.standard_normal((37, 768)).astype(np.float32)).to(dev)
+    xn = x[:, :math.prod(c.shape[1] for c in narrow)].contiguous()
+    dy = torch.from_numpy(rng.standard_normal((37, 768)).astype(np.float32)).to(dev)
+    counts = (TMK.mpo_linear_mma.launches, TMK.mpo_linear_cuda_core.launches,
+              TMK.mpo_linear_bwd_cores.launches, TDA.flash_decode_attention.launches,
+              TSSD.ssd_scan.launches)
+    got = {
+        "mma": (TMK.mpo_linear(wq, x), TMK.mpo_linear_plain(wq, x)),
+        "cuda_core": (TMK.mpo_linear(narrow, xn), TMK.mpo_linear_plain(narrow, xn)),
+        "bwd": (TMK.mpo_linear_bwd_cores(wq, x, dy)[0],
+                TMK.mpo_linear_bwd_cores_plain(wq, x, dy)[0]),
+    }
+    fa = [torch.from_numpy(a).to(dev) for a in _paged_inputs(8, 12, 1, 64, 16, 16,
+                                                             [0, 1, 17, 128, 129, 200, 255, 256])]
+    got["flash"] = (TDA.flash_decode_attention(*fa), TDA.flash_decode_attention_plain(*fa))
+    sa = _ssd_torch(_ssd_inputs(2, 100, 24, 64, 128, seed=1), "float32", dev)
+    got["ssd"] = (TSSD.ssd_scan(*sa, 128)[0], TSSD.ssd_scan_plain(*sa, 128)[0])
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    after = (TMK.mpo_linear_mma.launches, TMK.mpo_linear_cuda_core.launches,
+             TMK.mpo_linear_bwd_cores.launches, TDA.flash_decode_attention.launches,
+             TSSD.ssd_scan.launches)
+    assert all(a == b + 1 for a, b in zip(after, counts)), (counts, after)
+    for name, (out, ref) in got.items():
+        assert out.device == dev, name
+        assert (out - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+
 
 
 # --------------------------------------------------------------------------

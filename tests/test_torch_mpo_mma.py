@@ -1,13 +1,18 @@
-"""The bfloat16 MPO-linear forward (``csrc/mpo_linear_mma.cu``): its launch
-plan on the CPU, and the kernel against its plain version on the card.
+"""The tensor-core MPO-linear forward (``csrc/mpo_linear_mma.cu``), bfloat16
+and float32: its launch plan on the CPU, and the kernel against its plain
+version on the card.
 
 ``_mma_plan`` is pure Python, so the CPU tests hold what the engine's gate
 admits at bert-base and mamba2-130m widths, the shared memory and scratch
-each launch takes, and the split of I at few rows.  The ``cuda`` tests
-(skipped without a card) hold the kernel against ``mpo_linear_plain`` at
-``2**-7`` of the largest output: both round one f32 sum to bf16 once, in
-another order, and the hi/lo pair carries W to ~2^-16 relative, so one bf16
-step (2^-8) of the largest output, doubled, bounds the gap."""
+each launch takes, the split of I at few rows, and which float32 shapes
+keep the CUDA-core kernel (``forward_kernel``).  The ``cuda`` tests
+(skipped without a card) hold the kernel against ``mpo_linear_plain``.
+bf16 at ``2**-7`` of the largest output: both round one f32 sum to bf16
+once, in another order, and the hi/lo pair carries W to ~2^-16 relative,
+so one bf16 step (2^-8) of the largest output, doubled, bounds the gap.
+float32 at 1e-4 of it (``chip_smoke.py``'s ``TOL``): the three-term split
+carries x and W to ~2^-24 relative, and the f32 sums over up to 3072 terms
+in another order differ by ~1e-6 relative."""
 
 import math
 
@@ -17,6 +22,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.layers import cores_to_list
+from repro_torch.models import transformer as TT
 from repro_torch.kernels import mpo_linear as TMK
 from repro_torch.models import mamba as TMB
 from repro_torch.models import model as TModel
@@ -52,18 +58,23 @@ def _swap(shapes):
     return [(d0, j, i, d1) for d0, i, j, d1 in shapes]
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("name", ["attn", "w_up", "w_down", "in_proj", "out_proj", "head"])
-def test_mma_plan_admits_the_models_matrices(name):
+def test_mma_plan_admits_the_models_matrices(name, dtype):
     shapes = _matrices()[name]
     assert _matrices()["head"][0] == (1, 3, 197, 48)
     for sh in (shapes, _swap(shapes)):
-        assert TMK.kernel_eligible(sh, dtype="bfloat16"), (name, sh)
-        assert TMK.kernel_eligible(sh, dtype="bfloat16", train=True), (name, sh)
+        assert TMK.kernel_eligible(sh, dtype=dtype), (name, sh)
+        assert TMK.kernel_eligible(sh, dtype=dtype, train=True), (name, sh)
+        assert TMK.forward_kernel(sh, dtype) == "mma", (name, sh)
+        # the same bond in both dtypes
+        assert TMK._mma_split(tuple(sh), dtype) == TMK._mma_split(tuple(sh)), (name, sh)
         i_dim = math.prod(c[1] for c in sh)
         j_dim = math.prod(c[2] for c in sh)
         for m in (1, 8, 64, 100, 2048, 4096):
-            plan = TMK._mma_plan(tuple(sh), m)
+            plan = TMK._mma_plan(tuple(sh), m, dtype)
             assert plan is not None and plan.smem <= TMK.SMEM_LIMIT, (name, m, plan)
+            # these matrices' float32 stages fit the 128-row tile too
             assert plan.bm == (16 if m <= 16 else 64 if m <= 64 else 128)
             assert plan.tc in (2, 4)
             # scratch is R, P and the split partials: under a quarter of a bf16 W
@@ -90,6 +101,79 @@ def test_mma_plan_splits_i_at_few_rows_only_where_the_card_is_idle():
             assert (plan.splits - 1) * per < nst, (name, m, plan)
 
 
+def _config_matrices(arch, smoke):
+    """{name: core shapes} of every factorized matrix of a config as the port
+    initializes it (abstractly), stacked layer dims dropped, and the tied
+    logits' E^T."""
+    cfg = configs.smoke_config(arch) if smoke else configs.get_config(arch)
+    init = TMB.init if cfg.family == "ssm" else TT.init
+    with torch.device("meta"):
+        params = init(torch.Generator(), cfg)
+    out = {}
+
+    def walk(tree, path):
+        if "cores" in tree:
+            out[path] = [tuple(c.shape[-4:]) for c in cores_to_list(tree["cores"])]
+            return
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}/{k}" if path else k)
+
+    walk(params, "")
+    out["embed^T"] = _swap(out["embed"])
+    return out
+
+
+# the float32 shapes the tensor-core plan refuses (W of 64 x 64 to 128 x 64:
+# no bond keeps R and P within an eighth of it; qwen3-14b's lm_head: no
+# bond's js group divides the 128-column tile), which keep csrc/mpo_linear.cu
+NARROW = {
+    ("bert-base", True): {f"layers/{g}" for g in (
+        "attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/w_up", "mlp/w_down")},
+    ("qwen3-14b", True): {f"layers/{g}" for g in (
+        "attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/w_up", "mlp/w_down", "mlp/w_gate")},
+    ("mamba2-130m", True): {"layers/out_proj"},
+    ("bert-base", False): set(),
+    ("qwen3-14b", False): {"lm_head"},
+    ("mamba2-130m", False): set(),
+}
+
+
+@pytest.mark.parametrize("arch", ["bert-base", "qwen3-14b", "mamba2-130m"])
+@pytest.mark.parametrize("smoke", [True, False])
+def test_f32_eligibility_is_unchanged_and_narrow_shapes_keep_the_cuda_core_kernel(arch, smoke):
+    """``kernel_eligible(dtype="float32")`` admits what ``csrc/mpo_linear.cu``
+    takes (every matrix of every config, both orientations), so the
+    engine's float32 plans do not depend on the tensor-core plan; and
+    ``forward_kernel`` sends float32 to the CUDA-core kernel exactly for the
+    narrow shapes, from the shapes alone, where bf16 is refused too."""
+    mats = _config_matrices(arch, smoke)
+    assert NARROW[(arch, smoke)] <= set(mats)
+    for name, shapes in mats.items():
+        for sh in (shapes, _swap(shapes)):
+            assert TMK.kernel_eligible(sh, dtype="float32"), (arch, name, sh)
+            assert TMK._launch_plan(tuple(sh)) is not None
+            narrow = name in NARROW[(arch, smoke)]
+            assert TMK.forward_kernel(sh, "float32") == ("cuda_core" if narrow else "mma"), (
+                arch, smoke, name, sh)
+            assert TMK.forward_kernel(sh, "bfloat16") == (None if narrow else "mma")
+    assert TMK.forward_kernel(mats["embed"], "float16") is None
+
+
+def test_f32_plan_tile_falls_to_64_rows_where_128_does_not_fit():
+    """bert-base's vocabulary matrix (30720 x 768): R is 160 KB, so float32
+    takes it at 64-row tiles above 64 rows, and bf16 at 128."""
+    emb = tuple(_config_matrices("bert-base", False)["embed^T"])
+    assert emb[0] == (1, 3, 10, 30)
+    f32, bf16 = TMK._mma_plan(emb, 1024, "float32"), TMK._mma_plan(emb, 1024)
+    assert (f32.bm, bf16.bm) == (64, 128)
+    assert f32.smem <= TMK.SMEM_LIMIT < TMK._mma_smem_bytes(
+        TMK._mma_geometry(emb, f32.split, "float32"), 128, "float32")
+    # float32 needs I in whole 4-float chunks, bf16 in whole 8-element ones
+    four = ((1, 3, 64, 2), (2, 4, 32, 1))             # I = 12
+    assert TMK._mma_split(four, "float32") == 1 and TMK._mma_split(four) is None
+
+
 @pytest.mark.parametrize("shapes", [
     [(1, 64, 64, 1)],                               # one core
     [(1, 4, 4, 8)] * 9,                             # more than 8 cores
@@ -102,6 +186,8 @@ def test_mma_plan_refuses_what_the_kernel_cannot_take(shapes):
     assert TMK._mma_split(tuple(shapes)) is None
     assert TMK._mma_plan(tuple(shapes), 8) is None
     assert not TMK.kernel_eligible(shapes, dtype="bfloat16")
+    if shapes[0] != (1, 3, 4, 4):                   # I = 9 is not whole 4-float chunks either
+        assert TMK._mma_split(tuple(shapes), "float32") is None
 
 
 def test_bf16_wrapper_raises_for_other_devices_and_mixed_dtypes():
@@ -137,35 +223,93 @@ def test_hi_lo_pair_carries_w_where_one_bf16_w_would_not():
     assert (single - exact).abs().max().item() > 2.0 ** -10 * scale
 
 
+def _terms(t: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """``t`` as n bf16 terms, each bf16 of what the terms before it leave:
+    the split ``csrc/mpo_linear_mma.cu`` makes of f32 x and W."""
+    out, rest = [], t.clone()
+    for _ in range(n):
+        out.append(rest.bfloat16().float())
+        rest = rest - out[-1]
+    return out
+
+
+def test_three_term_split_carries_f32_where_the_pair_would_not():
+    """The float32 kernel's arithmetic on the CPU: x and W in f32 enter as
+    three bf16 terms each and the six products of size >= 2^-24 of x0.w0
+    are summed, each exact in f32.  With the sums taken in float64 (the
+    split alone), that stays within 2^-24 of the exact product's largest
+    magnitude, below float32's own product (summed in f32: ~2^-21 here);
+    the bf16 kernel's arithmetic (x in one bf16 term, W as the pair) misses
+    by more than 2^-10, and a pair for each of x and W (x0.w0, x0.w1,
+    x1.w0) by more than 2^-20: more than float32's product."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((64, 768)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((768, 256)).astype(np.float32) / 28)
+    exact = x.double() @ w.double()
+    scale = exact.abs().max().item()
+    x3, w3 = _terms(x, 3), _terms(w, 3)
+    six = sum((x3[i].double() @ w3[j].double()) for i, j in
+              ((2, 0), (1, 1), (1, 0), (0, 2), (0, 1), (0, 0)))
+    err = lambda y: (y - exact).abs().max().item()
+    assert err(six) <= 2.0 ** -24 * scale
+    assert err((x @ w).double()) <= 2.0 ** -20 * scale
+    bf16_path = sum(x3[0].double() @ wt.double() for wt in w3[:2])
+    assert err(bf16_path) > 2.0 ** -10 * scale
+    pairs = sum(x3[i].double() @ w3[j].double() for i, j in ((1, 0), (0, 1), (0, 0)))
+    assert err(pairs) > 2.0 ** -20 * scale
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("name", ["attn", "w_up", "w_down", "in_proj", "attn^T"])
-def test_cuda_mma_matches_plain(cuda, name):
+def test_cuda_mma_matches_plain(cuda, name, dtype):
     mats = _matrices()
     shapes = _swap(mats["attn"]) if name == "attn^T" else mats[name]
     rng = np.random.default_rng(0)
     # each core's entries scaled so W's entries are O(1 / sqrt(I))
     i_dim = math.prod(c[1] for c in shapes)
     sigma = (1.0 / i_dim / math.prod(c[3] for c in shapes[:-1])) ** (1 / (2 * len(shapes)))
+    tdt = getattr(torch, dtype)
+    tol = 2.0 ** -7 if dtype == "bfloat16" else 1e-4
     cores = [torch.from_numpy((rng.standard_normal(s) * sigma).astype(np.float32))
-             .to(cuda, torch.bfloat16) for s in shapes]
+             .to(cuda, tdt) for s in shapes]
     j_dim = math.prod(c[2] for c in shapes)
-    for m in (1, 8, 100, 2048):
-        x = torch.from_numpy(rng.standard_normal((m, i_dim)).astype(np.float32)).to(
-            cuda, torch.bfloat16)
-        launches, f32 = TMK.mpo_linear_mma.launches, TMK.mpo_linear.launches
+    for m in (1, 8, 48, 100, 2048):                 # 16-, 64- and 128-row tiles
+        x = torch.from_numpy(rng.standard_normal((m, i_dim)).astype(np.float32)).to(cuda, tdt)
+        launches, other = TMK.mpo_linear_mma.launches, TMK.mpo_linear_cuda_core.launches
         y = TMK.mpo_linear(cores, x)
         again = TMK.mpo_linear(cores, x)
         torch.cuda.synchronize()
         assert TMK.mpo_linear_mma.launches == launches + 2
-        assert TMK.mpo_linear.launches == f32                  # not the f32 kernel
+        assert TMK.mpo_linear_cuda_core.launches == other      # not the CUDA-core kernel
         assert torch.equal(y, again), (name, m)                # same bits
         assert 4 * TMK.mpo_linear_mma.workspace_bytes < 2 * i_dim * j_dim
         ref = TMK.mpo_linear_plain(cores, x).float()
         err = (y.float() - ref).abs().max().item()
-        assert err <= 2.0 ** -7 * ref.abs().max().item(), (name, m, err)
-        assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, j_dim)
+        assert err <= tol * ref.abs().max().item(), (name, m, err)
+        assert y.dtype == tdt and tuple(y.shape) == (m, j_dim)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_falls_back_to_64_row_tiles(cuda):
+    """bert-base's vocabulary matrix (E^T, 768 -> 30720) in float32 at 100
+    rows: the plan takes 64-row tiles, where 128 would not fit shared
+    memory; within 1e-4 of the plain version, two launches bit-identical."""
+    emb = [tuple(c) for c in _config_matrices("bert-base", False)["embed^T"]]
+    assert TMK._mma_plan(tuple(emb), 100, "float32").bm == 64
+    rng = np.random.default_rng(1)
+    i_dim = math.prod(c[1] for c in emb)
+    sigma = (1.0 / i_dim / math.prod(c[3] for c in emb[:-1])) ** (1 / (2 * len(emb)))
+    cores = [torch.from_numpy((rng.standard_normal(s) * sigma).astype(np.float32)).to(cuda)
+             for s in emb]
+    x = torch.from_numpy(rng.standard_normal((100, i_dim)).astype(np.float32)).to(cuda)
+    y, again = TMK.mpo_linear(cores, x), TMK.mpo_linear(cores, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    ref = TMK.mpo_linear_plain(cores, x)
+    assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
