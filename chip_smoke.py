@@ -49,7 +49,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    forward kernels the float32 plan names for their matrices (both).
 5. train — (a) the MPO-linear cores-backward kernel against its plain
    version at bert-base's attention, w_up and w_down shapes, M = 2048 (16 x
-   128 tokens) and a ragged M, both dtypes, with its times, and the forward
+   128 tokens) and a ragged M, both dtypes, with its times: two launches
+   bit-identical, a call with the central core skipped (``needs``) giving
+   the other cores the same bits, the plan's shared memory and workspace
+   equal to the CUDA source's, the workspace below an f32 dW; and the forward
    kernel against its plain version at M = 2048 over each matrix's cores and
    their i/j-swapped form (the dL/dx product), both dtypes; (b) full-width
    bert-base, bf16, ``Session.finetune(mode="lfa", seq_len=128,
@@ -58,7 +61,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    cores bit-unchanged, ms per step; (c) the float32 smoke model with every
    matmul in the kernel mode: one train step's gradients and a 3-step loss
    trajectory on the card against the same on the CPU (plain versions),
-   launching both forward kernels as the float32 plan says.
+   launching both forward kernels as the float32 plan says and the
+   cores-backward kernel (no plain-version call).
 6. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths.
 7. last line: ``{"ok": true, "device": {...}}``.
 
@@ -769,7 +773,15 @@ def main() -> int:
     from repro_torch.optim import optimizers as OPT
     from repro_torch.train import steps as TS
 
+    bwd_lib = MK._bwd_lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
     def bwd_case(mname, cores32, m, dtype):
+        """The cores backward against its plain version: within ``TOL``, two
+        launches bit-identical, a call with the central core skipped (what
+        ``freeze_central_grads`` asks) giving the other cores the same bits;
+        the plan's shared memory and workspace equal to the CUDA source's,
+        and the workspace below an f32 dW (these are bert-base matrices)."""
         tdt = getattr(torch, dtype)
         cores = [c.to(tdt).contiguous() for c in cores32]
         i_dim = math.prod(c.shape[1] for c in cores)
@@ -778,9 +790,15 @@ def main() -> int:
         dy = torch.randn(m, j_dim, generator=gen).to(dev, tdt)
         got = MK.mpo_linear_bwd_cores(cores, x, dy)
         again = MK.mpo_linear_bwd_cores(cores, x, dy)
+        central = len(cores) // 2
+        some = MK.mpo_linear_bwd_cores(cores, x, dy, [k != central for k in range(len(cores))])
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"mpo_linear_bwd_cores {mname} M={m} {dtype}: two runs differ")
+        if some[central] is not None or not all(
+                torch.equal(a, b) for k, (a, b) in enumerate(zip(some, got)) if k != central):
+            fail(f"mpo_linear_bwd_cores {mname} M={m} {dtype}: the call without core "
+                 f"{central} differs from the full call")
         ref = MK.mpo_linear_bwd_cores_plain(cores, x, dy)
         err = max(check("mpo_linear_bwd_cores", g, r, dtype, f"{mname} M={m} {dtype} core {k}")
                   for k, (g, r) in enumerate(zip(got, ref)))
@@ -791,17 +809,29 @@ def main() -> int:
             cs = [c.detach().requires_grad_() for c in cores]
             return torch.autograd.grad(x @ mpo.reconstruct(cs), cs, dy)
 
-        shapes = [tuple(c.shape) for c in cores]
-        split = MK._bwd_plan(tuple(shapes))[0]
-        blocks = MK.bwd_blocks(shapes, torch.cuda.get_device_properties(0).multi_processor_count)
-        ds = cores[split].shape[0]
+        shapes = tuple(tuple(c.shape) for c in cores)
+        plan = MK._bwd_plan(shapes, dtype, sms)
+        dims = (ctypes.c_int * (4 * len(cores)))(*[d for sh in shapes for d in sh])
+        ws_c = 4 * bwd_lib.mpo_linear_bwd_workspace(dims, len(cores), plan.split,
+                                                    plan.blocks // plan.cluster)
+        smem_c = bwd_lib.mpo_linear_bwd_smem(dims, len(cores), plan.split, plan.tr, plan.tc,
+                                             MK.DTYPES[tdt])
+        if (smem_c, ws_c) != (plan.smem, plan.workspace):
+            fail(f"mpo_linear_bwd_cores {mname} {dtype}: the plan's shared memory / workspace "
+                 f"{plan.smem} / {plan.workspace} differ from the CUDA source's {smem_c} / {ws_c}")
+        if plan.workspace >= 4 * i_dim * j_dim:
+            fail(f"mpo_linear_bwd_cores {mname} {dtype}: workspace {plan.workspace} B is not "
+                 f"below an f32 dW's {4 * i_dim * j_dim} B")
+        ds = cores[plan.split].shape[0]
         isz = x.element_size()
         ncore = sum(c.numel() for c in cores)
         nbytes = isz * (x.numel() + dy.numel() + 2 * ncore)
         ops = 2 * m * i_dim * j_dim + 4 * ds * i_dim * j_dim   # x^T dy, then dL and dR
         rec = dict(kernel="mpo_linear_bwd_cores", matrix=mname,
-                   shapes=[list(c.shape) for c in cores], M=m, dtype=dtype, split=split,
-                   blocks=blocks, workspace_bytes=4 * MK.bwd_workspace(shapes, blocks),
+                   shapes=[list(c.shape) for c in cores], M=m, dtype=dtype, split=plan.split,
+                   tile=[plan.tr, plan.tc], tiles=plan.tiles, blocks=plan.blocks,
+                   cluster=plan.cluster, smem_bytes=plan.smem,
+                   launches_per_call=MK.BWD_KERNELS, workspace_bytes=plan.workspace,
                    dense_dw_f32_bytes=4 * i_dim * j_dim,
                    max_abs_err=err, max_rel_err=rel, tol=TOL[dtype], deterministic=True,
                    kernel_ms=timed(lambda: MK.mpo_linear_bwd_cores(cores, x, dy)),
@@ -876,6 +906,7 @@ def main() -> int:
         ss = Session.init(kernel_mode(configs.smoke_config("bert-base")), seed=SEED,
                           device=device)
         zero_counts()
+        MK.mpo_linear_bwd_cores.launches = MK.mpo_linear_bwd_cores_plain.calls = 0
         seen = []
         rec_opt = OPT.Optimizer(init=lambda p: OPT.OptState(0, None),
                                 update=lambda g, st, p: seen.append(g) or st)
@@ -889,15 +920,22 @@ def main() -> int:
             got = gate_routes("the float32 smoke train steps on the card", read_counts(),
                               ss.params, train=True)
             cuda_core["smoke bert-base train (4 steps)"] = got["mpo_linear_fwd"]
+            f32_bwd["smoke bert-base train (4 steps)"] = MK.mpo_linear_bwd_cores.launches
+            if not MK.mpo_linear_bwd_cores.launches or MK.mpo_linear_bwd_cores_plain.calls:
+                fail(f"the float32 smoke train steps on the card: "
+                     f"{MK.mpo_linear_bwd_cores.launches} cores-backward launches, "
+                     f"{MK.mpo_linear_bwd_cores_plain.calls} plain-version calls")
         return grads, [h["loss"] for h in hist]
 
+    f32_bwd = {}
     card, cpu = grads_and_losses("cuda"), grads_and_losses("cpu")
     gdiff = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
                 for a, b in zip(card[0], cpu[0]))
     ldiff = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
     emit(phase="train", smoke="bert-base", mode="kernel", dtype="float32",
          card_vs_cpu_grad_rel_diff=gdiff, card_vs_cpu_loss_rel_diff=ldiff,
-         losses_card=card[1], losses_cpu=cpu[1], tol=TRAIN_TOL)
+         losses_card=card[1], losses_cpu=cpu[1], tol=TRAIN_TOL,
+         mpo_linear_bwd_cores_launches=f32_bwd)
     if not gdiff <= TRAIN_TOL or not ldiff <= TRAIN_TOL:
         fail(f"smoke train step on the card differs from the CPU: grads {gdiff}, "
              f"losses {card[1]} vs {cpu[1]}")
@@ -910,6 +948,7 @@ def main() -> int:
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         case=case, dtype=rec["dtype"], **kw)
     fwd = ("src/repro_torch/csrc/mpo_linear_mma.cu", "src/repro/kernels/mpo_linear.py:216")
+    bwd = ("src/repro_torch/csrc/mpo_linear_bwd.cu", "src/repro/kernels/mpo_linear.py:303")
     line = [
         entry("mpo_linear_fwd_mma", "cuda", *fwd, results[("mpo", "attn", 8, "bfloat16")],
               "bert-base attention matrix, M=8 (a decode step), bfloat16",
@@ -928,10 +967,13 @@ def main() -> int:
               "bert-base geometry KV=12 G=1 Dh=64 ps=16, 8 slots at 144 keys, bfloat16",
               path_launches["flash_decode_attention"], splits=fk["splits"],
               prev_ms=fk["prev_ms"]),
-        entry("mpo_linear_bwd_cores", "cuda", "src/repro_torch/csrc/mpo_linear_bwd.cu",
-              "src/repro/kernels/mpo_linear.py:303", results[("bwd", "attn", tokens, "bfloat16")],
+        entry("mpo_linear_bwd_cores", "cuda", *bwd, results[("bwd", "attn", tokens, "bfloat16")],
               f"bert-base attention matrix, M={tokens} (16 x 128 fine-tuning tokens), bfloat16",
-              path_launches["mpo_linear_bwd_cores"]),
+              path_launches["mpo_linear_bwd_cores"], launches_per_call=MK.BWD_KERNELS),
+        entry("mpo_linear_bwd_cores", "cuda", *bwd, results[("bwd", "attn", tokens, "float32")],
+              f"bert-base attention matrix, M={tokens}, float32 (launches: the smoke "
+              "float32 train steps)", sum(f32_bwd.values()), launches_by_path=f32_bwd,
+              launches_per_call=MK.BWD_KERNELS),
         entry("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:60", results[("ssd", "path", "bfloat16")],
               f"mamba2-130m prefill: B={MAMBA_BATCH} S={MAMBA_PROMPT} H=24 P=64 N=128, "

@@ -71,6 +71,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -109,34 +110,12 @@ struct Args {
   int S;               // splits
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ldmatrix_x4;
+using repro::ldmatrix_x4_trans;
+using repro::mma_bf16;
 
 // R[d][js][is] for the suffix cores s..n-1, contracted right to left, PC
 // (is, js) pairs a block, every thread on one (pair, row) output.
@@ -462,20 +441,7 @@ mma_kernel(Args a, const T* __restrict__ x, T* __restrict__ y,
     for (int e = tid; e < BM * (BK / 4); e += THREADS) {
       const int r = e / (BK / 4), c4 = e % (BK / 4);
       const float4 v = *reinterpret_cast<const float4*>(src + r * XSP + 4 * c4);
-      float f[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int t = 0; t < NX; ++t) {
-        __nv_bfloat162 h[2];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          h[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
-          const float2 b = __bfloat1622float2(h[k]);
-          f[2 * k] -= b.x;
-          f[2 * k + 1] -= b.y;
-        }
-        *reinterpret_cast<uint2*>(xt + (t * BM + r) * XP + 4 * c4) =
-            *reinterpret_cast<const uint2*>(h);
-      }
+      repro::split_terms4<NX>(v, xt + r * XP + 4 * c4, BM * XP);
     }
   };
 
@@ -552,7 +518,7 @@ mma_kernel(Args a, const T* __restrict__ x, T* __restrict__ y,
     if (!lwarp) {
       if (st + 1 < st1) load_x(st + 1, buf ^ 1);
       cp_async_commit();
-      cp_async_wait1();  // R and this stage's x have landed
+      cp_async_wait<1>();  // R and this stage's x have landed
     }
     __syncthreads();     // ... and this stage's L
     // the next stage's L (when its ip changes) alongside this stage's W

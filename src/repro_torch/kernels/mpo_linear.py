@@ -21,9 +21,16 @@ Three CUDA kernels replace the Pallas TPU kernels of
   kernel a call takes, from the core shapes and dtype alone; ``mpo_linear``
   is the entry point of both.
 * ``mpo_linear_bwd_cores`` (``csrc/mpo_linear_bwd.cu``) replaces
-  ``_bwd_cores_call`` / ``_bwd_cores_kernel``: tiles of ``dW = x^T dy`` are
-  formed in shared memory only and pulled back through the same split into
-  per-core gradients, without atomics, so two runs give the same bits.
+  ``_bwd_cores_call`` / ``_bwd_cores_kernel`` in three launches a call:
+  the chain vectors once per distinct prefix and suffix of digit pairs;
+  tiles of ``dW = x^T dy`` on the tensor cores (float32 as three bf16
+  terms), kept in shared memory only and pulled back there into dL and the
+  block's share of dR, the shares summed across a thread-block cluster;
+  then one epilogue that pulls dL and dR back through the prefix and suffix
+  cores.  The plan, the scratch layout, the index maps and the small
+  products of the chains and the epilogue (``_bwd_plan``, ``_bwd_jobs``)
+  are built here, so the CPU tests replay them.  No atomics: two runs give
+  the same bits.
 
 ``MPOLinearFn`` is the autograd function around them (the reference's
 ``_mpo_linear`` custom VJP): ``dL/dx`` is the forward over i/j-swapped
@@ -221,63 +228,6 @@ def _mma_plan(shapes: tuple, m: int, dtype: str = "bfloat16") -> MmaPlan | None:
     return MmaPlan(s, bm, g["tc"], splits, _mma_smem_bytes(g, bm, dtype), ws)
 
 
-# the dW tile edge (and KC, the rows staged per step) must match
-# csrc/mpo_linear_bwd.cu; the two limits keep a block's shared memory to R,
-# its dR partial and an L slice of at most these many floats
-BWD_TILE = 64
-BWD_RMAX = 16384                     # suffix contraction R (d_s * Is * Js)
-BWD_LMAX = 4096                      # the tile's L slice (pairs * d_s)
-
-
-def _bwd_smem_bytes(shapes: Sequence[tuple], s: int, pi: int, pj: int) -> int:
-    """Shared memory of one block of the backward's tile pass (``tile_smem``
-    in the CUDA source): R and the block's dR partial, the dW tile, the
-    staged x and dy rows, and the tile's L slice."""
-    rsz = shapes[s][0] * math.prod(c[1] for c in shapes[s:]) * math.prod(
-        c[2] for c in shapes[s:])
-    return 4 * (2 * rsz + BWD_TILE * (BWD_TILE + 1) + 2 * KC * BWD_TILE
-                + pi * pj * shapes[s][0])
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_plan(shapes: tuple) -> tuple[int, int, int] | None:
-    """``(split, PI, PJ)`` of the cores-backward kernel, or None when it
-    cannot take these core shapes.  A dW tile holds PI x PJ whole (ip, jp)
-    sub-tiles of Is x Js (at most 64 x 64); the split needs R and the
-    block's dR partial in shared memory.  Among the splits that fit, picks
-    the least work: the dW tiles (padding counted), the pullback through the
-    split, and the prefix and suffix chains."""
-    n = len(shapes)
-    if not 2 <= n <= MAXN or shapes[0][0] != 1 or shapes[-1][3] != 1:
-        return None
-    if any(a[3] != b[0] for a, b in zip(shapes, shapes[1:])):
-        return None
-    i_dim = math.prod(c[1] for c in shapes)
-    j_dim = math.prod(c[2] for c in shapes)
-    best = None
-    for s in range(1, n):
-        ds = shapes[s][0]
-        i_s = math.prod(c[1] for c in shapes[s:])
-        j_s = math.prod(c[2] for c in shapes[s:])
-        i_p, j_p = i_dim // i_s, j_dim // j_s
-        if i_s > BWD_TILE or j_s > BWD_TILE or ds * i_s * j_s > BWD_RMAX:
-            continue
-        pi, pj = min(BWD_TILE // i_s, i_p), min(BWD_TILE // j_s, j_p)
-        while pi * pj * ds > BWD_LMAX and pj > 1:
-            pj //= 2
-        while pi * pj * ds > BWD_LMAX and pi > 1:
-            pi //= 2
-        if pi * pj * ds > BWD_LMAX or _bwd_smem_bytes(shapes, s, pi, pj) > SMEM_LIMIT:
-            continue
-        tiles = -(-i_p // pi) * -(-j_p // pj)
-        chains = (i_p * j_p * sum(c[0] * c[3] for c in shapes[:s])
-                  + i_s * j_s * sum(c[0] * c[3] for c in shapes[s:]))
-        cost = 256 * tiles * BWD_TILE ** 2 + 2 * ds * i_dim * j_dim + 4 * chains
-        if best is None or cost < best[0]:
-            best = (cost, s, pi, pj)
-    return None if best is None else best[1:]
-
-
 def forward_kernel(shapes: Sequence[tuple], dtype: str) -> str | None:
     """The forward kernel ``mpo_linear`` launches for these core shapes on
     the card, from the shapes and dtype alone (never after a failure):
@@ -326,7 +276,7 @@ def kernel_eligible(shapes: Sequence[tuple], *, dtype: str = "float32",
     if not train:
         return True
     swapped = tuple((d0, j, i, d1) for d0, i, j, d1 in shapes)
-    return fits(swapped) and _bwd_plan(shapes) is not None
+    return fits(swapped) and _bwd_plan(shapes, dtype) is not None
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -480,6 +430,316 @@ mpo_linear_mma.workspace_bytes = 0
 # --------------------------------------------------------------------------
 
 
+# must match csrc/mpo_linear_bwd.cu: rows of M a stage and stages in flight
+# (bf16 / float32), the largest R = d_s * Is * Js (R sits in each tile
+# block's shared memory and its dR share in registers: 64 floats a thread),
+# the dW tile shapes the plan picks from (whole is / js groups), the largest
+# cluster, and the fields of one job of the job runner (sources: core k >= 0,
+# BWD_ONES = the value 1, BWD_WS = the f32 workspace)
+BWD_BK = {"bfloat16": 64, "float32": 32}
+BWD_STAGES = {"bfloat16": 4, "float32": 2}
+BWD_RMAX = 16384
+BWD_TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
+BWD_CLUSTER = 8
+BWD_KSLICE = 256                     # k a slice of the epilogue's long sums
+BWD_MAXJOBS = 64                     # jobs a launch of the job runner
+BWD_ONES, BWD_WS = -1, -2
+JOB_FIELDS = ("step", "M", "N", "K1", "K2", "Z",
+              "a_src", "a_off", "a_sz", "a_sm", "a_s1", "a_s2",
+              "b_src", "b_off", "b_sz", "b_s1", "b_s2", "b_sn",
+              "c_dst", "c_off", "c_sz", "c_sm", "c_sn")
+BWD_KERNELS = 3                      # launches a call: chains, tiles, epilogue
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    split: int          # bond s of the L / R split
+    tr: int             # dW tile rows (of I): whole Is groups
+    tc: int             # dW tile columns (of J): whole Js groups
+    pairs: int          # (ip, jp) pairs a tile holds
+    tiles: int
+    cluster: int        # blocks a cluster: their dR partials are summed in rank order
+    blocks: int         # blocks of the tile pass, each a fixed walk over tiles
+    smem: int           # dynamic shared memory of the tile pass, bytes
+    workspace: int      # bytes of scratch: the layout below, never dW
+    phi: tuple          # float offsets of phi_1 .. phi_s (phi_s = L)
+    mu: tuple           # mu_1 .. mu_s (mu_s = dL)
+    rho: tuple          # rho_s .. rho_{n-1} (rho_s = R)
+    lam: tuple          # lam_s .. lam_{n-1} (lam_s = dR)
+    part: int           # the clusters' dR partials, [clusters][Is * Js * d_s]
+
+
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _bwd_smem_bytes(ds: int, i_s: int, j_s: int, tr: int, tc: int, dtype: str) -> int:
+    """``tile_smem`` in the CUDA source: R, the tile's L rows and the is/js
+    index maps, then one region the stages, the dW tile (pair-major) and
+    the block's dR share take in turn.  bf16 stages are the operands; a
+    float32 stage lands as f32 and is split into three bf16 terms."""
+    q = i_s * j_s
+    npair = (tr // i_s) * (tc // j_s)
+    ns, bk = BWD_STAGES[dtype], BWD_BK[dtype]
+    if dtype == "bfloat16":
+        stages = ns * bk * (tr + 8 + tc + 8) * 2
+    else:
+        stages = ns * bk * (tr + 4 + tc + 4) * 4 + 3 * bk * (tr + 8 + tc + 8) * 2
+    return (4 * q * ds + 4 * npair * ds + 4 * _r4(i_s + j_s)
+            + max(stages, 4 * npair * (q + 4), 4 * q * ds))
+
+
+def _bwd_grid(tiles: int, sms: int) -> tuple[int, int]:
+    """(blocks, cluster): as few blocks as keep the waves of tiles (never
+    more than the SMs), in whole clusters of up to ``BWD_CLUSTER``."""
+    nb = min(tiles, sms)
+    nb = -(-tiles // -(-tiles // nb))
+    c = min(BWD_CLUSTER, 1 << (nb.bit_length() - 1))
+    nb = -(-nb // c) * c
+    if nb > sms:
+        nb = sms // c * c
+    return nb, c
+
+
+def _bwd_layout(shapes: Sequence[tuple], s: int, clusters: int) -> tuple[int, tuple]:
+    """Bytes and float offsets of the scratch, as ``bwd_workspace`` in the
+    CUDA source reckons it.  Chain vectors and cotangents are kept once per
+    distinct prefix (suffix) of digit pairs: phi_k, mu_k hold
+    ``prod(i_t j_t, t < k) * d_k`` floats, rho_k, lam_k
+    ``prod(i_t j_t, t >= k) * d_k``; each region is rounded to 16 bytes."""
+    g = [c[1] * c[2] for c in shapes]
+    n = len(shapes)
+    off = 0
+    regions = []
+    for sizes in ([math.prod(g[:k]) * shapes[k][0] for k in range(1, s + 1)],) * 2 + (
+            [math.prod(g[k:]) * shapes[k][0] for k in range(s, n)],) * 2:
+        offs = []
+        for size in sizes:
+            offs.append(off)
+            off += _r4(size)
+        regions.append(tuple(offs))
+    q = math.prod(g[s:])
+    part = off
+    off += clusters * q * shapes[s][0]
+    return 4 * off, (*regions, part)
+
+
+def _job_macs(shapes: Sequence[tuple], s: int) -> int:
+    """Multiply-adds of the chain and pullback jobs: each core once per
+    distinct prefix (suffix) of digit pairs, three times (chain, its
+    gradient, the cotangent one core further)."""
+    g = [c[1] * c[2] for c in shapes]
+    size = [math.prod(c) for c in shapes]
+    return 3 * (sum(math.prod(g[:k]) * size[k] for k in range(s))
+                + sum(math.prod(g[k + 1:]) * size[k] for k in range(s, len(shapes))))
+
+
+@functools.lru_cache(maxsize=4096)
+def _bwd_plan(shapes: tuple, dtype: str = "bfloat16", sms: int = MMA_SMS) -> BwdPlan | None:
+    """The cores-backward kernel's launch for these core shapes in this
+    dtype on a card of ``sms`` SMs, or None when it cannot take them.
+
+    Needs a bond whose R (``d_s * Is * Js``, d_s and Is * Js multiples of 4)
+    fits ``BWD_RMAX`` and a tile of ``BWD_TILES`` that holds whole (is, js)
+    groups, an even number of pairs, within ``SMEM_LIMIT``.  Among those,
+    scratch below an f32 dW first, then the least time, reckoned at 2048
+    rows in CUDA-core multiply-adds an SM: the slower of the blocks' work
+    (waves of tiles, each x^T dy on the tensor cores at ~16 times the CUDA
+    cores' rate, the pullback's 2 d_s a dW value, R and the dR share) and
+    the L2 traffic of re-reading x and dy for every tile (~5.5 multiply-adds
+    a byte an SM), plus the jobs' multiply-adds spread over the SMs."""
+    n = len(shapes)
+    if dtype not in BWD_STAGES or not 2 <= n <= MAXN or shapes[0][0] != 1 or shapes[-1][3] != 1:
+        return None
+    if any(a[3] != b[0] for a, b in zip(shapes, shapes[1:])):
+        return None
+    i_dim = math.prod(c[1] for c in shapes)
+    j_dim = math.prod(c[2] for c in shapes)
+    best = None
+    for s in range(1, n):
+        ds = shapes[s][0]
+        i_s = math.prod(c[1] for c in shapes[s:])
+        j_s = math.prod(c[2] for c in shapes[s:])
+        q = i_s * j_s
+        if ds % 4 or q % 4 or ds * q > BWD_RMAX:
+            continue
+        for tr, tc in BWD_TILES:
+            if tr % i_s or tc % j_s or (tr // i_s) * (tc // j_s) % 2:
+                continue
+            smem = _bwd_smem_bytes(ds, i_s, j_s, tr, tc, dtype)
+            if smem > SMEM_LIMIT:
+                continue
+            pi, pj = tr // i_s, tc // j_s
+            tiles = -(-(i_dim // i_s) // pi) * -(-(j_dim // j_s) // pj)
+            blocks, cluster = _bwd_grid(tiles, sms)
+            ws, (phi, mu, rho, lam, part) = _bwd_layout(shapes, s, blocks // cluster)
+            work = -(-tiles // blocks) * (tr * tc * (128 + 2 * ds) + 4 * q * ds)
+            traffic = tiles * 4096 * (tr + tc) * 5.5 / sms
+            cost = max(work, traffic) + _job_macs(shapes, s) / sms
+            key = (ws >= 4 * i_dim * j_dim, cost, tiles)
+            if best is None or key < best[0]:
+                best = (key, BwdPlan(s, tr, tc, pi * pj, tiles, cluster, blocks, smem, ws,
+                                     phi, mu, rho, lam, part))
+    return None if best is None else best[1]
+
+
+def _bwd_maps(shapes: Sequence[tuple], s: int) -> list[torch.Tensor]:
+    """The index maps of the tile pass: a prefix pair (ip, jp) is row
+    ``pmi[ip] + pmj[jp]`` of L and dL, a suffix pair (is, js) row
+    ``qmi[is] + qmj[js]`` of R and dR.  Rows are numbered by the digit pairs
+    (i_k, j_k) of the cores in order, the first most significant, so the
+    pairs that share a prefix (suffix) of digits are contiguous."""
+    def group(cores):
+        g = [c[1] * c[2] for c in cores]
+        ni = math.prod(c[1] for c in cores)
+        nj = math.prod(c[2] for c in cores)
+        mi = torch.zeros(ni, dtype=torch.int64)
+        mj = torch.zeros(nj, dtype=torch.int64)
+        ii, jj = torch.arange(ni), torch.arange(nj)
+        for k, c in enumerate(cores):
+            place = math.prod(g[k + 1:])
+            mi += ii // math.prod(d[1] for d in cores[k + 1:]) % c[1] * c[2] * place
+            mj += jj // math.prod(d[2] for d in cores[k + 1:]) % c[2] * place
+        return [mi, mj]
+
+    return group(shapes[:s]) + group(shapes[s:])
+
+
+def _bwd_jobs(shapes: Sequence[tuple], plan: BwdPlan, needs: Sequence[bool]
+              ) -> tuple[list[tuple], int, list[tuple], int]:
+    """The job runner's work, ``(chain jobs, chain steps, epilogue jobs,
+    epilogue steps)``.  A job is the batched product
+    ``out[z, m, n] = sum_{k1, k2} A[z, m, k1, k2] * B[z, k1, k2, n]``, summed
+    in order of ``k = k1 * K2 + k2`` in f32, each operand an offset and
+    strides into a core (read as f32), the workspace or the value 1; jobs of
+    one step are independent, each step waits for the last.
+
+    Chains: phi_{k+1} = phi_k . C_k per distinct prefix (k = 0..s-1) and
+    rho_k = C_k . rho_{k+1} per distinct suffix (k = n-1..s).  Epilogue,
+    after the tile pass has written mu_s = dL and the dR partials: for the
+    prefix, dC_k = phi_k^T . mu_{k+1} and mu_k = mu_{k+1} . C_k^T
+    (k = s-1..0); for the suffix, lam_s = the partials summed in cluster
+    order, then dC_k = sum over the suffix of lam_k x rho_{k+1} and
+    lam_{k+1} = lam_k . C_k (k = s..n-1).  An epilogue sum longer than
+    ``BWD_KSLICE`` is split into slices, one job each, whose partials are
+    summed in slice order at the next step (so a long sum is spread over
+    blocks, not walked by one).  A core not in ``needs`` gets no gradient
+    job, and no cotangent is carried past the last core that needs it."""
+    n, s = len(shapes), plan.split
+    d = [c[0] for c in shapes] + [1]
+    g = [c[1] * c[2] for c in shapes]
+    pre = [math.prod(g[:k]) for k in range(n + 1)]     # D_k: distinct prefixes
+    suf = [math.prod(g[k:]) for k in range(n + 1)]     # N_k: distinct suffixes
+    phi = {k + 1: o for k, o in enumerate(plan.phi)}
+    mu = {k + 1: o for k, o in enumerate(plan.mu)}
+    rho = {s + k: o for k, o in enumerate(plan.rho)}
+    lam = {s + k: o for k, o in enumerate(plan.lam)}
+    q = suf[s]
+
+    def job(step, m, nn, k1, k2=1, z=1, a=(BWD_ONES, 0, 0, 0, 0, 0),
+            b=(BWD_ONES, 0, 0, 0, 0, 0), c=(BWD_WS, 0, 0, 0, 0)):
+        return (step, m, nn, k1, k2, z, *a, *b, *c)
+
+    ones = (BWD_ONES, 0, 0, 0, 0, 0)
+
+    def phi_at(k, sm, s1):
+        """phi_k ([P][d_k]) as an A operand with strides ``sm`` along m and
+        ``s1`` along k1.  phi_0 = [1]; phi_1 is core 0 itself
+        ([i0 j0][d_1]) unless it is L (s = 1)."""
+        if k == 0:
+            return ones
+        return (0 if k == 1 and s > 1 else BWD_WS, 0 if k == 1 and s > 1 else phi[k],
+                0, sm, s1, 0)
+
+    def rho_at(k, srow, scol, b=False):
+        """rho_k, row S' and column, as an A (b False: strides sm, s1) or B
+        (b True: s1, sn) operand.  rho_{n-1} is core n-1 itself
+        (rho_{n-1}[S'][b] = C_{n-1}[b, S', 0]) unless it is R (s = n - 1)."""
+        if k == n - 1 and n - 1 > s:
+            srow, scol, src, off = 1, g[n - 1], n - 1, 0
+        else:
+            src, off = BWD_WS, rho[k]
+        return (src, off, 0, srow, 0, scol) if b else (src, off, 0, srow, scol, 0)
+
+    chain = []
+    for k in range(1 if s > 1 else 0, s):
+        kk = g[k] * d[k + 1]
+        chain.append(job(k - (s > 1), pre[k], kk, d[k], a=phi_at(k, d[k], 1),
+                         b=(k, 0, 0, kk, 0, 1), c=(BWD_WS, phi[k + 1], 0, kk, 1)))
+    top = n - 2 if n - 1 > s else n - 1
+    for k in range(top, s - 1, -1):
+        nk = suf[k + 1]
+        a = ones if k == n - 1 else rho_at(k + 1, d[k + 1], 1)
+        chain.append(job(top - k, nk, d[k], d[k + 1], z=g[k], a=a,
+                         b=(k, 0, d[k + 1], 1, 0, g[k] * d[k + 1]),
+                         c=(BWD_WS, rho[k], nk * d[k], d[k], 1)))
+    csteps = max(s - (s > 1), top - s + 1)
+
+    epi = []
+
+    def add(step, j, scratch, room):
+        """j at ``step``; a long sum as slices of at most ``BWD_KSLICE`` of
+        its k that write partials to ``scratch`` (a region dead by then, of
+        ``room`` floats), summed in slice order at the next step.  Returns
+        the floats of scratch it took and whether it was split."""
+        f = dict(zip(JOB_FIELDS, j))
+        per = max(1, BWD_KSLICE // f["K2"], -(-f["K1"] // 8))    # at most 8 slices
+        parts = -(-f["K1"] // per)
+        out = f["M"] * f["N"]
+        if (parts == 1 or f["Z"] != 1 or f["c_sm"] != f["N"] * f["c_sn"]
+                or parts * out > room or len(epi) + parts + 1 > BWD_MAXJOBS - 2 * n):
+            epi.append(j)
+            return 0, False
+        for i in range(parts):
+            lo = i * per
+            g = dict(f, K1=min(per, f["K1"] - lo), a_off=f["a_off"] + lo * f["a_s1"],
+                     b_off=f["b_off"] + lo * f["b_s1"], c_dst=BWD_WS, c_off=scratch + i * out,
+                     c_sz=0, c_sm=f["N"], c_sn=1)
+            epi.append(tuple(g[k] for k in JOB_FIELDS))
+        epi.append(job(step + 1, out, 1, parts, a=(BWD_WS, scratch, 0, 1, out, 0),
+                       c=(f["c_dst"], f["c_off"], 0, f["c_sn"], 0)))
+        return parts * out, True
+
+    # prefix: slices' partials in L's region (phi_s, dead after the tile pass)
+    t, room = 0, pre[s] * d[s]
+    for k in range(s - 1, -1 if s == 1 else 0, -1):
+        kk = g[k] * d[k + 1]
+        used, split = 0, False
+        if needs[k]:
+            used, split = add(t, job(t, d[k], kk, pre[k], a=phi_at(k, 1, d[k]),
+                                     b=(BWD_WS, mu[k + 1], 0, kk, 0, 1), c=(k, 0, 0, kk, 1)),
+                              phi[s], room)
+        if k >= 1 and any(needs[:k]):
+            # dC_0 = mu_1 (phi_0 = [1]): the job writes core 0's gradient
+            c = (0, 0, 0, d[k], 1) if k == 1 else (BWD_WS, mu[k], 0, d[k], 1)
+            u, sp = add(t, job(t, pre[k], d[k], kk, a=(BWD_WS, mu[k + 1], 0, kk, 1, 0),
+                               b=(k, 0, 0, 1, 0, kk), c=c), phi[s] + used, room - used)
+            split |= sp
+        t += 2 if split else 1
+    steps = t
+    # suffix: lam_s = the partials in cluster order; slices in R's region
+    if any(needs[s:]):
+        e = q * d[s]
+        epi.append(job(0, e, 1, plan.blocks // plan.cluster,
+                       a=(BWD_WS, plan.part, 0, 1, e, 0), c=(BWD_WS, lam[s], 0, 1, 0)))
+    t = 1
+    for k in range(s, n):
+        nk, split = suf[k + 1], False
+        if needs[k]:
+            b = ones if k == n - 1 else rho_at(k + 1, d[k + 1], 1, b=True)
+            epi.append(job(t, d[k], d[k + 1], nk, z=g[k],
+                           a=(BWD_WS, lam[k], nk * d[k], 1, d[k], 0), b=b,
+                           c=(k, 0, d[k + 1], g[k] * d[k + 1], 1)))
+        if k + 1 < n and any(needs[k + 1:]):
+            _, split = add(t, job(t, nk, d[k + 1], g[k], k2=d[k],
+                                  a=(BWD_WS, lam[k], 0, d[k], nk * d[k], 1),
+                                  b=(k, 0, 0, d[k + 1], g[k] * d[k + 1], 1),
+                                  c=(BWD_WS, lam[k + 1], 0, d[k + 1], 1)), rho[s], q * d[s])
+        t += 2 if split else 1
+        steps = max(steps, t)
+    return chain, csteps, epi, steps
+
+
 def mpo_linear_bwd_cores_plain(cores: Sequence[torch.Tensor], x: torch.Tensor,
                                dy: torch.Tensor, needs: Sequence[bool] | None = None
                                ) -> list[torch.Tensor | None]:
@@ -511,9 +771,11 @@ def _bwd_lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mpo_linear_bwd_workspace.argtypes = [ctypes.POINTER(i32), i32, i32, i32]
     lib.mpo_linear_bwd_workspace.restype = ctypes.c_long
+    lib.mpo_linear_bwd_smem.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32, i32]
+    lib.mpo_linear_bwd_smem.restype = ctypes.c_long
     lib.mpo_linear_bwd_cores.argtypes = [
-        ctypes.POINTER(ptr), ctypes.POINTER(ptr), ctypes.POINTER(i32), i32, i32, i32, i32,
-        i32, ptr, ptr, i32, i32, ptr, ptr]
+        ctypes.POINTER(ptr), ctypes.POINTER(ptr), ctypes.POINTER(i32), i32,
+        ctypes.POINTER(i32), ptr, ptr, ptr, i32, i32, ptr, ptr]
     lib.mpo_linear_bwd_cores.restype = i32
     return lib
 
@@ -523,40 +785,37 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def bwd_blocks(shapes: Sequence[tuple], sms: int) -> int:
-    """Blocks of the kernel's tile pass: as few as keep every SM's share of
-    the dW tiles the same, never more than the SM count, so the per-block
-    dR partials stay bounded."""
-    split, pi, pj = _bwd_plan(tuple(tuple(s) for s in shapes))
-    i_s = math.prod(c[1] for c in shapes[split:])
-    j_s = math.prod(c[2] for c in shapes[split:])
-    i_p = math.prod(c[1] for c in shapes) // i_s
-    j_p = math.prod(c[2] for c in shapes) // j_s
-    tiles = -(-i_p // pi) * -(-j_p // pj)
-    return -(-tiles // -(-tiles // sms))
-
-
-def bwd_workspace(shapes: Sequence[tuple], nblocks: int) -> int:
-    """Floats of core-space scratch one call of the kernel takes (the
-    chain vectors, L and dL, the block partials of dR), as the CUDA source
-    lays it out; freed after the call."""
-    shapes = tuple(tuple(s) for s in shapes)
-    dims = (ctypes.c_int * (4 * len(shapes)))(*[d for s in shapes for d in s])
-    return _bwd_lib().mpo_linear_bwd_workspace(dims, len(shapes), _bwd_plan(shapes)[0],
-                                               nblocks)
+@functools.lru_cache(maxsize=256)
+def _bwd_meta(shapes: tuple, dtype: str, needs: tuple, sms: int, device: torch.device):
+    """``(plan, meta, args)`` of a call: the job table and index maps as one
+    int32 array on the card, and the host arguments of the C entry point."""
+    plan = _bwd_plan(shapes, dtype, sms)
+    chain, csteps, epi, esteps = _bwd_jobs(shapes, plan, needs)
+    assert max(len(chain), len(epi)) <= BWD_MAXJOBS
+    meta = torch.cat([torch.tensor([v for j in chain + epi for v in j], dtype=torch.int64),
+                      *_bwd_maps(shapes, plan.split)]).to(torch.int32).to(device)
+    s = plan.split
+    args = (s, plan.tr, plan.tc, plan.cluster, plan.blocks, sms, len(chain), csteps, len(epi),
+            esteps, int(any(needs[:s])), int(any(needs[s:])), plan.phi[-1], plan.rho[0],
+            plan.mu[-1], plan.part)
+    return plan, meta, (ctypes.c_int * len(args))(*args)
 
 
 def mpo_linear_bwd_cores(cores: Sequence[torch.Tensor], x: torch.Tensor,
                          dy: torch.Tensor, needs: Sequence[bool] | None = None
                          ) -> list[torch.Tensor | None]:
     """Per-core gradients of ``sum(dy * (x @ W(cores)))`` without dW or W in
-    device memory; ``needs[k]`` False skips core k (None in its place).
+    device memory; ``needs[k]`` False skips core k (None in its place, and
+    no work for it).
 
-    CUDA tensors launch the kernel (``mpo_linear_bwd_cores.launches`` counts
-    the launches); CPU tensors take ``mpo_linear_bwd_cores_plain``.  Raises
-    on anything the kernel does not take."""
+    CUDA tensors launch the kernel, ``csrc/mpo_linear_bwd.cu``: three
+    launches a call (``BWD_KERNELS``), counted once in
+    ``mpo_linear_bwd_cores.launches``; ``mpo_linear_bwd_cores.workspace_bytes``
+    is the last call's scratch.  CPU tensors take
+    ``mpo_linear_bwd_cores_plain``.  Raises on anything the kernel does not
+    take."""
     cores = list(cores)
-    needs = [True] * len(cores) if needs is None else list(needs)
+    needs = [True] * len(cores) if needs is None else [bool(k) for k in needs]
     if x.device.type == "cpu":
         return mpo_linear_bwd_cores_plain(cores, x, dy, needs)
     if x.device.type != "cuda":
@@ -577,26 +836,35 @@ def mpo_linear_bwd_cores(cores: Sequence[torch.Tensor], x: torch.Tensor,
     if x.shape[-1] != i_dim or dy.shape[-1] != j_dim or dy.numel() != m * j_dim:
         raise ValueError(f"mpo_linear_bwd_cores: x {tuple(x.shape)} and dy "
                          f"{tuple(dy.shape)} do not fit W of {i_dim} x {j_dim}")
-    plan = _bwd_plan(shapes)
+    dtype = "float32" if x.dtype == torch.float32 else "bfloat16"
+    sms = _sm_count(x.device.index)
+    plan = _bwd_plan(shapes, dtype, sms)
     if plan is None:
-        raise ValueError(f"mpo_linear_bwd_cores: the kernel does not take core shapes {shapes}")
-    split, pi, pj = plan
-    nblocks = bwd_blocks(shapes, _sm_count(x.device.index or 0))
-    lib = _bwd_lib()
-    dims = (ctypes.c_int * (4 * len(cores)))(*[d for s in shapes for d in s])
-    ws = torch.empty(bwd_workspace(shapes, nblocks), dtype=torch.float32, device=x.device)
+        raise ValueError(f"mpo_linear_bwd_cores: the kernel does not take {dtype} core "
+                         f"shapes {shapes}")
     outs = [torch.empty_like(c) if k else None for c, k in zip(cores, needs)]
+    if m == 0 or not any(needs):
+        return [o.zero_() if o is not None else None for o in outs]
+    if x.data_ptr() % 16:
+        x = x.clone()                  # cp.async copies x and dy in 16-byte chunks
+    if dy.data_ptr() % 16:
+        dy = dy.clone()
+    plan, meta, args = _bwd_meta(shapes, dtype, tuple(needs), sms, x.device)
+    ws = torch.empty(plan.workspace // 4, dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
     optrs = (ctypes.c_void_p * len(cores))(*[o.data_ptr() if o is not None else None
                                              for o in outs])
+    lib = _bwd_lib()
     _build.launch("mpo_linear_bwd_cores", x, lambda stream: lib.mpo_linear_bwd_cores(
-        ptrs, optrs, dims, len(cores), split, pi, pj, nblocks, x.data_ptr(), dy.data_ptr(),
-        m, DTYPES[x.dtype], ws.data_ptr(), stream))
+        ptrs, optrs, _dims(shapes), len(cores), args, meta.data_ptr(), x.data_ptr(),
+        dy.data_ptr(), m, DTYPES[x.dtype], ws.data_ptr(), stream))
     mpo_linear_bwd_cores.launches += 1
+    mpo_linear_bwd_cores.workspace_bytes = plan.workspace
     return outs
 
 
 mpo_linear_bwd_cores.launches = 0
+mpo_linear_bwd_cores.workspace_bytes = 0
 
 
 class MPOLinearFn(torch.autograd.Function):

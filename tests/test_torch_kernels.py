@@ -129,8 +129,7 @@ def test_hopper_gate_admits_every_bert_base_matrix():
             # training: dL/dx over W^T and the cores backward fit too; no
             # float16 kernel
             assert TMK.kernel_eligible(sh, train=True, dtype="bfloat16")
-            split, pi, pj = TMK._bwd_plan(tuple(sh))
-            assert TMK._bwd_smem_bytes(sh, split, pi, pj) <= TMK.SMEM_LIMIT
+            assert TMK._bwd_plan(tuple(sh)).smem <= TMK.SMEM_LIMIT
             assert not TMK.kernel_eligible(sh, dtype="float16")
 
 
@@ -244,14 +243,15 @@ def test_mpo_linear_bwd_cores_plain_matches_pallas_and_grad(dims, n, bond, m):
 def test_bwd_plan_refuses_and_blocks_stay_bounded():
     assert TMK._bwd_plan(((1, 64, 64, 1),)) is None                   # one core
     assert TMK._bwd_plan(((1, 4, 4, 8), (4, 4, 4, 1))) is None         # broken chain
-    # no split leaves a suffix of at most 64 x 64
+    # the only bond's R is 2 x 128 x 128 (above BWD_RMAX) and d_s = 2 not a
+    # multiple of 4
     assert TMK._bwd_plan(((1, 128, 128, 2), (2, 128, 128, 1))) is None
     assert not TMK.kernel_eligible([(1, 128, 128, 2), (2, 128, 128, 1)], train=True)
     for name, s in _bert_matrix_shapes().items():
         if name == "embed":
             continue
         for sms in (132, 114, 8):
-            nb = TMK.bwd_blocks(s, sms)
+            nb = TMK._bwd_plan(tuple(s), "bfloat16", sms).blocks
             assert 1 <= nb <= sms, (name, sms, nb)
 
 
@@ -267,7 +267,9 @@ def test_mpo_linear_bwd_cores_rejects_other_devices():
 def test_cuda_mpo_linear_bwd_cores_matches_plain(cuda):
     """The CUDA cores-backward against its plain version at every bert-base
     attention/FFN shape, ragged and training M, both dtypes, and two runs
-    bit-identical (no atomics)."""
+    bit-identical (no atomics); its scratch below an f32 dW; a call with the
+    central core skipped (``freeze_central_grads``) gives the other cores
+    the same bits."""
     for name, s in _bert_matrix_shapes().items():
         if name == "embed":
             continue
@@ -288,10 +290,54 @@ def test_cuda_mpo_linear_bwd_cores_matches_plain(cuda):
                 torch.cuda.synchronize()
                 assert TMK.mpo_linear_bwd_cores.launches == launches + 2
                 assert all(torch.equal(a, b) for a, b in zip(got, again))
+                assert TMK.mpo_linear_bwd_cores.workspace_bytes < 4 * i_dim * j_dim
                 tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
                 for g, r in zip(got, TMK.mpo_linear_bwd_cores_plain(cs, xx, dd)):
                     r = r.float()
                     assert (g.float() - r).abs().max() <= tol * r.abs().max(), (name, m, dtype)
+                central = len(cs) // 2
+                some = TMK.mpo_linear_bwd_cores(cs, xx, dd, [k != central for k in range(len(cs))])
+                assert some[central] is None
+                assert all(torch.equal(a, b) for k, (a, b) in enumerate(zip(some, got))
+                           if k != central)
+
+
+@pytest.mark.cuda
+def test_cuda_mpo_linear_bwd_cores_other_shapes(cuda):
+    """The cores backward on the card at ``tests/test_kernel_vjp.py``'s
+    four shapes (I or J not a multiple of 8: element loads instead of
+    cp.async; splits at the first and the last bond; ragged tiles; clusters
+    of one and two) and at mamba2-130m's in_proj and out_proj in both
+    orientations (128 x 128 tiles, Is = 64 or Js = 4), both dtypes, against
+    the plain version, two launches bit-identical."""
+    from repro_torch.core.layers import cores_to_list
+    from repro_torch.models import mamba as TMB
+    with torch.device("meta"):
+        mamba = TMB.init(torch.Generator(), configs.get_config("mamba2-130m"))
+    cases = [[tuple(c) for c in JM.MPOSpec.make(*dims, n=n, bond_dim=bond).core_shapes()]
+             for dims, n, bond in [((24, 36), 3, None), ((64, 96), 3, 8), ((64, 64), 5, 8),
+                                   ((128, 48), 4, 6)]]
+    for name in ("in_proj", "out_proj"):
+        s = [tuple(c.shape[1:]) for c in cores_to_list(mamba["layers"][name]["cores"])]
+        cases += [s, [(d0, j, i, d1) for d0, i, j, d1 in s]]
+    rng = np.random.default_rng(0)
+    for s in cases:
+        cores = [torch.from_numpy((rng.standard_normal(c) * 0.35).astype(np.float32)) for c in s]
+        i_dim = math.prod(c[1] for c in s)
+        j_dim = math.prod(c[2] for c in s)
+        x = torch.from_numpy(rng.standard_normal((37, i_dim)).astype(np.float32))
+        dy = torch.from_numpy(rng.standard_normal((37, j_dim)).astype(np.float32))
+        for dtype in (torch.float32, torch.bfloat16):
+            cs = [c.to(cuda, dtype) for c in cores]
+            xx, dd = x.to(cuda, dtype), dy.to(cuda, dtype)
+            got = TMK.mpo_linear_bwd_cores(cs, xx, dd)
+            again = TMK.mpo_linear_bwd_cores(cs, xx, dd)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (s, dtype)
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+            for g, r in zip(got, TMK.mpo_linear_bwd_cores_plain(cs, xx, dd)):
+                r = r.float()
+                assert (g.float() - r).abs().max() <= tol * r.abs().max(), (s, dtype)
 
 
 # --------------------------------------------------------------------------
