@@ -25,7 +25,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    bit-identical, the previous serial kernel timed beside it (``prev_ms``).
    The SSD scan at mamba2-130m's path shape (8 x 512, 24 heads of 64, state 128, chunk
    128), a 100-token prompt (q = 100) and one 4096-token prompt (32 chunks),
-   both dtypes; the MPO-linear forward at bert-base's matrices (M = 1, 8,
+   both dtypes: two launches bit-identical, its plan's shared memory,
+   scratch and launch-3 blocks an SM equal to the CUDA source's, and each of
+   its three launches timed
+   alone (``launch_ms``: chunk states, state passing, chunk outputs); the
+   MPO-linear forward at bert-base's matrices (M = 1, 8,
    100 at attn and 1024), at mamba2-130m's in_proj (768 -> 3352; M = 1, 8,
    100 and 4096) and out_proj (1536 -> 768; M = 8 and 4096), and its tied
    head (768 -> 50432, M = 8), both dtypes.
@@ -44,9 +48,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
 4. parity — float32 bert-base: greedy tokens of paged + factorized, paged +
    weight cache and the dense cache must be identical; float32 mamba2-130m:
    greedy tokens with and without the weight cache identical (each with its
-   wall time); then the smoke bert-base and mamba2-130m models on the card
-   against the same models on the CPU (plain versions), launching the
-   forward kernels the float32 plan names for their matrices (both).
+   wall time), 24 SSD-scan launches a prefill; then the smoke bert-base and
+   mamba2-130m models on the card against the same models on the CPU (plain
+   versions), launching the forward kernels the float32 plan names for their
+   matrices (both).
 5. train — (a) the MPO-linear cores-backward kernel against its plain
    version at bert-base's attention, w_up and w_down shapes, M = 2048 (16 x
    128 tokens) and a ragged M, both dtypes, with its times: two launches
@@ -150,6 +155,7 @@ def main() -> int:
         from repro_torch.kernels import ssd_scan as SSD
         from repro_torch.models import mamba as MB
         from repro_torch.models import nn
+        from repro_torch.timing import device_ms
     except ImportError as e:
         fail(f"the port is not importable next to this script ({e}); run it "
              "from a checkout of the repository")
@@ -177,27 +183,8 @@ def main() -> int:
 
     def timed(fn, reps=10):
         """Mean device ms of ``fn`` over ``reps`` calls, L2 flushed before
-        each.  A GPU spin of three times ``fn``'s host time (at ~2 GHz) is
-        queued between the flush and the start event, so the host enqueues
-        ``fn``'s launches while the card spins and the events time the
-        card's work alone, not the wrapper's host time."""
-        fn()
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        fn()
-        cycles = int(2e9 * max(5e-5, 3 * (time.perf_counter() - h0)))
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(reps):
-            flush_buf.zero_()
-            torch.cuda._sleep(cycles)
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            total += a.elapsed_time(b)
-        return total / reps
+        each (``repro_torch.timing.device_ms``)."""
+        return device_ms(fn, flush_buf, reps)
 
     def check(name, out, ref, dtype, extra):
         err = (out.float() - ref.float()).abs().max().item()
@@ -394,9 +381,40 @@ def main() -> int:
         d_skip = (1 + 0.1 * torch.randn(h, generator=gen)).to(dev)
         args, chunk = (x, dt, a_log, b, c, d_skip), mcfg.ssm_chunk
         y, state = SSD.ssd_scan(*args, chunk)
+        again, state_again = SSD.ssd_scan(*args, chunk)
         torch.cuda.synchronize()
+        if not (torch.equal(y, again) and torch.equal(state, state_again)):
+            fail(f"ssd_scan B={bs} S={s} {dtype}: two launches differ")
         ry, rstate = SSD.ssd_scan_plain(*args, chunk)
         q = min(chunk, s)
+        # the plan against the CUDA source (shared memory, scratch, and launch
+        # 3's blocks an SM at every head group the plan weighs), then each of
+        # the three launches alone on the card (the scratch filled by a whole
+        # call first)
+        plan = SSD._ssd_plan(bs, s, h, p, n, q, dtype, MK._sm_count(0))
+        code = SSD.DTYPES[tdt]
+        smem_c = tuple(ssd_lib.ssd_scan_smem(k, q, n, p, plan.group, code) for k in (1, 2, 3))
+        ws_c = ssd_lib.ssd_scan_workspace(bs, s, h, p, n, q)
+        if (smem_c, ws_c) != (plan.smem, plan.workspace):
+            fail(f"ssd_scan B={bs} S={s} {dtype}: the plan's shared memory / scratch "
+                 f"{plan.smem} / {plan.workspace} differ from the CUDA source's {smem_c} / {ws_c}")
+        groups = [g for g in range(1, min(h, SSD.SSD_GMAX) + 1) if h % g == 0]
+        res_py = [SSD._ssd_resident(q, n, p, g, dtype) for g in groups]
+        res_c = [ssd_lib.ssd_scan_resident(q, n, p, g, code) for g in groups]
+        if res_py != res_c:
+            fail(f"ssd_scan B={bs} S={s} {dtype}: the plan's launch-3 blocks an SM {res_py} "
+                 f"at head groups {groups} differ from the card's {res_c}")
+        ws = torch.empty(plan.workspace // 4, dtype=torch.float32, device=dev)
+        y1, state1 = torch.empty_like(y), torch.empty_like(state)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(launch):
+            return lambda: SSD._run(x, dt, a_log, b, c, d_skip, y1, state1, ws, q, plan.group,
+                                    stream, launch)
+
+        if run(0)() != 0:
+            fail(f"ssd_scan B={bs} S={s} {dtype}: the launches were refused")
+        launch_ms = [timed(run(k)) for k in range(1, SSD.SSD_KERNELS + 1)]
         err = check("ssd_scan", y, ry, dtype, f"B={bs} S={s} q={q} {dtype}")
         serr = (state - rstate).abs().max().item()
         sscale = rstate.abs().max().item()
@@ -407,12 +425,22 @@ def main() -> int:
         nbytes = isz * (2 * x.numel() + b.numel() + c.numel()) + 4 * (
             dt.numel() + 2 * h + state.numel())
         # the causal half of each chunk's C.B^T, which every head shares, then
-        # per head its decayed product with x and the two state products
-        tri = q * (q + 1) // 2
-        ops = 2 * bs * (s // q) * tri * n + 2 * bs * h * (s // q) * (tri * p + 2 * q * n * p)
+        # per head its decayed product with x, the chunk state B^T (x o s), and
+        # C.prev for every chunk but the first, which carries no state
+        tri, nc = q * (q + 1) // 2, s // q
+        ops = 2 * bs * nc * tri * n + 2 * bs * h * (nc * (tri * p + q * n * p)
+                                                     + (nc - 1) * q * n * p)
+        # float32's bound above takes the CUDA cores' f32 rate; the kernel
+        # reaches float32 with six bf16 products on the tensor cores, whose
+        # rate (989 / 6 TFLOP/s) gives the bound for that route
+        tc_bound = (1e3 * max(nbytes / PEAK_BYTES_S, 6 * ops / PEAK_OPS_S["bfloat16"])
+                    if dtype == "float32" else None)
         rec = dict(kernel="ssd_scan", B=bs, S=s, H=h, P=p, N=n, chunk=q, dtype=dtype,
                    max_abs_err=err, state_max_abs_err=serr, tol=TOL[dtype],
-                   state_tol=STATE_TOL,
+                   state_tol=STATE_TOL, deterministic=True, group=plan.group,
+                   grids=list(plan.grids), smem_bytes=list(plan.smem),
+                   workspace_bytes=plan.workspace, launches_per_call=SSD.SSD_KERNELS,
+                   launch_ms=launch_ms, tc_bound_ms=tc_bound,
                    kernel_ms=timed(lambda: SSD.ssd_scan(*args, chunk)),
                    plain_ms=timed(lambda: SSD.ssd_scan_plain(*args, chunk)),
                    library_ms=None,
@@ -422,6 +450,7 @@ def main() -> int:
         emit(phase="kernels", **rec)
         return rec
 
+    ssd_lib = SSD._lib()
     for dtype in ("bfloat16", "float32"):
         results[("ssd", "path", dtype)] = ssd_case(MAMBA_BATCH, MAMBA_PROMPT, dtype)
         results[("ssd", "short", dtype)] = ssd_case(MAMBA_BATCH, 100, dtype)
@@ -689,6 +718,10 @@ def main() -> int:
         fail(f"float32 mamba2-130m serving: launches {f32_counts}; the tensor-core kernel "
              "must run, the CUDA-core kernel and the plain versions not")
     f32_mma["mamba2-130m float32 serve (both runs)"] = f32_counts["mpo_linear_fwd_mma"]
+    f32_ssd = {"mamba2-130m float32 serve (both runs)": f32_counts["ssd_scan"]}
+    if f32_counts["ssd_scan"] != 2 * mcfg.num_layers:
+        fail(f"float32 mamba2-130m serving: {f32_counts['ssd_scan']} SSD-scan launches in two "
+             f"prefills (expected {2 * mcfg.num_layers})")
     top2 = mruns[True][1].topk(2, dim=-1).values
     if not torch.equal(mruns[False][0], mruns[True][0]):
         row, step = (mruns[False][0] != mruns[True][0]).nonzero()[0].tolist()
@@ -949,6 +982,7 @@ def main() -> int:
         case=case, dtype=rec["dtype"], **kw)
     fwd = ("src/repro_torch/csrc/mpo_linear_mma.cu", "src/repro/kernels/mpo_linear.py:216")
     bwd = ("src/repro_torch/csrc/mpo_linear_bwd.cu", "src/repro/kernels/mpo_linear.py:303")
+    ssd = ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:60")
     line = [
         entry("mpo_linear_fwd_mma", "cuda", *fwd, results[("mpo", "attn", 8, "bfloat16")],
               "bert-base attention matrix, M=8 (a decode step), bfloat16",
@@ -974,10 +1008,17 @@ def main() -> int:
               f"bert-base attention matrix, M={tokens}, float32 (launches: the smoke "
               "float32 train steps)", sum(f32_bwd.values()), launches_by_path=f32_bwd,
               launches_per_call=MK.BWD_KERNELS),
-        entry("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
-              "src/repro/kernels/ssd_scan.py:60", results[("ssd", "path", "bfloat16")],
+        entry("ssd_scan", "cuda", *ssd, results[("ssd", "path", "bfloat16")],
               f"mamba2-130m prefill: B={MAMBA_BATCH} S={MAMBA_PROMPT} H=24 P=64 N=128, "
-              "chunk 128, bfloat16", path_launches["ssd_scan"]),
+              "chunk 128, bfloat16", path_launches["ssd_scan"],
+              launches_per_call=SSD.SSD_KERNELS,
+              launch_ms=results[("ssd", "path", "bfloat16")]["launch_ms"]),
+        entry("ssd_scan", "cuda", *ssd, results[("ssd", "path", "float32")],
+              f"mamba2-130m prefill: B={MAMBA_BATCH} S={MAMBA_PROMPT}, float32 (launches: the "
+              "float32 mamba2-130m serving runs)", sum(f32_ssd.values()),
+              launches_by_path=f32_ssd, launches_per_call=SSD.SSD_KERNELS,
+              launch_ms=results[("ssd", "path", "float32")]["launch_ms"],
+              tc_bound_ms=results[("ssd", "path", "float32")]["tc_bound_ms"]),
     ]
     if any(e["launches"] == 0 for e in line):
         fail(f"a kernel of the paths never launched: {[(e['name'], e['dtype'], e['launches']) for e in line]}")

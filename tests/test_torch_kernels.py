@@ -611,18 +611,41 @@ def test_ssd_scan_rejects_what_it_cannot_take():
 def test_cuda_ssd_scan_matches_plain(cuda):
     """The CUDA kernel against its plain version: the mamba2-130m head
     geometry (H=24, P=64, N=128) at a 4-chunk prompt, a 100-token prompt
-    (q = 100) and a ragged small case, both dtypes; y within 1e-4 (f32) or
-    one bf16 step doubled (2^-7) of its largest magnitude, the final state
-    within 1e-4 relative."""
+    (q = 100), a small case and a ragged one (q = 11, P = 13, N = 5: the
+    scalar staging and the one-element state pass), both dtypes; two calls
+    give the same bits; y within 1e-4 (f32) or one bf16 step doubled (2^-7)
+    of its largest magnitude, the final state within 1e-4 relative."""
     for shape, chunk in (((2, 512, 24, 64, 128), 128), ((2, 100, 24, 64, 128), 128),
-                         ((3, 48, 5, 16, 16), 16)):
+                         ((3, 48, 5, 16, 16), 16), ((1, 33, 2, 13, 5), 11)):
         for dtype in ("float32", "bfloat16"):
             args = _ssd_torch(_ssd_inputs(*shape, dtype=dtype, seed=1), dtype, cuda)
             launches = TSSD.ssd_scan.launches
             y, state = TSSD.ssd_scan(*args, chunk)
+            again, state_again = TSSD.ssd_scan(*args, chunk)
             torch.cuda.synchronize()
-            assert TSSD.ssd_scan.launches == launches + 1
+            assert TSSD.ssd_scan.launches == launches + 2
+            assert torch.equal(y, again) and torch.equal(state, state_again)
             ry, rstate = TSSD.ssd_scan_plain(*args, chunk)
             tol = 1e-4 if dtype == "float32" else 2.0 ** -7
             assert (y.float() - ry.float()).abs().max() <= tol * ry.float().abs().max()
             assert (state - rstate).abs().max() <= 1e-4 * rstate.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_plan_agrees_with_the_source(cuda):
+    """``_ssd_plan``'s cost model against the compiled kernel: launch 3's
+    blocks an SM (``_ssd_resident``: registers and shared memory) equal to
+    the card's occupancy (``ssd_scan_resident``), and every launch's shared
+    memory equal to ``ssd_scan_smem``, at every head group and at the
+    corners of what ``_check`` admits, both dtypes."""
+    lib = TSSD._lib()
+    for q in (1, 16, 100, 128):
+        for n in (8, 16, 128):
+            for p in (8, 16, 64):
+                for dtype, code in (("float32", 0), ("bfloat16", 1)):
+                    for g in range(1, TSSD.SSD_GMAX + 1):
+                        case = (q, n, p, g, dtype)
+                        assert lib.ssd_scan_resident(q, n, p, g, code) == \
+                            TSSD._ssd_resident(q, n, p, g, dtype), case
+                        assert tuple(lib.ssd_scan_smem(k, q, n, p, g, code)
+                                     for k in (1, 2, 3)) == TSSD._ssd_smem(q, n, p, g, dtype), case

@@ -21,7 +21,6 @@ import json
 import math
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
@@ -42,6 +41,7 @@ def main() -> int:
         print("torch_bwd_profile: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import mpo_linear as MK
+    from repro_torch.timing import device_ms
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
@@ -49,24 +49,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
 
-    def timed(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        fn()
-        cycles = int(2e9 * max(5e-5, 3 * (time.perf_counter() - h0)))
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(reps):
-            flush.zero_()
-            torch.cuda._sleep(cycles)
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            total += a.elapsed_time(b)
-        return total / reps
+    def timed(fn):
+        return device_ms(fn, flush)
 
     for name, shapes in MATRICES.items():
         n = len(shapes)
