@@ -259,18 +259,9 @@ class MPOEngine:
             shapes = tuple(tuple(c.shape[-4:]) for c in cores)
             if self.plan(shapes, 1, "decode").mode != "cached":
                 return params
-            w = _reconstruct_stacked(cores)
+            w = mpo.reconstruct_stacked(cores)
             return {"w": w if dtype is None else w.to(dtype)}
         return {k: self.cache_weights(v, dtype=dtype) for k, v in params.items()}
-
-
-def _reconstruct_stacked(cores: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``mpo.reconstruct`` over any leading stacked dims (scanned layers),
-    one matrix at a time."""
-    if cores[0].dim() == 4:
-        return mpo.reconstruct(list(cores))
-    return torch.stack([_reconstruct_stacked([c[i] for c in cores])
-                        for i in range(cores[0].shape[0])])
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,8 +11,12 @@ Two execution paths for ``y = x @ MPO(W)``:
   * ``apply_mpo``   — factorized sequential contraction;
   * ``reconstruct`` — contract W once, then a dense matmul.
 
-The sequential-SVD decomposition, truncation errors and TT-rounding come
-with conversion and squeezing (ROADMAP.md, Queue 1 item 2).
+Algorithm 1 (``decompose``, sequential truncated SVD), the truncation
+errors and entropy of Eq. 3, 4 and 6, and TT-rounding (``tt_round``, which
+Algorithm 2 squeezes with) work in float32 (float64 stays float64) and take
+any leading batch dims: scan-stacked ``(L, d0, i, j, d1)`` cores and
+``(L, I, J)`` matrices run as one batched ``torch.linalg`` call a bond, on
+the tensors' device.
 """
 
 from __future__ import annotations
@@ -184,6 +188,20 @@ def transpose_cores(cores: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     return [c.permute(0, 2, 1, 3) for c in cores]
 
 
+def apply_mpo_t(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """``y[..., I] = x[..., J] @ W^T`` (e.g. tied-embedding logits)."""
+    return apply_mpo(transpose_cores(cores), x)
+
+
+def reconstruct_stacked(cores: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``reconstruct`` over any leading stacked dims (scanned layers), one
+    matrix at a time."""
+    if cores[0].dim() == 4:
+        return reconstruct(list(cores))
+    return torch.stack([reconstruct_stacked([c[i] for c in cores])
+                        for i in range(cores[0].shape[0])])
+
+
 def embed_lookup(cores: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Tensor:
     """Row lookup ``W[ids, :]`` from a factorized embedding table.
 
@@ -205,6 +223,146 @@ def embed_lookup(cores: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Tens
         h = torch.einsum("bxd,bdje->bxje", h, sel)
         h = h.reshape(h.shape[0], -1, h.shape[-1])
     return h[..., 0].reshape(*lead, -1)
+
+
+# --------------------------------------------------------------------------
+# decomposition (Algorithm 1)
+# --------------------------------------------------------------------------
+
+# cuSOLVER's SVD on the card (``torch.linalg.svd``'s ``driver``): the
+# QR-based ``gesvd``.  Converting full-width bert-base's exact tree it
+# reconstructs every matrix within 2.4e-6 in 4.2 s, where Jacobi
+# (``gesvdj``, 2.9 s) leaves 3.1e-4 at the embedding and ``gesvda`` fails
+# to converge (PERF.md; ``tools/torch_lifecycle_profile.py``).  The CPU has
+# one driver (LAPACK).
+SVD_DRIVER = "gesvd"
+
+
+def _work(t: torch.Tensor) -> torch.Tensor:
+    """float32 at least, as the reference casts (float64 stays float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _svd(m: torch.Tensor):
+    """Reduced SVD over leading batch dims, on ``m``'s device."""
+    return torch.linalg.svd(m, full_matrices=False,
+                            driver=SVD_DRIVER if m.is_cuda else None)
+
+
+def _interleave_perm(n: int) -> list[int]:
+    """(i1..in, j1..jn) -> (i1, j1, i2, j2, ...)."""
+    return [x for k in range(n) for x in (k, n + k)]
+
+
+def decompose(matrix: torch.Tensor, spec: MPOSpec):
+    """Algorithm 1: sequential-SVD MPO decomposition with bond truncation.
+
+    ``matrix`` is ``(..., I, J)``; every core and spectrum keeps its leading
+    dims.  Returns ``(cores, spectra)`` where ``spectra[k]`` holds the
+    *pre-truncation* singular values seen at bond ``k`` (Eq. 3 errors,
+    Eq. 6 entropy, squeeze candidates)."""
+    n = spec.n
+    m = _work(matrix)
+    lead = tuple(m.shape[:-2])
+    if tuple(m.shape[-2:]) != (spec.in_dim, spec.out_dim):
+        raise ValueError(f"matrix {tuple(m.shape)} != spec (..., {spec.in_dim}, {spec.out_dim})")
+    nl = len(lead)
+    t = m.reshape(*lead, *spec.in_factors, *spec.out_factors)
+    t = t.permute(*range(nl), *[nl + p for p in _interleave_perm(n)])
+    bonds = spec.bonds()
+    cores, spectra = [], []
+    d_prev = 1
+    rem = t.reshape(*lead, -1)
+    for k in range(n - 1):
+        rows = d_prev * spec.in_factors[k] * spec.out_factors[k]
+        u, s, vt = _svd(rem.reshape(*lead, rows, -1))
+        dk = min(bonds[k], s.shape[-1])
+        spectra.append(s)
+        cores.append(u[..., :dk].reshape(*lead, d_prev, spec.in_factors[k],
+                                         spec.out_factors[k], dk))
+        rem = (s[..., :dk, None] * vt[..., :dk, :]).reshape(*lead, -1)
+        d_prev = dk
+    cores.append(rem.reshape(*lead, d_prev, spec.in_factors[-1], spec.out_factors[-1], 1))
+    return cores, spectra
+
+
+# --------------------------------------------------------------------------
+# truncation errors / entropy (Eq. 3, 4, 6), over leading batch dims
+# --------------------------------------------------------------------------
+
+
+def local_truncation_error(spectrum: torch.Tensor, keep: int) -> torch.Tensor:
+    """eps_k — Frobenius-optimal local truncation error at one bond: the l2
+    norm of the discarded tail (the Eckart–Young quantity in Eq. 4's bound;
+    ``paper_epsilon`` is Eq. 3's literal sum)."""
+    tail = spectrum[..., keep:]
+    return torch.sqrt((tail * tail).sum(-1))
+
+
+def paper_epsilon(spectrum: torch.Tensor, keep: int) -> torch.Tensor:
+    """Literal Eq. (3): sum of discarded singular values."""
+    return spectrum[..., keep:].sum(-1)
+
+
+def total_error_bound(spectra: Sequence[torch.Tensor], keeps: Sequence[int]) -> torch.Tensor:
+    """Eq. (4) right-hand side: sqrt(sum_k eps_k^2)."""
+    return torch.sqrt(sum(local_truncation_error(s, k) ** 2 for s, k in zip(spectra, keeps)))
+
+
+def entanglement_entropy(spectrum: torch.Tensor) -> torch.Tensor:
+    """Eq. (6): S = -sum v ln v with v = normalized singular values."""
+    v = spectrum / spectrum.sum(-1, keepdim=True)
+    pos = v > 0
+    return -torch.where(pos, v * torch.log(torch.where(pos, v, 1.0)), 0.0).sum(-1)
+
+
+# --------------------------------------------------------------------------
+# TT-rounding (used by dimension squeezing on *trained* cores)
+# --------------------------------------------------------------------------
+
+
+def right_orthogonalize(cores: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Sweep n..2 making every core right-orthogonal (an LQ decomposition as
+    the QR of the transpose); leading dims are a batch."""
+    out = [_work(c) for c in cores]
+    for k in range(len(out) - 1, 0, -1):
+        c = out[k]
+        lead = c.shape[:-4]
+        q, r = torch.linalg.qr(c.reshape(*lead, c.shape[-4], -1).transpose(-1, -2))
+        out[k] = q.transpose(-1, -2).reshape(*lead, q.shape[-1], *c.shape[-3:])
+        out[k - 1] = torch.einsum("...aijb,...cb->...aijc", out[k - 1], r)
+    return out
+
+
+def _sweep(cores: Sequence[torch.Tensor], new_bonds: Sequence[int] | None):
+    """Right-orthogonalize, then a left->right SVD sweep, truncating bond k
+    to ``new_bonds[k]`` (None: keep every bond).  Returns ``(cores,
+    spectra)``, the spectra taken before truncation."""
+    cs = right_orthogonalize(cores)
+    out, spectra, carry = [], [], None
+    for k in range(len(cs) - 1):
+        c = cs[k] if carry is None else torch.einsum("...ab,...bijc->...aijc", carry, cs[k])
+        u, s, vt = _svd(c.reshape(*c.shape[:-4], -1, c.shape[-1]))
+        spectra.append(s)
+        dk = s.shape[-1] if new_bonds is None else min(int(new_bonds[k]), s.shape[-1])
+        out.append(u[..., :dk].reshape(*c.shape[:-1], dk))
+        carry = s[..., :dk, None] * vt[..., :dk, :]
+    out.append(cs[-1] if carry is None
+               else torch.einsum("...ab,...bijc->...aijc", carry, cs[-1]))
+    return out, spectra
+
+
+def bond_spectra(cores: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Singular values at every bond of the *current* (possibly trained) MPO."""
+    return _sweep(cores, None)[1]
+
+
+def tt_round(cores: Sequence[torch.Tensor], new_bonds: Sequence[int]):
+    """Truncate an existing MPO to ``new_bonds`` (Oseledets TT-rounding):
+    right-orthogonalize, then a left->right truncated-SVD sweep.  Returns
+    ``(new_cores, spectra)``, the spectra pre-truncation (Eq. 3/4 and the
+    squeeze's candidates)."""
+    return _sweep(cores, new_bonds)
 
 
 def _deinterleave_perm(n: int) -> list[int]:

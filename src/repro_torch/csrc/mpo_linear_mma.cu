@@ -19,9 +19,13 @@
 //     ~24 bits each: float32's own precision), and the six products whose
 //     size is at least 2^-24 of the leading one are issued, smallest first:
 //     x2.w0, x1.w1, x1.w0, x0.w2, x0.w1, x0.w0.
-// Every product is exact in f32 and all are summed into one f32 accumulator
-// over all of I in a fixed order; y is rounded to its dtype once.  That is
-// the arithmetic of the plain version (f32 W, f32 product), in another order.
+// Every product is exact in f32.  bfloat16 sums them into one f32
+// accumulator over all of I; float32 sums each 16 rows' six products of an
+// output element into a fresh f32 value and adds that to the accumulator
+// with a rounded add (the tensor cores truncate their sums, which over a
+// long I biases one accumulator towards zero).  The order is fixed; y is
+// rounded to its dtype once.  That is the arithmetic of the plain version
+// (f32 W, f32 product), in another order.
 //
 // Design.
 //   1. Two prologue kernels contract, once a call, the suffix cores into R
@@ -48,8 +52,9 @@
 //      split the landed f32 x stage into three bf16 tiles at an 80-byte
 //      pitch.  The warps then load x (ldmatrix) and W (ldmatrix.trans)
 //      fragments, conflict-free at the 80- and 272-byte pitches, and issue
-//      mma.sync.m16n8k16 (bf16 in, f32 accumulate), one term of x at a time
-//      against the W terms it pairs with (bf16: w0 then w1).
+//      mma.sync.m16n8k16 (bf16 in, f32 accumulate): bf16 w0 then w1 into
+//      the accumulator, float32 the six term products of a k-step into a
+//      zeroed fragment that is then added to it.
 //   3. Few rows (at most 64): the stages are split over S blocks per tile so
 //      the grid fills the card; each split writes f32 partials [S, M, J] and
 //      reduce_kernel sums them in split order and rounds once.  No atomics:
@@ -453,10 +458,9 @@ mma_kernel(Args a, const T* __restrict__ x, T* __restrict__ y,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  // one bf16 x tile against W terms 0..nw-1: bf16 loads both W fragments of
-  // an n-tile pair and issues w0 then w1; float32 loads one W term at a time
-  // (fewer live registers) and issues the smallest first
-  auto product_term = [&](const bf16* xb, int nw) {
+  // bfloat16: the x tile against both W terms, an n-tile pair's fragments
+  // loaded together, w0 then w1 into the accumulator
+  auto product_bf16 = [&](const bf16* xb) {
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[MT][4];
@@ -467,42 +471,65 @@ mma_kernel(Args a, const T* __restrict__ x, T* __restrict__ y,
 #pragma unroll
       for (int nt = 0; nt < NT; nt += 2) {
         const int ncol = wn * WTN + nt * 8 + (lane >> 4) * 8;
-        if constexpr (!F32) {
-          uint32_t bh[4], bl[4];
-          ldmatrix_x4_trans(bh, Wt + krow * WP + ncol);
-          ldmatrix_x4_trans(bl, Wt + BK * WP + krow * WP + ncol);
+        uint32_t bh[4], bl[4];
+        ldmatrix_x4_trans(bh, Wt + krow * WP + ncol);
+        ldmatrix_x4_trans(bl, Wt + BK * WP + krow * WP + ncol);
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(acc[mt][nt], af[mt], bh[0], bh[1]);
-            mma_bf16(acc[mt][nt], af[mt], bl[0], bl[1]);
-            mma_bf16(acc[mt][nt + 1], af[mt], bh[2], bh[3]);
-            mma_bf16(acc[mt][nt + 1], af[mt], bl[2], bl[3]);
-          }
-        } else {
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][nt], af[mt], bh[0], bh[1]);
+          mma_bf16(acc[mt][nt], af[mt], bl[0], bl[1]);
+          mma_bf16(acc[mt][nt + 1], af[mt], bh[2], bh[3]);
+          mma_bf16(acc[mt][nt + 1], af[mt], bl[2], bl[3]);
+        }
+      }
+    }
+  };
+
+  // float32: for each 16 rows of I and each n-tile, the six products go
+  // into a zeroed f32 fragment, smallest first, and a rounded f32 add puts
+  // that into the accumulator.  The tensor cores truncate the sum they
+  // return, so adding every product straight into one accumulator over all
+  // of I shrinks y by a bias that grows with I (1.4e-4 of its largest
+  // magnitude at I = 30720); a fragment that starts at zero a k-step keeps
+  // that bias to the k-step's own products.
+  auto product_f32 = [&]() {
 #pragma unroll
-          for (int t = NW - 1; t >= 0; --t) {
-            if (t >= nw) continue;
-            uint32_t b[4];
-            ldmatrix_x4_trans(b, Wt + t * BK * WP + krow * WP + ncol);
+    for (int kk = 0; kk < BK; kk += 16) {
+      const int krow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+      uint32_t b[NT / 2][NW][4];
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              mma_bf16(acc[mt][nt], af[mt], b[0], b[1]);
-              mma_bf16(acc[mt][nt + 1], af[mt], b[2], b[3]);
-            }
-          }
+      for (int np = 0; np < NT / 2; ++np)
+#pragma unroll
+        for (int t = 0; t < NW; ++t)
+          ldmatrix_x4_trans(b[np][t], Wt + t * BK * WP + krow * WP + wn * WTN + np * 16 +
+                                          (lane >> 4) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t af[NX][4];
+#pragma unroll
+        for (int t = 0; t < NX; ++t)
+          ldmatrix_x4(af[t], xt + t * BM * XP + (wm * WTM + mt * 16 + (lane & 15)) * XP + kk +
+                                 (lane >> 4) * 8);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int h = 2 * (nt & 1);
+          float p[4] = {0.f, 0.f, 0.f, 0.f};
+          // x_t pairs with the W terms that keep the product >= 2^-24 of x0.w0
+#pragma unroll
+          for (int tx = NX - 1; tx >= 0; --tx)
+#pragma unroll
+            for (int tw = NW - 1 - tx; tw >= 0; --tw)
+              mma_bf16(p, af[tx], b[nt / 2][tw][h], b[nt / 2][tw][h + 1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += p[e];
         }
       }
     }
   };
 
   auto product = [&](int buf) {
-    if constexpr (F32) {
-      // x_t pairs with the W terms that keep the product >= 2^-24 of x0.w0
-#pragma unroll
-      for (int t = NX - 1; t >= 0; --t) product_term(xt + t * BM * XP, NW - t);
-    } else {
-      product_term(reinterpret_cast<const bf16*>(xs) + buf * BM * XP, NW);
-    }
+    if constexpr (F32) product_f32();
+    else product_bf16(reinterpret_cast<const bf16*>(xs) + buf * BM * XP);
   };
 
   if (!lwarp) {

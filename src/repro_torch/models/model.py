@@ -7,7 +7,9 @@ Parameters are registered under the reference's key paths
 ``layers.in_proj.cores.c0``, …) with the stacked leading layer dim kept, so
 ``state_dict()`` keys match the reference's parameter tree and
 ``core.carry.load_jax_params`` can load it.  The layer math stays in plain
-functions on tensors: ``tree()`` hands them the parameters as a nested dict.
+functions on tensors: ``tree()`` hands them the parameters as a nested dict,
+and ``set_tree`` installs one (the MPO cores may change their bonds, as
+conversion and squeezing change them).
 """
 
 from __future__ import annotations
@@ -69,6 +71,18 @@ class _Tree(nn.Module):
         out.update({k: m.tree() for k, m in self._modules.items()})
         return out
 
+    def _install(self, tree: dict, device):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self._modules[k]._install(v, device)
+                continue
+            p = self._parameters[k]
+            if tuple(v.shape) == tuple(p.shape):
+                p.copy_(v)
+            else:       # a core whose bonds changed: a new parameter of its shape
+                self.register_parameter(k, nn.Parameter(v.to(device, copy=True),
+                                                        requires_grad=False))
+
 
 class Model(_Tree):
     """The model of ``cfg``'s family, weights drawn from ``seed`` on the
@@ -118,10 +132,45 @@ class Model(_Tree):
     def decode_step(self, params, tokens, cache, phase: str = "decode"):
         return self.mod.decode_step(params, tokens, cache, self.cfg, phase=phase)
 
+    @torch.no_grad()
+    def set_tree(self, tree: dict) -> "Model":
+        """Install ``tree`` (a nested dict of tensors under the model's key
+        paths) as the parameters, on the model's device.  A leaf of the same
+        shape is copied into its parameter; an MPO core leaf (under a
+        ``cores`` dict) may change its bonds — its leading stack dims and
+        i/j legs stay — and replaces its parameter.  Any other difference
+        in key, shape or dtype raises before anything is written."""
+        src, dst = _flatten(tree), dict(self.named_parameters())
+        missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
+        if missing or extra:
+            raise KeyError(f"parameter trees differ: missing {missing}, extra {extra}")
+        for name, p in dst.items():
+            t = src[name]
+            same = tuple(t.shape) == tuple(p.shape)
+            core = ".cores." in f".{name}" and t.dim() == p.dim() >= 4
+            bonds_only = core and t.shape[:-4] == p.shape[:-4] and t.shape[-3:-1] == p.shape[-3:-1]
+            if t.dtype != p.dtype or not (same or bonds_only):
+                raise ValueError(f"{name}: the tree has {tuple(t.shape)} {t.dtype}, the model "
+                                 f"{tuple(p.shape)} {p.dtype} (only an MPO core's bonds may "
+                                 "change)")
+        self._install(tree, self.device)
+        return self
+
     def cache_weights(self, params: dict) -> dict:
         """Serving-time weight cache: contract decode-``cached`` matrices to
         dense W once (see ``MPOEngine.cache_weights``)."""
         return engine_for(self.cfg.mpo).cache_weights(params)
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    """{dotted key path: leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 def _to(tree: dict, device) -> dict:

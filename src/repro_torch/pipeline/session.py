@@ -1,28 +1,34 @@
 """``Session``: the stage-based lifecycle API — the port of
-``repro.pipeline.session``, fine-tuning and serving stages.
+``repro.pipeline.session``: conversion, fine-tuning, squeezing and serving.
 
-    Session.init(cfg, device=...)   fresh MPO-parameterized model
-        │
+    Session.from_dense(dense, cfg)  MPO-decompose a dense tree (Algorithm 1),
+        │                           per-matrix conversion error report
+        │   (or Session.init(cfg)   fresh MPO-parameterized model)
         ▼
     .finetune(mode="lfa")           trainability mask + masked optimizer +
         │                           train loop (auxiliary tensors only)
+        ▼
+    .squeeze(delta=...)             dimension squeezing (Algorithm 2): truncate
+        │                           the least-error bond, re-tune, evaluate on
+        │                           a fresh weight snapshot, stop on the gap
         ▼
     .serve(batch, max_len)          one-time init_serve (KV cache + cached-W
         │                           contraction) -> prefill/decode handle
         ▼
     .report()                       compression ratio, trainable reduction,
-                                    stage timings
+                                    conversion errors, squeeze events, stage
+                                    timings
 
 A densified weight-cache snapshot is only valid for the cores it was taken
-from: ``finetune`` bumps the weights version, so a later ``serve``
-re-densifies from the tuned cores.  The ``dense`` family
-runs every stage here; the ``ssm`` family (mamba2-130m) serves, and its
-fine-tuning waits for a backward of the SSD scan kernel.  Conversion and
-squeezing (``from_dense``, ``squeeze``), the serving pool and fleet, and
-persistence come with later slices of the port; those entry points raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.  The session's
-device is the card unless the caller passes ``device="cpu"``; there is no
-silent move to the CPU.
+from: ``finetune`` and ``squeeze`` bump the weights version, so a later
+``serve`` re-densifies from the current cores.  The ``dense`` family runs
+every stage here; the ``ssm`` family (mamba2-130m) serves, and its
+fine-tuning and squeezing wait for a backward of the SSD scan kernel.  The
+serving pool and fleet, and persistence (``save``/``restore`` and the
+squeeze journal, ``ckpt_dir``), come with later slices of the port; those
+entry points raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+The session's device is the card unless the caller passes ``device="cpu"``;
+there is no silent move to the CPU.
 """
 
 from __future__ import annotations
@@ -36,8 +42,8 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.core import layers as L
-from repro_torch.core import lightweight
+from repro_torch.core import carry, convert, lightweight
+from repro_torch.core import squeeze as squeeze_mod
 from repro_torch.core.engine import engine_for
 from repro_torch.data.pipeline import SyntheticCLS, make_batch_fn
 from repro_torch.models import model as M
@@ -149,6 +155,8 @@ class Session:
         self._serve: dict[tuple, ServeHandle] = {}
         self.mask = None                  # last trainability mask
         self._loss_default: Callable | None = None
+        self.conversion_report: dict = {}  # matrix path -> relative error
+        self.squeeze_history: list = []
 
     @property
     def params(self) -> dict:
@@ -179,11 +187,29 @@ class Session:
         return s
 
     @classmethod
-    def from_dense(cls, *args, **kwargs):
-        _not_yet("Session.from_dense (Algorithm 1 conversion)", "item 2")
-
-    def squeeze(self, *args, **kwargs):
-        _not_yet("Session.squeeze (Algorithm 2)", "item 2")
+    def from_dense(cls, dense_params: dict, cfg: ModelConfig, *, report: bool = True,
+                   device=None) -> "Session":
+        """The paper's workflow: MPO-decompose a *pretrained* dense tree
+        (Algorithm 1) into this config's core layout (bond-truncated per the
+        config), on ``device`` (the card when None), with a per-matrix
+        relative reconstruction error report (Eq. 4 drift).
+        ``dense_params`` is the tree of the same architecture built with
+        ``MPOConfig(enabled=False)``, as tensors or numpy arrays; the MPO
+        model built here gives the core shapes, and its drawn values are
+        replaced."""
+        t0 = time.perf_counter()
+        model = M.build(cfg, device=device)
+        dense = lightweight.tree_map(lambda t: carry.to_tensor(t).to(model.device),
+                                     dense_params)
+        with torch.no_grad():
+            model.set_tree(convert.convert_dense_to_mpo(dense, model.tree()))
+        s = cls(cfg, model)
+        if report:
+            s.conversion_report = convert.conversion_error(dense, s.params)
+        errs = s.conversion_report
+        s._record("from_dense", t0, {"matrices": len(errs),
+                                     "max_rel_err": max(errs.values(), default=0.0)})
+        return s
 
     def serve_pool(self, *args, **kwargs):
         _not_yet("Session.serve_pool", "item 4")
@@ -309,6 +335,71 @@ class Session:
             vals.append(float(m["acc"]) if "acc" in m else -float(m["loss"]))
         return float(np.mean(vals))
 
+    # ---- squeeze ----
+
+    def squeeze(self, *, delta: float = 0.05, max_iters: int = 8, step: int = 1,
+                min_bond: int = 1, finetune_steps: int = 12, lr: float = 1e-3,
+                mode: str = "lfa", seq_len: int = 32, batch_size: int = 16, seed: int = 0,
+                eval_fn: Callable | None = None, loss_fn: Callable | None = None,
+                batch_fn: Callable | None = None, weight_cache: bool = True,
+                ckpt_dir: str | None = None, verbose: bool = False) -> list:
+        """Dimension squeezing (paper Algorithm 2): repeatedly truncate the
+        least-error bond, re-tune the auxiliary tensors for
+        ``finetune_steps`` steps, stop when the metric gap exceeds
+        ``delta``.  Every evaluation runs on a freshly contracted weight
+        snapshot (``weight_cache=True``); the accepted tree is installed
+        when the loop ends (``Model.set_tree``, bonds changed) and any
+        serving snapshot taken before is invalidated.  Each event's
+        ``seconds`` splits its iteration into spectra, tt_round, retune and
+        eval.  ``ckpt_dir`` (the squeeze journal) comes with persistence
+        (ROADMAP.md, Queue 1 item 3); the ``ssm`` family raises, its re-tune
+        needing a backward of the SSD scan kernel (item 10)."""
+        if self.cfg.family == "ssm":
+            _not_yet("Session.squeeze of the ssm family (its re-tune needs a backward "
+                     "for the SSD scan kernel)", "item 10")
+        if ckpt_dir:
+            _not_yet("Session.squeeze(ckpt_dir=...) (the squeeze journal)", "item 3")
+        t0 = time.perf_counter()
+        loss_fn = loss_fn or self._default_loss_fn()
+        batch_fn = batch_fn or self._default_batch_fn(seq_len, batch_size, seed)
+        if eval_fn is None:
+            eval_fn = lambda p: self.evaluate(p, loss_fn=loss_fn, batch_fn=batch_fn)
+        rho0 = squeeze_mod.model_compression_ratio(self.params)
+
+        def finetune_fn(p):
+            return self._tune_params(p, steps=finetune_steps, lr=lr, mode=mode,
+                                     loss_fn=loss_fn, batch_fn=batch_fn)
+
+        best, history = squeeze_mod.run_dimension_squeezing(
+            self.params, finetune_fn, eval_fn, delta=delta, max_iters=max_iters, step=step,
+            min_bond=min_bond, verbose=verbose,
+            weight_cache=self.engine.cache_weights if weight_cache else None)
+        self.model.set_tree(best)
+        self._bump()
+        self.squeeze_history.extend(history)
+        self._record("squeeze", t0, {
+            "events": len(history), "delta": delta, "rho_before": rho0,
+            "rho_after": squeeze_mod.model_compression_ratio(self.params)})
+        return history
+
+    def _tune_params(self, params, *, steps: int, lr: float, mode: str,
+                     loss_fn: Callable, batch_fn: Callable, batch_offset: int = 2000):
+        """Short LFA re-tune of an explicit tree (the inner loop of
+        Algorithm 2), no stage record, no version bump (the enclosing
+        ``squeeze`` owns both).  The optimizer updates in place, so it
+        trains a copy: the tree it was given, whose leaves the accepted tree
+        shares, is never written."""
+        if steps <= 0:
+            return params
+        params = lightweight.tree_map(lambda t: t.detach().clone(), params)
+        mask = lightweight.trainable_mask(params, mode=mode)
+        opt = optimizers.adamw(lr, weight_decay=0.0, mask=mask)
+        step_fn = make_train_step(self.model, opt, loss_fn=loss_fn)
+        state = TrainState(params, opt.init(params))
+        for i in range(steps):
+            state, _ = step_fn(state, self._to_device(batch_fn(batch_offset + i)))
+        return state.params
+
     # ---- serve ----
 
     def serve(self, batch_size: int, max_len: int, *, weight_cache: bool = True,
@@ -353,27 +444,14 @@ class Session:
             tr, tot = lightweight.count_trainable(self.params, self.mask)
             out["trainable"] = tr
             out["trainable_reduction"] = 1.0 - tr / max(tot, 1)
+        if self.conversion_report:
+            errs = list(self.conversion_report.values())
+            out["conversion_max_rel_err"] = max(errs)
+            out["conversion_mean_rel_err"] = float(np.mean(errs))
+        if self.squeeze_history:
+            out["squeeze_events"] = len(self.squeeze_history)
         return out
 
 
-def compression_ratio(params) -> float:
-    """Aggregate Eq. 5 rho: core parameters over the dense parameters of the
-    same matrices, each stacked layer counted as its own matrix."""
-    num = den = 0
-
-    def visit(node):
-        nonlocal num, den
-        if not isinstance(node, dict):
-            return
-        if "cores" in node:
-            cores = L.cores_to_list(node["cores"])
-            stack = cores[0].shape[:-4].numel()
-            num += sum(c.numel() for c in cores)
-            den += stack * (torch.Size(c.shape[-3] for c in cores).numel()
-                            * torch.Size(c.shape[-2] for c in cores).numel())
-            return
-        for v in node.values():
-            visit(v)
-
-    visit(params)
-    return num / max(den, 1)
+# Eq. 5 rho over every factorized matrix, each layer of a stack its own
+compression_ratio = squeeze_mod.model_compression_ratio

@@ -32,6 +32,7 @@ from repro.kernels.ref import mpo_linear_ref
 from repro.kernels.ref import ssd_scan_ref as j_ssd_scan_ref
 from repro.kernels.ssd_scan import ssd_scan as j_ssd_scan
 from repro_torch import configs
+from repro_torch.core import mpo as TM
 from repro_torch.kernels import decode_attention as TDA
 from repro_torch.kernels import mpo_linear as TMK
 from repro_torch.kernels import ssd_scan as TSSD
@@ -338,6 +339,68 @@ def test_cuda_mpo_linear_bwd_cores_other_shapes(cuda):
             for g, r in zip(got, TMK.mpo_linear_bwd_cores_plain(cs, xx, dd)):
                 r = r.float()
                 assert (g.float() - r).abs().max() <= tol * r.abs().max(), (s, dtype)
+
+
+def _squeezed_shapes():
+    """bert-base matrices with one bond truncated as Algorithm 2 leaves it:
+    odd bonds 63 (attn's split bond s = 3, w_down's bond 1), 39 (the
+    embedding's bond 1), 15 (w_up's last bond) and 17 (w_down's first)."""
+    mats = _bert_matrix_shapes()
+
+    def cut(name, k, new):
+        s = [list(c) for c in mats[name]]
+        s[k][3] = s[k + 1][0] = new
+        return [tuple(c) for c in s]
+
+    return {"attn bond 2 = 63": cut("wq", 2, 63), "w_down bond 1 = 63": cut("w_down", 1, 63),
+            "embed bond 1 = 39": cut("embed", 1, 39), "w_up bond 3 = 15": cut("w_up", 3, 15),
+            "w_down bond 0 = 17": cut("w_down", 0, 17)}
+
+
+def test_plans_take_the_squeezed_bonds():
+    """Both kernels' plans take every squeezed shape in both orientations
+    (the engine would send them to ``reconstruct`` otherwise)."""
+    for name, s in _squeezed_shapes().items():
+        t = [(d0, j, i, d1) for d0, i, j, d1 in s]
+        for dtype in ("float32", "bfloat16"):
+            assert TMK.forward_kernel(s, dtype) == TMK.forward_kernel(t, dtype) == "mma", name
+            assert TMK.kernel_eligible(s, dtype=dtype, train=True), name
+
+
+@pytest.mark.cuda
+def test_cuda_mpo_linear_at_squeezed_bonds(cuda):
+    """The forward (over W and W^T) and the cores backward at the odd bonds
+    squeezing leaves, both dtypes, M = 37 and 2048, against the plain
+    versions; two launches bit-identical.  Tolerances are ``chip_smoke.py``'s
+    ``TOL``, the embedding's W (a sum over I = 30720) included."""
+    for name, s in _squeezed_shapes().items():
+        rng = np.random.default_rng(0)
+        cores = [torch.from_numpy((rng.standard_normal(c) * 0.35).astype(np.float32))
+                 for c in s]
+        i_dim = math.prod(c[1] for c in s)
+        j_dim = math.prod(c[2] for c in s)
+        for m in (37, 2048):
+            x = torch.from_numpy(rng.standard_normal((m, i_dim)).astype(np.float32))
+            dy = torch.from_numpy(rng.standard_normal((m, j_dim)).astype(np.float32))
+            for dtype in (torch.float32, torch.bfloat16):
+                tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+                cs = [c.to(cuda, dtype) for c in cores]
+                xx, dd = x.to(cuda, dtype), dy.to(cuda, dtype)
+                for form, ws, inp in (("W", cs, xx), ("W^T", TM.transpose_cores(cs), dd)):
+                    ws = [w.contiguous() for w in ws]
+                    y, again = TMK.mpo_linear(ws, inp), TMK.mpo_linear(ws, inp)
+                    torch.cuda.synchronize()
+                    assert torch.equal(y, again), (name, form, m, dtype)
+                    ref = TMK.mpo_linear_plain(ws, inp).float()
+                    assert (y.float() - ref).abs().max() <= tol * ref.abs().max(), (
+                        name, form, m, dtype)
+                got = TMK.mpo_linear_bwd_cores(cs, xx, dd)
+                again = TMK.mpo_linear_bwd_cores(cs, xx, dd)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), (name, m, dtype)
+                for g, r in zip(got, TMK.mpo_linear_bwd_cores_plain(cs, xx, dd)):
+                    r = r.float()
+                    assert (g.float() - r).abs().max() <= tol * r.abs().max(), (name, m, dtype)
 
 
 # --------------------------------------------------------------------------
