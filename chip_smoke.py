@@ -94,9 +94,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and three squeeze moves on the card and on the CPU, the same
    (layer, bond, new_dim) sequence, predicted errors and reconstructions
    within 1e-4.
-7. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+7. persistence — full-width bert-base (bf16) preempted and resumed:
+   (a) ``finetune(mode="lfa")`` at 16 x 128, 8 steps, uninterrupted, and
+   preempted at step 4 (``FaultPlan(preempt_finetune_step=4)``: the drain
+   save is step 4) then resumed: parameters and AdamW state bit-identical,
+   both MPO-linear kernels launched in the resumed run, no plain version;
+   one save's seconds and bytes, and the step time with a checkpoint every
+   2 steps beside none; (b) the squeeze journal: phase 6's squeeze settings,
+   ``max_iters=3``, uninterrupted from a cloned start, and preempted at
+   iteration 1 then resumed: the same history (all but ``seconds``), tree
+   bit-identical, rho equal, each journal record's seconds; (c)
+   ``Session.save`` of the squeezed session and ``Session.restore`` on the
+   card: stage, version, records, mask and every leaf equal, ``serve(8,
+   160, paged=True)`` both ways giving the saved session's greedy tokens
+   (flash with the weight cache, the forward kernel without), and every
+   leaf of a ``device="cpu"`` restore bit-equal; save and restore seconds,
+   restore to the first served token, the directory's MB; (d) full-width
+   mamba2-130m saved, restored and served cached, ``serve(8, 544)`` on
+   phase 3's prompts: the same greedy tokens, the SSD scan launched; (e)
+   crash consistency: a crash at ``mid_write`` and at ``pre_latest`` of a
+   later save into (c)'s directory leaves a restore at the first save, and
+   two transient I/O errors are retried away.  Temporary directories,
+   removed at the end.
+8. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
    squeezed shapes' times are phase 6's records).
-8. last line: ``{"ok": true, "device": {...}}``.
+9. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -107,8 +129,10 @@ import ctypes
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1357,7 +1381,269 @@ def main() -> int:
     if not (perr <= CPU_TOL and rdiff <= CPU_TOL):
         fail(f"squeeze card vs cpu: predicted errors {perr}, reconstructions {rdiff}")
 
-    # ---- 7. the kernels line: one entry per kernel and dtype ----
+    # ---- 7. persistence: preempted and resumed, saved and restored ----
+    from repro_torch.checkpoint import manager as CKM
+    from repro_torch.resilience import faults as FLT
+    from repro_torch.resilience.journal import SqueezeJournal
+
+    def kernel_counts():
+        return {"mpo_linear_fwd_mma": MK.mpo_linear_mma.launches,
+                "mpo_linear_bwd_cores": MK.mpo_linear_bwd_cores.launches,
+                "flash_decode_attention": DA.flash_decode_attention.launches,
+                "ssd_scan": SSD.ssd_scan.launches}
+
+    def plain_and_cuda_core():
+        return (MK.mpo_linear_plain.calls + MK.mpo_linear_bwd_cores_plain.calls
+                + DA.flash_decode_attention_plain.calls + SSD.ssd_scan_plain.calls
+                + MK.mpo_linear_cuda_core.launches)
+
+    def zero_all():
+        for fn, attr in train_counters:
+            setattr(fn, attr, 0)
+
+    def fold(path, counts, need):
+        """Fail unless every kernel of ``need`` launched and nothing else
+        ran (plain versions, the CUDA-core forward); add the launches to the
+        kernels line."""
+        other = plain_and_cuda_core()
+        if any(counts[k] == 0 for k in need) or other:
+            fail(f"{path}: launches {counts}, plain-version or CUDA-core calls {other}")
+        for k, v in counts.items():
+            if v:
+                path_launches[k] = path_launches.get(k, 0) + v
+                by_path.setdefault(k, {})[path] = v
+
+    def params_of(sess):
+        return {k: v.detach().clone() for k, v in sess.model.state_dict().items()}
+
+    def same(p, q):
+        return p.keys() == q.keys() and all(
+            p[k].shape == q[k].shape and p[k].dtype == q[k].dtype
+            and torch.equal(p[k], q[k].to(p[k].device)) for k in p)
+
+    def dir_bytes(d):
+        return sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+
+    def expect_raise(exc, fn, what):
+        try:
+            fn()
+        except exc:
+            return
+        fail(f"{what} did not raise {exc.__name__}")
+
+    p_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_persistence_"))
+    try:
+        # (a) fine-tuning checkpoint/resume: 8 LFA steps at 16 x 128
+        ft = dict(mode="lfa", seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=SEED,
+                  log_every=1)
+        step_ms = {}
+        tsess = Session.init("bert-base", smoke=False, seed=SEED)
+        for name, kw in (("none", {}), ("every_2", dict(ckpt_dir=str(tmp / "every2"),
+                                                        ckpt_every=2)), ("none_again", {})):
+            t0 = sync_clock()
+            tsess.finetune(steps=TRAIN_STEPS, **ft, **kw)
+            step_ms[name] = 1e3 * (sync_clock() - t0) / TRAIN_STEPS
+        kept = CKM.CheckpointManager(str(tmp / "every2")).all_steps()
+        opt = OPT.adamw(2e-3, mask=lightweight.trainable_mask(tsess.params, mode="lfa"))
+        st = TS.TrainState(tsess.params, opt.init(tsess.params))
+        t0 = sync_clock()
+        CKM._flatten(st)
+        snapshot_s = sync_clock() - t0
+        t0 = sync_clock()
+        CKM.CheckpointManager(str(tmp / "one"), async_save=False).save(1, st, block=True)
+        save_s = sync_clock() - t0
+        save_bytes = dir_bytes(tmp / "one" / "step_1")
+        del tsess, st, opt
+
+        a = Session.init("bert-base", smoke=False, seed=SEED)
+        a.finetune(steps=TRAIN_STEPS, ckpt_dir=str(tmp / "ft_a"), **ft)
+        b = Session.init("bert-base", smoke=False, seed=SEED)
+        with FLT.fault_scope(FLT.FaultPlan(preempt_finetune_step=4)):
+            expect_raise(FLT.Preemption, lambda: b.finetune(
+                steps=TRAIN_STEPS, ckpt_dir=str(tmp / "ft_b"), **ft), "preempted finetune")
+        drained = CKM.CheckpointManager(str(tmp / "ft_b")).latest_step()
+        zero_all()
+        t0 = sync_clock()
+        b.finetune(steps=TRAIN_STEPS, ckpt_dir=str(tmp / "ft_b"), **ft)
+        resume_s = sync_clock() - t0
+        counts = kernel_counts()
+        fold("persistence bert-base finetune resumed", counts,
+             ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"))
+        with np.load(tmp / "ft_a" / "step_8" / "arrays.npz") as za, \
+                np.load(tmp / "ft_b" / "step_8" / "arrays.npz") as zb:
+            keys = sorted(za.files)
+            differ = [k for k in keys if not np.array_equal(za[k], zb[k])]
+            opt_keys = sum(k.startswith(".opt_state/.inner/") for k in keys)
+            same_keys = keys == sorted(zb.files)
+        params_equal = same(params_of(a), params_of(b))
+        emit(phase="persistence", step="finetune resume", arch="bert-base", dtype=b.cfg.dtype,
+             batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS, preempted_at=4,
+             latest_step_after_preemption=drained, resumed_s=resume_s,
+             launches_resumed={k: counts[k] for k in ("mpo_linear_fwd_mma",
+                                                       "mpo_linear_bwd_cores")},
+             arrays=len(keys), optimizer_arrays=opt_keys, arrays_differing=differ,
+             params_bit_identical=params_equal, save_s=save_s, snapshot_s=snapshot_s,
+             save_bytes=save_bytes, ms_per_step=step_ms, ckpt_every_2_steps_kept=kept)
+        if drained != 4:
+            fail(f"preempted finetune: latest step {drained}, expected 4")
+        if not same_keys or differ or not opt_keys or not params_equal:
+            fail(f"finetune resume: arrays differing from the uninterrupted run {differ}, "
+                 f"same keys {same_keys}, params bit-identical {params_equal}")
+        del a
+
+        # (b) the squeeze journal, phase 6's settings, three iterations
+        sq = dict(step=1, max_iters=3, finetune_steps=LIFE_STEPS, seq_len=TRAIN_SEQ,
+                  batch_size=TRAIN_BATCH, delta=1.0)
+        u = Session.init("bert-base", smoke=False, seed=SEED)
+        u.model.set_tree(clone(b.params))
+        t0 = sync_clock()
+        hist_u = u.squeeze(**sq)
+        uninterrupted_s = sync_clock() - t0
+        record_s, record = [], SqueezeJournal.record
+
+        def timed_record(self, *args):
+            t = sync_clock()
+            record(self, *args)
+            record_s.append(sync_clock() - t)
+
+        SqueezeJournal.record = timed_record
+        try:
+            jdir = str(tmp / "journal")
+            t0 = sync_clock()
+            with FLT.fault_scope(FLT.FaultPlan(preempt_squeeze_iter=1)):
+                expect_raise(FLT.Preemption, lambda: b.squeeze(ckpt_dir=jdir, **sq),
+                             "preempted squeeze")
+            preempted_s = sync_clock() - t0
+            journaled = CKM.CheckpointManager(jdir).latest_step()
+            zero_all()
+            t0 = sync_clock()
+            hist_b = b.squeeze(ckpt_dir=jdir, **sq)
+            resumed_sq_s = sync_clock() - t0
+        finally:
+            SqueezeJournal.record = record
+        counts = kernel_counts()
+        fold("persistence bert-base squeeze resumed", counts,
+             ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"))
+        tree_equal = same(params_of(u), params_of(b))
+        rho = (SQ.model_compression_ratio(u.params), SQ.model_compression_ratio(b.params))
+        emit(phase="persistence", step="squeeze journal", arch="bert-base", iterations=3,
+             preempted_at=1, journal_latest_after_preemption=journaled,
+             events=[("/".join(e.layer[:-1]), e.bond, e.new_dim, e.metric) for e in hist_b],
+             history_equal=hist_b == hist_u, tree_bit_identical=tree_equal, rho=rho,
+             record_s=record_s, uninterrupted_s=uninterrupted_s, preempted_s=preempted_s,
+             resumed_s=resumed_sq_s,
+             launches_resumed={k: counts[k] for k in ("mpo_linear_fwd_mma",
+                                                       "mpo_linear_bwd_cores")})
+        if journaled != 1 or len(hist_u) != 3 or hist_b != hist_u:
+            fail(f"squeeze resume: journal at {journaled}, histories {hist_b} vs {hist_u}")
+        if not tree_equal or rho[0] != rho[1]:
+            fail(f"squeeze resume: tree bit-identical {tree_equal}, rho {rho}")
+        del u
+
+        # (c) Session.save / Session.restore of the squeezed session
+        sdir = str(tmp / "session")
+        t0 = sync_clock()
+        b.save(sdir)
+        sess_save_s = sync_clock() - t0
+        sess_bytes = dir_bytes(sdir)
+        t0 = sync_clock()
+        r = Session.restore(sdir)
+        restore_s = sync_clock() - t0
+        # what the restore holds, read before serving adds a stage record
+        state_equal = {
+            "stage": r.stage == b.stage, "weights_version": r.weights_version == b.weights_version,
+            "records": r._records == b._records, "mask": r.mask == b.mask,
+            "squeeze_history": r.squeeze_history == b.squeeze_history,
+            "conversion_report": r.conversion_report == b.conversion_report}
+        first = torch.argmax(r.serve(BATCH, LIFE_MAX_LEN, paged=True)
+                             .prefill({"tokens": prompts})[:, -1], -1)
+        first_token_s = sync_clock() - t0
+        saved_params = params_of(b)
+        state_equal["leaves"] = same(params_of(r), saved_params)
+        served = {}
+        for wc in (True, False):
+            want = b.serve(BATCH, LIFE_MAX_LEN, paged=True, weight_cache=wc).generate(
+                {"tokens": prompts}, NEW_TOKENS)
+            zero_all()
+            got = r.serve(BATCH, LIFE_MAX_LEN, paged=True, weight_cache=wc).generate(
+                {"tokens": prompts}, NEW_TOKENS)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            fold(f"persistence bert-base restored serve weight_cache={wc}", counts,
+                 ("flash_decode_attention",) + (() if wc else ("mpo_linear_fwd_mma",)))
+            served[f"weight_cache={wc}"] = dict(tokens_equal=torch.equal(got, want),
+                                                first_token_equal=torch.equal(
+                                                    first.int(), want[:, 0]) if wc else None,
+                                                launches=counts)
+        t0 = sync_clock()
+        rc = Session.restore(sdir, device="cpu")
+        cpu_restore_s = sync_clock() - t0
+        cpu_equal = rc.device.type == "cpu" and same(params_of(rc), saved_params)
+        del rc
+        emit(phase="persistence", step="session save/restore", arch="bert-base",
+             save_s=sess_save_s, restore_s=restore_s, restore_to_first_token_s=first_token_s,
+             cpu_restore_s=cpu_restore_s, directory_mb=sess_bytes / 1e6, equal=state_equal,
+             served=served, cpu_restore_bit_equal=cpu_equal)
+        if not all(state_equal.values()) or not cpu_equal:
+            fail(f"session restore: {state_equal}, cpu restore bit-equal {cpu_equal}")
+        if not all(v["tokens_equal"] for v in served.values()) \
+                or not served["weight_cache=True"]["first_token_equal"]:
+            fail(f"restored session's greedy tokens differ: {served}")
+
+        # (d) mamba2-130m: saved, restored, served cached
+        ms = Session.init("mamba2-130m", smoke=False, seed=SEED)
+        mdir = str(tmp / "mamba")
+        t0 = sync_clock()
+        ms.save(mdir)
+        m_save_s = sync_clock() - t0
+        t0 = sync_clock()
+        mr = Session.restore(mdir)
+        m_restore_s = sync_clock() - t0
+        want = ms.serve(MAMBA_BATCH, MAMBA_MAX_LEN, weight_cache=True).generate(
+            {"tokens": mprompts}, NEW_TOKENS)
+        zero_all()
+        got = mr.serve(MAMBA_BATCH, MAMBA_MAX_LEN, weight_cache=True).generate(
+            {"tokens": mprompts}, NEW_TOKENS)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        fold("persistence mamba2-130m restored serve weight_cache=True", counts, ("ssd_scan",))
+        m_equal = same(params_of(mr), params_of(ms))
+        emit(phase="persistence", step="mamba2-130m save/restore", save_s=m_save_s,
+             restore_s=m_restore_s, directory_mb=dir_bytes(mdir) / 1e6, leaves_equal=m_equal,
+             tokens_equal=torch.equal(got, want), launches=counts)
+        if not m_equal or not torch.equal(got, want):
+            fail(f"mamba2-130m restore: leaves equal {m_equal}, tokens equal "
+                 f"{torch.equal(got, want)}")
+        del ms, mr
+
+        # (e) crash consistency: a later save into (c)'s directory, crashed
+        b.finetune(steps=1, **ft)                    # a later weights version
+        crashes = {}
+        for where in ("mid_write", "pre_latest"):
+            with FLT.fault_scope(FLT.FaultPlan(crash_ckpt=where)):
+                expect_raise(FLT.CrashPoint, lambda: b.save(sdir), f"crash at {where}")
+            back = Session.restore(sdir)
+            crashes[where] = (back.weights_version, same(params_of(back), saved_params))
+        plan = FLT.FaultPlan(io_errors={"ckpt": 2})
+        with FLT.fault_scope(plan):
+            b.save(sdir)
+        back = Session.restore(sdir)
+        io_ok = (plan.io_errors["ckpt"] == 0 and back.weights_version == b.weights_version
+                 and same(params_of(back), params_of(b)))
+        emit(phase="persistence", step="crash consistency", first_save_version=r.weights_version,
+             later_version=b.weights_version,
+             restored_after_crash={k: {"version": v, "first_save_bits": e}
+                                   for k, (v, e) in crashes.items()},
+             io_errors_absorbed=io_ok)
+        if any(v != r.weights_version or not e for v, e in crashes.values()) or not io_ok:
+            fail(f"crash consistency: after crashes {crashes}, after I/O errors {io_ok}")
+        del b, r, back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="persistence", s=time.perf_counter() - p_t0)
+
+    # ---- 8. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,
@@ -1384,7 +1670,7 @@ def main() -> int:
               "src/repro/kernels/decode_attention.py:166", fk,
               "bert-base geometry KV=12 G=1 Dh=64 ps=16, 8 slots at 144 keys, bfloat16",
               path_launches["flash_decode_attention"], splits=fk["splits"],
-              prev_ms=fk["prev_ms"]),
+              prev_ms=fk["prev_ms"], launches_by_path=by_path["flash_decode_attention"]),
         entry("mpo_linear_bwd_cores", "cuda", *bwd, results[("bwd", "attn", tokens, "bfloat16")],
               f"bert-base attention matrix, M={tokens} (16 x 128 fine-tuning tokens), bfloat16",
               path_launches["mpo_linear_bwd_cores"], launches_per_call=MK.BWD_KERNELS,
@@ -1396,7 +1682,7 @@ def main() -> int:
         entry("ssd_scan", "cuda", *ssd, results[("ssd", "path", "bfloat16")],
               f"mamba2-130m prefill: B={MAMBA_BATCH} S={MAMBA_PROMPT} H=24 P=64 N=128, "
               "chunk 128, bfloat16", path_launches["ssd_scan"],
-              launches_per_call=SSD.SSD_KERNELS,
+              launches_per_call=SSD.SSD_KERNELS, launches_by_path=by_path["ssd_scan"],
               launch_ms=results[("ssd", "path", "bfloat16")]["launch_ms"]),
         entry("ssd_scan", "cuda", *ssd, results[("ssd", "path", "float32")],
               f"mamba2-130m prefill: B={MAMBA_BATCH} S={MAMBA_PROMPT}, float32 (launches: the "

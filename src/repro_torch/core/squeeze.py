@@ -6,9 +6,9 @@ whose next truncation predicts the least added reconstruction error (from
 the bond spectra, Eq. 3); (2) truncate that bond by ``step`` (TT-rounding);
 (3) lightweight-fine-tune the auxiliary tensors; (4) stop when the metric gap
 exceeds ``delta`` or ``max_iters`` is reached.  Stacked ``(L, ...)`` cores are
-handled as one batch a bond, on their device.  The chaos harness's
-preemption hook (``faults.step_tick``) comes with the serving front end's
-resilience modules (ROADMAP.md, Queue 1 item 4).
+handled as one batch a bond, on their device.  ``faults.step_tick`` at the
+top of every iteration is the chaos harness's preemption hook; a preempted
+run resumes from its journal (``resilience.journal.SqueezeJournal``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import mpo
 from repro_torch.core.layers import cores_from_list, cores_to_list
 from repro_torch.core.lightweight import leaves
+from repro_torch.resilience import faults
 
 # ---- locating MPO layers inside a nested-dict param tree ----
 
@@ -67,8 +68,9 @@ class SqueezeEvent:
     new_dim: int
     predicted_error: float
     metric: float
-    # wall seconds of the iteration's parts: spectra, tt_round, retune, eval
-    seconds: dict = dataclasses.field(default_factory=dict)
+    # wall seconds of the iteration's parts: spectra, tt_round, retune, eval;
+    # not compared: two runs of the same iteration are equal events
+    seconds: dict = dataclasses.field(default_factory=dict, compare=False)
 
 
 def _eps_for(spectra_k: torch.Tensor, keep: int) -> torch.Tensor:
@@ -135,7 +137,9 @@ def squeeze_once(params, *, step: int = 1, min_bond: int = 1):
     # stacked: the same bond truncated across the whole stack (uniform bonds
     # keep the stack homogeneous)
     new_cores, _ = mpo.tt_round(cores, new_bonds)
-    new_cores = [c.to(cores[i].dtype) for i, c in enumerate(new_cores)]
+    # contiguous, as a tree read back from a journal is: a resumed run then
+    # feeds every op the layout the uninterrupted run fed it
+    new_cores = [c.to(cores[i].dtype).contiguous() for i, c in enumerate(new_cores)]
     params = set_at_path(params, path, cores_from_list(new_cores))
     t2 = _clock(params)
     return params, dict(layer=path, bond=k, new_dim=new_bonds[k], predicted_error=eps,
@@ -153,6 +157,9 @@ def run_dimension_squeezing(
     min_bond: int = 1,
     verbose: bool = False,
     weight_cache: Callable | None = None,
+    start_iter: int = 0,
+    initial_history: list | None = None,
+    baseline_metric: float | None = None,
     on_iteration: Callable | None = None,
 ):
     """Paper Algorithm 2.  Returns (params, history).
@@ -164,14 +171,21 @@ def run_dimension_squeezing(
     exceeds ``delta`` the last acceptable tree is returned: the rejected
     tree is a new one (``squeeze_once`` copies the path it changes, and
     ``finetune_fn`` must not write into the tree it is given), so the
-    accepted one is never touched.  ``on_iteration(it, params, history,
-    baseline)`` fires after every ACCEPTED iteration.  Resuming a journaled
-    run comes with the journal (ROADMAP.md, Queue 1 item 3)."""
+    accepted one is never touched.
+
+    Resumability (``resilience.journal.SqueezeJournal`` /
+    ``Session.squeeze(ckpt_dir=...)``): ``on_iteration(it, params, history,
+    baseline)`` fires after every ACCEPTED iteration; a preempted run passes
+    the journaled ``start_iter`` / ``initial_history`` / ``baseline_metric``
+    (and the journaled params) back in and continues at the last completed
+    iteration.  A given baseline skips the p0 evaluation: re-evaluating it
+    on already-squeezed params would corrupt the stop rule."""
     ev = eval_fn if weight_cache is None else (lambda p: eval_fn(weight_cache(p)))
-    history: list[SqueezeEvent] = []
-    p0 = float(ev(params))
+    history: list[SqueezeEvent] = list(initial_history or [])
+    p0 = float(baseline_metric) if baseline_metric is not None else float(ev(params))
     best_params = params
-    for it in range(max_iters):
+    for it in range(start_iter, max_iters):
+        faults.step_tick("squeeze", it)
         new_params, info = squeeze_once(params, step=step, min_bond=min_bond)
         if info is None:
             break

@@ -23,12 +23,14 @@ A densified weight-cache snapshot is only valid for the cores it was taken
 from: ``finetune`` and ``squeeze`` bump the weights version, so a later
 ``serve`` re-densifies from the current cores.  The ``dense`` family runs
 every stage here; the ``ssm`` family (mamba2-130m) serves, and its
-fine-tuning and squeezing wait for a backward of the SSD scan kernel.  The
-serving pool and fleet, and persistence (``save``/``restore`` and the
-squeeze journal, ``ckpt_dir``), come with later slices of the port; those
-entry points raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
-The session's device is the card unless the caller passes ``device="cpu"``;
-there is no silent move to the CPU.
+fine-tuning and squeezing wait for a backward of the SSD scan kernel.
+``save`` / ``restore`` persist the whole session (``resilience.state``), and
+``ckpt_dir`` makes ``finetune`` (checkpoint/resume) and ``squeeze`` (the
+iteration journal) resumable after a preemption.  The serving pool and fleet
+come with a later slice of the port; those entry points raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.  The session's
+device is the card unless the caller passes ``device="cpu"``; there is no
+silent move to the CPU.
 """
 
 from __future__ import annotations
@@ -217,12 +219,36 @@ class Session:
     def serve_fleet(self, *args, **kwargs):
         _not_yet("Session.serve_fleet", "item 4")
 
-    def save(self, *args, **kwargs):
-        _not_yet("Session.save", "item 3")
+    # ---- persistence ----
+
+    def save(self, directory: str) -> str:
+        """Persist the FULL session under ``directory`` — weights (atomic
+        ``CheckpointManager`` step dirs), stage records, squeeze history,
+        trainability mask, conversion report and weights version — behind
+        one atomically written manifest (``resilience.state``, the
+        reference's layout): a crash at any point leaves the directory at
+        either the previous complete session or the new one.  Returns the
+        directory.  Example::
+
+            session.save("runs/compressed")
+            ...                              # preemption / new process
+            s = Session.restore("runs/compressed")
+            s.serve(8, 64)                   # token-identical serving
+        """
+        from repro_torch.resilience import state as rstate  # lazy
+        return rstate.save_session(self, directory)
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        _not_yet("Session.restore", "item 3")
+    def restore(cls, directory: str, *, device=None) -> "Session":
+        """Rebuild a session from ``save(directory)`` (or from the JAX
+        package's ``Session.save``) on ``device`` — the card when None,
+        raising if there is none: the model from the serialized config,
+        the weights (squeezed bonds included) from the manifest's
+        checkpoint step, and the lifecycle state (stage, records, squeeze
+        history, mask, weights version) from the manifest, so the restored
+        session reports and serves exactly like the one that was saved."""
+        from repro_torch.resilience import state as rstate  # lazy
+        return rstate.restore_session(directory, cls=cls, device=device)
 
     # ---- bookkeeping ----
 
@@ -271,7 +297,7 @@ class Session:
                  batch_size: int = 16, seed: int = 0, mask=None,
                  optimizer=None, loss_fn: Callable | None = None,
                  batch_fn: Callable | None = None, ckpt_dir: str | None = None,
-                 log_every: int = 50, donate: bool = False,
+                 ckpt_every: int = 100, log_every: int = 50, donate: bool = False,
                  verbose: bool = False) -> dict:
         """Lightweight fine-tuning (paper §4.1): the trainability mask
         (``mode="lfa"`` freezes the central tensors), a masked AdamW (frozen
@@ -279,8 +305,10 @@ class Session:
         loop.  Every MPO matmul of the step runs through the engine's
         ``train``-phase plan — on the card the fused MPO-linear kernels,
         forward and backward.  The parameters update in place, so ``donate``
-        has nothing to do and is accepted for the reference's signature;
-        ``ckpt_dir`` comes with persistence (ROADMAP.md, Queue 1 item 3).
+        has nothing to do and is accepted for the reference's signature.
+        ``ckpt_dir`` enables checkpoint/resume (an async save every
+        ``ckpt_every`` steps, a blocking one at the end and on preemption;
+        a rerun with the same ``ckpt_dir`` resumes at its latest step).
         Returns a stage report with the loss history.  The ``ssm`` family
         raises: its SSD scan kernel has no backward yet (ROADMAP.md, Queue 1
         item 10), and the plain version may not stand in for it on the card."""
@@ -300,7 +328,7 @@ class Session:
             optimizer = optimizers.adamw(lr_fn, weight_decay=weight_decay, mask=mask)
         step_fn = make_train_step(self.model, optimizer, loss_fn=loss_fn)
         state = TrainState(self.params, optimizer.init(self.params))
-        loop = LoopConfig(steps=steps, ckpt_dir=ckpt_dir,
+        loop = LoopConfig(steps=steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
                           log_every=max(1, min(log_every, steps)))
         log = print if verbose else (lambda *a, **k: None)
         _, history = run_training(step_fn, state, batch_fn, loop,
@@ -351,19 +379,30 @@ class Session:
         when the loop ends (``Model.set_tree``, bonds changed) and any
         serving snapshot taken before is invalidated.  Each event's
         ``seconds`` splits its iteration into spectra, tt_round, retune and
-        eval.  ``ckpt_dir`` (the squeeze journal) comes with persistence
-        (ROADMAP.md, Queue 1 item 3); the ``ssm`` family raises, its re-tune
-        needing a backward of the SSD scan kernel (item 10)."""
+        eval.  ``ckpt_dir`` journals every ACCEPTED iteration (params,
+        history and the stop rule's baseline metric,
+        ``resilience.SqueezeJournal``): a preempted run re-invoked with the
+        same ``ckpt_dir`` installs the journaled tree and resumes at the
+        last completed iteration, reproducing the uninterrupted run's
+        history and tree bit for bit.  The ``ssm`` family raises, its
+        re-tune needing a backward of the SSD scan kernel (item 10)."""
         if self.cfg.family == "ssm":
             _not_yet("Session.squeeze of the ssm family (its re-tune needs a backward "
                      "for the SSD scan kernel)", "item 10")
-        if ckpt_dir:
-            _not_yet("Session.squeeze(ckpt_dir=...) (the squeeze journal)", "item 3")
         t0 = time.perf_counter()
         loss_fn = loss_fn or self._default_loss_fn()
         batch_fn = batch_fn or self._default_batch_fn(seq_len, batch_size, seed)
         if eval_fn is None:
             eval_fn = lambda p: self.evaluate(p, loss_fn=loss_fn, batch_fn=batch_fn)
+        journal, start_iter, init_hist, baseline = None, 0, None, None
+        if ckpt_dir:
+            from repro_torch.resilience.journal import SqueezeJournal  # lazy
+            journal = SqueezeJournal(ckpt_dir)
+            resumed = journal.load(self.params)
+            if resumed is not None:
+                tree, start_iter, init_hist, baseline = resumed
+                self.model.set_tree(tree)
+                self._bump()
         rho0 = squeeze_mod.model_compression_ratio(self.params)
 
         def finetune_fn(p):
@@ -373,7 +412,9 @@ class Session:
         best, history = squeeze_mod.run_dimension_squeezing(
             self.params, finetune_fn, eval_fn, delta=delta, max_iters=max_iters, step=step,
             min_bond=min_bond, verbose=verbose,
-            weight_cache=self.engine.cache_weights if weight_cache else None)
+            weight_cache=self.engine.cache_weights if weight_cache else None,
+            start_iter=start_iter, initial_history=init_hist, baseline_metric=baseline,
+            on_iteration=journal.record if journal else None)
         self.model.set_tree(best)
         self._bump()
         self.squeeze_history.extend(history)

@@ -42,6 +42,7 @@ from repro.optim import schedule as JSched
 from repro.train import steps as JSteps
 from repro_torch import Session as TSession
 from repro_torch import configs as tconfigs
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import lightweight as TLW
 from repro_torch.core import mpo as TM
@@ -415,7 +416,7 @@ def test_evaluate_matches_reference(tuned):
     assert ts.evaluate(**kw) == pytest.approx(js.evaluate(**kw), rel=2e-4, abs=1e-6)
 
 
-def test_finetune_options_and_what_is_not_ported():
+def test_finetune_options_and_what_is_not_ported(tmp_path):
     ts = TSession.init("bert-base", device="cpu")
     rep = ts.finetune(mode="full", steps=2, warmup=1, seq_len=16, batch_size=4,
                       weight_decay=0.01, donate=True, log_every=1)
@@ -424,10 +425,17 @@ def test_finetune_options_and_what_is_not_ported():
     rep = ts.finetune(steps=1, seq_len=16, batch_size=4,
                       optimizer=TOpt.sgdm(1e-3), log_every=1)
     assert "trainable" not in rep
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ts.finetune(steps=1, ckpt_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TLoop.run_training(None, None, None, TLoop.LoopConfig(steps=1, ckpt_dir="x"))
+    # checkpoint/resume is ported (tests/test_torch_persistence.py): a
+    # ckpt_dir run saves its last step, and a rerun of the same length
+    # resumes there and takes no step
+    ck = str(tmp_path / "ck")
+    ts.finetune(steps=2, seq_len=16, batch_size=4, ckpt_dir=ck, ckpt_every=1)
+    assert CheckpointManager(ck).all_steps() == [1, 2]
+    before = {k: v.clone() for k, v in ts.model.state_dict().items()}
+    rep = ts.finetune(steps=2, seq_len=16, batch_size=4, ckpt_dir=ck)
+    assert rep["history"] == []
+    assert all(torch.equal(v, ts.model.state_dict()[k]) for k, v in before.items())
+    assert TLoop.LoopConfig(steps=1).ckpt_every == 100
 
 
 def test_forward_cls_matches_reference():
