@@ -116,9 +116,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
    later save into (c)'s directory leaves a restore at the first save, and
    two transient I/O errors are retried away.  Temporary directories,
    removed at the end.
-8. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+8. serve_pool — the serving front end at full width and depth: (a)
+   bert-base (bf16, paged, pages of 16, 8 slots, ``max_len=160``), an
+   open-loop ``traffic.replay`` on the wall clock of ``make_trace(32, 8 rps,
+   prompts 16..128, 8..32 new)`` three ways (whole-prompt admission with the
+   weight cache, ``prefill_chunk=32`` + ``bucket_prompts`` with it,
+   whole-prompt factorized): tok/s, p50/p99 latency and TTFT, decode and
+   prefill tok/s, occupancy, init seconds, peak memory, launches (flash
+   every run, the forward in the factorized one, no plain version), and
+   what parked rows add to a decode step (flash over 1 live + 7 parked rows
+   against the live row alone, the card's time); (b) float32 bert-base, the
+   trace's first 16 requests on a ``VirtualClock``: tokens equal batch-1
+   serial generation, a difference allowed only at a serial top-2 margin
+   within ``F32_TIE`` of the logits' scale (reported, the request compared
+   no further); (c) mamba2-130m, 4 slots, ``max_len=544``, ``make_trace(8,
+   4 rps, prompts 64..512, 8..16 new)``: bf16 on the wall clock (24 SSD-scan
+   launches an admission, the tied head through the forward), float32 on a
+   ``VirtualClock`` under the same token rule; (d) ``serve_fleet(2, 4, 160,
+   paged, session_dir=...)`` in float32 on a ``VirtualClock``, fault-free
+   (0 trips) and with ``kill-pool:1:10`` (a rebuild, its parameters on the
+   card), every request done with the serial tokens; (e) ``flash-raise``:
+   a pool step raises ``InjectedKernelError``, no plain version runs.
+9. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
    squeezed shapes' times are phase 6's records).
-9. last line: ``{"ok": true, "device": {...}}``.
+10. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -191,6 +212,12 @@ EXACT_TOL, EQ4_SLACK, RECOUNT_TOL = 1e-4, 1e-4, 1e-4
 # card (cuSOLVER) vs CPU (LAPACK) squeeze of the smoke model: predicted
 # errors and reconstructions of every squeezed matrix within 1e-4
 CPU_TOL = 1e-4
+# the serving front end (phase 8): full-width bert-base pools of 8 slots at
+# max_len 160 (prompts of 16..128 tokens, 8..32 new), paged in pages of 16;
+# the float32 token gate replays the trace's first 16 requests, the fleet
+# has two replicas of 4 slots; mamba2-130m pools of 4 slots at max_len 544
+POOL_SLOTS, POOL_MAX_LEN, POOL_PAGE, POOL_REQUESTS, F32_REQUESTS = 8, 160, 16, 32, 16
+FLEET_SLOTS, MAMBA_SLOTS = 4, 4
 PEAK_BYTES_S = 3.35e12                           # H100 SXM HBM3
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 non-tensor
 
@@ -708,6 +735,7 @@ def main() -> int:
         t2 = time.perf_counter()
         per_decode = read_counts()
         n_dec = NEW_TOKENS - 1
+        decode_step_ms[(arch, serve_kw.get("weight_cache", True))] = 1e3 * (t2 - t1) / n_dec
         cache = handle.cache if isinstance(handle.cache, dict) else {"state": handle.cache}
         finite = (bool(torch.isfinite(logits).all())
                   and all(bool(torch.isfinite(s).all()) for s in steps)
@@ -748,6 +776,7 @@ def main() -> int:
         0, session.cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
     path_launches = {}
     by_path = {}             # kernel -> {path: launches}
+    decode_step_ms = {}      # (arch, weight_cache) -> phase 3's decode ms a step
     prefill_logits = {}
     for wc in (True, False):
         handle, _, per_decode, prefill_logits[wc] = serve_run(
@@ -874,6 +903,7 @@ def main() -> int:
         fail(f"float32 bert-base serving: launches {f32_counts}; the tensor-core kernel must "
              "run, the CUDA-core kernel and the plain versions not")
     f32_mma = {"bert-base float32 serve (three runs)": f32_counts["mpo_linear_fwd_mma"]}
+    f32_flash = {"bert-base float32 serve (two paged runs)": f32_counts["flash_decode_attention"]}
     cuda_core = {}
     del s32, runs
 
@@ -1643,7 +1673,250 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     emit(phase="persistence", s=time.perf_counter() - p_t0)
 
-    # ---- 8. the kernels line: one entry per kernel and dtype ----
+    # ---- 8. the serving front end: ServePool, open-loop replay, PoolRouter ----
+    from repro_torch.pipeline import traffic as TRF
+    from repro_torch.pipeline.clock import VirtualClock, WallClock
+
+    s_t0 = time.perf_counter()
+    pool_kw = dict(paged=True, page_size=POOL_PAGE)
+    bert_trace = TRF.make_trace(POOL_REQUESTS, 8.0, seed=SEED, prompt_len=(16, 128),
+                                max_new=(8, 32), vocab_size=30720)
+    mamba_trace = TRF.make_trace(8, 4.0, seed=SEED, prompt_len=(64, 512), max_new=(8, 16),
+                                 vocab_size=50432)
+
+    def pool_gate(path, counts, need):
+        """Fail unless every kernel of ``need`` launched, and no plain version
+        or CUDA-core forward ran; add the launches to the kernels line."""
+        other = sum(counts[k] for k in plains) + counts["mpo_linear_fwd"]
+        if any(counts[k] == 0 for k in need) or other:
+            fail(f"{path}: launches {counts}; {need} must launch, plain versions and the "
+                 "CUDA-core forward not")
+
+    def fold_bf16(path, counts):
+        for k in ("mpo_linear_fwd_mma", "flash_decode_attention", "ssd_scan"):
+            if counts[k]:
+                path_launches[k] = path_launches.get(k, 0) + counts[k]
+                by_path.setdefault(k, {})[path] = counts[k]
+
+    def open_loop(sess, path, trace, slots, max_len, need, **kw):
+        """One open-loop replay of ``trace`` on the wall clock through a new
+        pool: launch counts zeroed just before and read just after, peak
+        memory from before the pool's build."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem_before = torch.cuda.memory_allocated()
+        zero_counts()
+        pool = sess.serve_pool(slots, max_len, **kw)
+        clock = WallClock()
+        pool.clock = clock                  # the replay's clock stamps submissions
+        report = TRF.replay(pool, trace, clock=clock)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        st = pool.stats()
+        rec = dict(report.summary, init_seconds=st["init_seconds"],
+                   decode_toks_s=st["decode_toks_s"], prefill_toks_s=st["prefill_toks_s"],
+                   occupancy=st["occupancy"], decode_steps=st["decode_steps"],
+                   decode_ms_per_step=1e3 * st["decode_seconds"] / max(st["decode_steps"], 1),
+                   admit_seconds=st["admit_seconds"], prefill_traces=st["prefill_traces"],
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(), mem_before_bytes=mem_before,
+                   pool_peak_bytes=torch.cuda.max_memory_allocated() - mem_before,
+                   launches={k: counts[k] for k in ("mpo_linear_fwd_mma",
+                                                   "flash_decode_attention", "ssd_scan")},
+                   plain_calls=sum(counts[k] for k in plains))
+        emit(phase="serve_pool", run=path, arch=sess.cfg.name, dtype=sess.cfg.dtype,
+             slots=slots, max_len=max_len, **kw, **rec)
+        if report.summary["completed"] != len(trace):
+            fail(f"{path}: {report.summary}")
+        pool_gate(path, counts, need)
+        fold_bf16(path, counts)
+        return pool, report, rec, counts
+
+    def parked_rows(pool, bcfg):
+        """What parked rows add to a decode step: flash over the pool's
+        geometry with one live slot (144 keys) and the others parked at the
+        capacity sentinel (every page of the row walked, ids -1 read as page
+        0), against the same call over the live row alone; the card's time
+        of one layer's call, times the layers."""
+        c = pool._cache
+        kp, vp = c["k_pages"][0], c["v_pages"][0]
+        mp = c["page_table"].shape[-1]
+        cap = mp * POOL_PAGE
+        q = torch.randn(POOL_SLOTS, bcfg.num_kv_heads, bcfg.num_heads // bcfg.num_kv_heads,
+                        bcfg.head_dim, generator=gen).to(dev, kp.dtype)
+        table = torch.full((POOL_SLOTS, mp), -1, dtype=torch.int32, device=dev)
+        table[0, :9] = torch.arange(9, dtype=torch.int32, device=dev)
+        lens = torch.full((POOL_SLOTS,), cap, dtype=torch.int32, device=dev)
+        lens[0] = 144
+        bias = torch.zeros(POOL_SLOTS, cap, device=dev)
+        bias[0, 144:] = DA.MASK_VALUE
+        full_ms = timed(lambda: DA.flash_decode_attention(q, kp, vp, table, lens, bias))
+        live_ms = timed(lambda: DA.flash_decode_attention(
+            q[:1].contiguous(), kp, vp, table[:1].contiguous(), lens[:1].clone(),
+            bias[:1].contiguous()))
+        emit(phase="serve_pool", parked_rows={
+            "slots": POOL_SLOTS, "live": 1, "pages_a_row": mp, "flash_ms_all_rows": full_ms,
+            "flash_ms_live_row": live_ms, "layers": bcfg.num_layers,
+            "added_device_ms_per_step": bcfg.num_layers * (full_ms - live_ms)})
+
+    # (a) bert-base, bf16, three admission modes; a throwaway replay first
+    # takes the first-call costs out of the timed ones
+    bsess = Session.init("bert-base", smoke=False, seed=SEED)
+    warm = bsess.serve_pool(POOL_SLOTS, POOL_MAX_LEN, prefill_chunk=32, bucket_prompts=True,
+                            **pool_kw)
+    TRF.replay(warm, bert_trace[:4], clock=VirtualClock())
+    del warm
+    bert_runs = {}
+    for name, kw in (("whole, weight cache", {}),
+                     ("chunk 32 + bucket, weight cache",
+                      dict(prefill_chunk=32, bucket_prompts=True)),
+                     ("whole, factorized", dict(weight_cache=False))):
+        need = ("flash_decode_attention",) + (
+            ("mpo_linear_fwd_mma",) if kw.get("weight_cache") is False else ())
+        pool, report, rec, _ = open_loop(bsess, f"bert-base bf16 pool: {name}", bert_trace,
+                                         POOL_SLOTS, POOL_MAX_LEN, need, **kw, **pool_kw)
+        bert_runs[name] = [r["tokens"] for r in report.records]
+        if name == "whole, weight cache":
+            parked_rows(pool, bsess.cfg)
+        del pool                 # each run's peak memory is its own pool's
+    same = [np.array_equal(a, b) for a, b in zip(bert_runs["whole, weight cache"],
+                                                  bert_runs["chunk 32 + bucket, weight cache"])]
+    emit(phase="serve_pool", arch="bert-base", dtype="bfloat16",
+         whole_vs_chunked_same_tokens=f"{sum(same)}/{len(same)}",
+         phase3_decode_ms_per_step={"weight cache": decode_step_ms[("bert-base", True)],
+                                    "factorized": decode_step_ms[("bert-base", False)]})
+    del bsess
+
+    # (b)-(d) float32: pool and fleet tokens against batch-1 serial generation
+    def serial_run(sess, trace, max_len, **kw):
+        """Batch-1 greedy tokens of every request (``ServeHandle``'s prefill
+        and decode, as ``generate`` runs them), each step's logits kept."""
+        h = sess.serve(1, max_len, **kw)
+        out = []
+        for r in trace:
+            h.reset()
+            logits = h.prefill({"tokens": r.prompt[None]})[:, -1]
+            steps = [logits]
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            toks = [tok]
+            for _ in range(r.max_new_tokens - 1):
+                tok, lg = h.decode(tok)
+                toks.append(tok)
+                steps.append(lg[:, -1])
+            out.append((torch.cat(toks, 1)[0].cpu().numpy(), torch.cat(steps, 0).float().cpu()))
+        del h
+        return out
+
+    def tie_rule(path, got, serial):
+        """Tokens equal serial generation; where they differ, the serial
+        run's top-2 margin at the first differing step must lie within
+        F32_TIE of that step's logits scale — a tie float32's summation order
+        decides — and the request is compared no further."""
+        ties, equal = [], 0
+        for rid, (toks, want) in enumerate(zip(got, serial)):
+            ref, logits = want
+            if np.array_equal(toks, ref):
+                equal += 1
+                continue
+            n = min(len(toks), len(ref))
+            diff = np.nonzero(toks[:n] != ref[:n])[0]
+            if diff.size == 0:
+                fail(f"{path}: request {rid} has {len(toks)} tokens, serial {len(ref)}")
+            step = int(diff[0])
+            top2 = logits[step].topk(2).values
+            margin, scale = (top2[0] - top2[1]).item(), logits[step].abs().max().item()
+            ties.append({"request": rid, "step": step, "margin": margin, "scale": scale})
+            if not margin <= F32_TIE * scale:
+                fail(f"{path}: request {rid} differs from serial generation at step {step}, "
+                     f"top-2 margin {margin} > {F32_TIE} x {scale}")
+        return {"equal": equal, "requests": len(got), "ties": ties}
+
+    f32_trace = bert_trace[:F32_REQUESTS]
+    fsess = Session.init("bert-base", smoke=False, seed=SEED, dtype="float32")
+    zero_counts()
+    clock = VirtualClock()
+    pool = fsess.serve_pool(POOL_SLOTS, POOL_MAX_LEN, clock=clock, **pool_kw)
+    report = TRF.replay(pool, f32_trace, clock=clock)
+    counts = read_counts()
+    pool_gate("bert-base float32 pool", counts, ("flash_decode_attention",))
+    f32_flash["bert-base float32 pool (phase 8)"] = counts["flash_decode_attention"]
+    serial = serial_run(fsess, f32_trace, POOL_MAX_LEN, **pool_kw)
+    parity = tie_rule("bert-base float32 pool", [r["tokens"] for r in report.records], serial)
+    emit(phase="serve_pool", run="bert-base float32 pool, virtual clock", parity=parity,
+         summary=report.summary, launches=counts)
+    del pool
+
+    # (d) a fleet of two replicas, fault-free and with a replica killed
+    fleet_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    try:
+        for name, plan in (("fault-free", FLT.FaultPlan()),
+                           ("kill-pool:1:10", FLT.FaultPlan.parse(["kill-pool:1:10"]))):
+            zero_counts()
+            clock = VirtualClock()
+            with FLT.fault_scope(plan):
+                router = fsess.serve_fleet(2, FLEET_SLOTS, POOL_MAX_LEN, clock=clock,
+                                           session_dir=str(fleet_dir / name.split(":")[0]),
+                                           **pool_kw)
+                report = TRF.replay(router, f32_trace, clock=clock, max_steps=20000)
+            counts = read_counts()
+            st = router.stats()
+            rebuilt = [rep.pool for rep in router._replicas if rep.rebuilds]
+            rebuilt_on = sorted({t.device.type for p in rebuilt
+                                 for t in lightweight.leaves(p._sparams)})
+            parity = tie_rule(f"fleet {name}", [r["tokens"] for r in report.records], serial)
+            emit(phase="serve_pool", run=f"bert-base float32 fleet: {name}", parity=parity,
+                 trips=st["trips"], rebuilds=st["rebuilds"], retries=st["retries"],
+                 states=[r["state"] for r in st["replicas"]], rebuilt_params_on=rebuilt_on,
+                 summary=report.summary, launches=counts)
+            pool_gate(f"fleet {name}", counts, ("flash_decode_attention",))
+            f32_flash[f"bert-base float32 fleet, {name} (phase 8)"] = counts[
+                "flash_decode_attention"]
+            if report.summary["completed"] != len(f32_trace):
+                fail(f"fleet {name}: {report.summary}")
+            if name == "fault-free" and st["trips"]:
+                fail(f"the fault-free fleet tripped {st['trips']} times")
+            if name != "fault-free" and (st["rebuilds"] < 1 or rebuilt_on != [dev.type]):
+                fail(f"the killed fleet: {st['rebuilds']} rebuilds, rebuilt on {rebuilt_on}")
+            del router
+    finally:
+        shutil.rmtree(fleet_dir, ignore_errors=True)
+
+    # (e) flash-raise: the pool step raises, no plain version stands in
+    pool = fsess.serve_pool(2, POOL_MAX_LEN, **pool_kw)
+    pool.submit(f32_trace[0].prompt, 4)
+    zero_counts()
+    with FLT.fault_scope(FLT.FaultPlan(flash_raises=True)):
+        expect_raise(FLT.InjectedKernelError, pool.step, "a pool step under flash-raise")
+    counts = read_counts()
+    emit(phase="serve_pool", run="flash-raise", raised="InjectedKernelError", launches=counts)
+    if any(counts[k] for k in plains) or counts["flash_decode_attention"]:
+        fail(f"flash-raise: launches {counts}; nothing may run in the kernel's place")
+    del fsess, pool
+
+    # (c) mamba2-130m: bf16 for the numbers, float32 for the tokens
+    mb = Session.init("mamba2-130m", smoke=False, seed=SEED)
+    _, _, rec, counts = open_loop(mb, "mamba2-130m bf16 pool: whole", mamba_trace, MAMBA_SLOTS,
+                                  MAMBA_MAX_LEN, ("mpo_linear_fwd_mma", "ssd_scan"))
+    if counts["ssd_scan"] != mb.cfg.num_layers * len(mamba_trace):
+        fail(f"mamba2-130m pool: {counts['ssd_scan']} SSD-scan launches for "
+             f"{len(mamba_trace)} admissions (expected {mb.cfg.num_layers} each)")
+    del mb
+    m32 = Session.init("mamba2-130m", smoke=False, seed=SEED, dtype="float32")
+    zero_counts()
+    clock = VirtualClock()
+    pool = m32.serve_pool(MAMBA_SLOTS, MAMBA_MAX_LEN, clock=clock)
+    report = TRF.replay(pool, mamba_trace, clock=clock)
+    counts = read_counts()
+    pool_gate("mamba2-130m float32 pool", counts, ("mpo_linear_fwd_mma", "ssd_scan"))
+    f32_mma["mamba2-130m float32 pool (phase 8)"] = counts["mpo_linear_fwd_mma"]
+    f32_ssd["mamba2-130m float32 pool (phase 8)"] = counts["ssd_scan"]
+    parity = tie_rule("mamba2-130m float32 pool", [r["tokens"] for r in report.records],
+                      serial_run(m32, mamba_trace, MAMBA_MAX_LEN))
+    emit(phase="serve_pool", run="mamba2-130m float32 pool, virtual clock", parity=parity,
+         summary=report.summary, launches=counts)
+    del m32, pool
+    emit(phase="serve_pool", s=time.perf_counter() - s_t0)
+
+    # ---- 9. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,
@@ -1671,6 +1944,13 @@ def main() -> int:
               "bert-base geometry KV=12 G=1 Dh=64 ps=16, 8 slots at 144 keys, bfloat16",
               path_launches["flash_decode_attention"], splits=fk["splits"],
               prev_ms=fk["prev_ms"], launches_by_path=by_path["flash_decode_attention"]),
+        entry("flash_decode_attention", "cuda", "src/repro_torch/csrc/decode_attention.cu",
+              "src/repro/kernels/decode_attention.py:166", results[("flash", "path", "float32")],
+              "bert-base geometry KV=12 G=1 Dh=64 ps=16, 8 slots at 144 keys, float32 (launches: "
+              "the float32 paged serving runs, pool and fleet)", sum(f32_flash.values()),
+              splits=results[("flash", "path", "float32")]["splits"],
+              prev_ms=results[("flash", "path", "float32")]["prev_ms"],
+              launches_by_path=f32_flash),
         entry("mpo_linear_bwd_cores", "cuda", *bwd, results[("bwd", "attn", tokens, "bfloat16")],
               f"bert-base attention matrix, M={tokens} (16 x 128 fine-tuning tokens), bfloat16",
               path_launches["mpo_linear_bwd_cores"], launches_per_call=MK.BWD_KERNELS,

@@ -7,9 +7,9 @@ source and the flags, so an edited source is rebuilt and an unchanged one
 is reused.  The C entry points take raw device pointers and the CUDA
 stream, launch on the current device, and return ``cudaGetLastError()``;
 the Python wrappers call them through ``launch``, which makes the tensors'
-device current and raises when that is not 0.  ``nvcc``'s ``-Xptxas -v``
-report (registers, shared memory, spills) is kept beside each library as
-``<name>-<hash>.log``.
+device current and raises ``KernelLaunchError`` when that is not 0.
+``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is kept
+beside each library as ``<name>-<hash>.log``.
 """
 
 from __future__ import annotations
@@ -31,6 +31,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's entry point returned a CUDA error.  The serving router
+    (``pipeline.router.PoolRouter``) counts it as its replica's crash; a
+    sticky fault that poisons the CUDA context cannot be recovered in the
+    process, and the next CUDA call raises again."""
 
 
 def sources() -> list[str]:
@@ -113,4 +120,4 @@ def launch(name: str, x: torch.Tensor, call) -> None:
         with torch.cuda.device(idx):
             rc = call(stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise KernelLaunchError(f"{name} launch failed: CUDA error {rc}")

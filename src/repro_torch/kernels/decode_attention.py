@@ -11,7 +11,10 @@ splits in split order.
 
 ``flash_decode_attention`` launches the kernel for CUDA tensors and calls
 ``flash_decode_attention_plain`` only for CPU tensors.  There is no fallback
-from the kernel to the gather path: a failure raises.
+from the kernel to the gather path: a failure raises (a launch error as
+``_build.KernelLaunchError``; the ``flash-raise`` chaos site,
+``resilience.faults.check_flash``, raises ``InjectedKernelError`` before
+dispatch on either device).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.resilience import faults
 
 MASK_VALUE = -2.3819763e38          # the fill attention_scores uses
 _TINY = 1e-30                       # zero-valid-keys guard (idle slots)
@@ -161,7 +165,9 @@ def flash_decode_attention(q, k_pages, v_pages, page_table, lengths, bias,
     Returns (B, KV, G, Dh) in q's dtype.  CUDA tensors launch the kernel
     (``flash_decode_attention.launches`` counts the launches; the splits'
     workspace comes from ``torch.empty``); CPU tensors take
-    ``flash_decode_attention_plain``."""
+    ``flash_decode_attention_plain``.  An active ``flash-raise`` fault plan
+    raises first, on either device."""
+    faults.check_flash()
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, k_pages, v_pages, page_table,
                                             lengths, bias, softcap=softcap)

@@ -35,9 +35,21 @@ def ssd_chunked(x, dt, a_log, b, c, d_skip, chunk: int):
     """Chunked SSD scan -> ``(y (B, S, H, P) in x's dtype, final state
     (B, H, N, P) f32)``.  x (B, S, H, P); dt (B, S, H) softplus-activated;
     a_log, d_skip (H,); b, c (B, S, N).  The inputs are made contiguous
-    here: in_proj's slices are strided views, which the kernel refuses."""
-    return SSD.ssd_scan(x.contiguous(), dt.float().contiguous(), a_log.float().contiguous(),
-                        b.contiguous(), c.contiguous(), d_skip.float().contiguous(), chunk)
+    here: in_proj's slices are strided views, which the kernel refuses.
+
+    A sequence longer than a chunk and not a whole number of chunks (the
+    reference asserts it is one; a pool admits prompts of any length) is
+    padded at the end to one, with dt = 0 there: a step of dt = 0 neither
+    decays the state (exp(0) = 1) nor adds to it, so the real positions'
+    outputs and the final state are the unpadded sequence's, in one scan."""
+    s = x.shape[1]
+    pad = -s % chunk if s > chunk else 0
+    if pad:
+        x, b, c = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, b, c))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    y, state = SSD.ssd_scan(x.contiguous(), dt.float().contiguous(), a_log.float().contiguous(),
+                            b.contiguous(), c.contiguous(), d_skip.float().contiguous(), chunk)
+    return (y[:, :s] if pad else y), state
 
 
 def ssd_reference(x, dt, a_log, b, c, d_skip):

@@ -132,6 +132,19 @@ class Model(_Tree):
     def decode_step(self, params, tokens, cache, phase: str = "decode"):
         return self.mod.decode_step(params, tokens, cache, self.cfg, phase=phase)
 
+    @property
+    def prefill_chunk(self):
+        """Incremental prefill, ``(params, batch, cache, phase="prefill") ->
+        (all-position logits, cache)``: one chunk at the cache's current
+        offset (``transformer.prefill_chunk``).  ``None`` for the ``ssm``
+        family, whose state has no KV sequence to continue."""
+        fn = getattr(self.mod, "prefill_chunk", None)
+        if fn is None:
+            return None
+        cfg = self.cfg
+        return lambda params, batch, cache, phase="prefill": fn(params, batch, cache, cfg,
+                                                                phase=phase)
+
     @torch.no_grad()
     def set_tree(self, tree: dict) -> "Model":
         """Install ``tree`` (a nested dict of tensors under the model's key

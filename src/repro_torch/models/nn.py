@@ -216,6 +216,44 @@ def _paged_prefill_append(cache, k, v):
     return cache
 
 
+def _paged_chunk_append(cache, k, v):
+    """Append an ``s``-token prefill CHUNK at each slot's current position,
+    in place, allocating pages for every page boundary the chunk crosses.
+
+    The general form of ``_paged_prefill_append`` (start 0, whole prompt)
+    and ``_paged_decode_append`` (one token): chunk ``c`` of a chunked
+    admission starts at ``pos = c * chunk_len``, the first page it touches
+    possibly half filled by the previous chunk.  Positions past capacity
+    neither allocate nor write, as in the decode append."""
+    b, s = k.shape[0], k.shape[1]
+    kp, vp, table = cache["k_pages"], cache["v_pages"], cache["page_table"]
+    pos = cache["pos"]                             # (B,)
+    p_total, ps = kp.shape[0], kp.shape[1]
+    mp = table.shape[1]
+    # map every logical page the chunk touches that has no physical page yet
+    pages = torch.arange(mp, device=k.device)[None, :]
+    lo = pos[:, None] // ps
+    hi = torch.clamp((pos[:, None] + s - 1) // ps, max=mp - 1)
+    need = (pages >= lo) & (pages <= hi) & (table < 0)    # (B, MP)
+    flat = need.reshape(-1)
+    rank = torch.cumsum(flat.int(), 0) - 1
+    fresh = _take(cache["free_list"], cache["free_count"] - 1 - rank).reshape(b, mp)
+    table.copy_(torch.where(need, fresh, table))
+    # scatter the chunk's rows at their global positions
+    g = pos[:, None] + torch.arange(s, device=k.device)[None, :]   # (B, s)
+    oob = g >= mp * ps
+    lp = torch.clamp(g // ps, max=mp - 1).long()
+    flat_row = (table.gather(1, lp).long() * ps + g % ps).reshape(-1)
+    keep = ~oob.reshape(-1)
+    _scatter_rows(kp.view(p_total * ps, *kp.shape[2:]), flat_row,
+                  k.reshape(b * s, *k.shape[2:]), keep)
+    _scatter_rows(vp.view(p_total * ps, *vp.shape[2:]), flat_row,
+                  v.reshape(b * s, *v.shape[2:]), keep)
+    cache["free_count"].sub_(flat.sum().to(cache["free_count"].dtype))
+    pos.add_(s)
+    return cache
+
+
 def _paged_decode_append(cache, k, v):
     """Append one (KV, Dh) row per slot at its own position, in place,
     allocating a fresh page when a slot crosses a page boundary.  Slots past
@@ -242,13 +280,26 @@ def _paged_decode_append(cache, k, v):
 
 
 def _paged_attention(params, q, k, v, cache, cfg: AttnCfg, mpo: MPOConfig,
-                     mask, phase: str):
+                     mask, phase: str, chunk: bool = False):
     """Self-attention over a paged KV cache.  Prefill attends over the
     in-hand prompt K/V; decode appends one row per slot and runs the flash
-    kernel (its plain version for CPU tensors)."""
+    kernel (its plain version for CPU tensors).
+
+    ``chunk=True`` marks a prefill CHUNK starting at the slot's current
+    position: it is appended by ``_paged_chunk_append``, and its queries
+    attend the whole mapped span (earlier chunks included) through the
+    ``gather_pages`` view under the caller's offset mask, as the reference
+    computes it outside any kernel.  A one-token chunk takes the decode
+    branch, as in the reference."""
     b, s = q.shape[0], q.shape[1]
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if s > 1:
+    if s > 1 and chunk:
+        _paged_chunk_append(cache, k, v)
+        kc = DA.gather_pages(cache["k_pages"], cache["page_table"])
+        vc = DA.gather_pages(cache["v_pages"], cache["page_table"])
+        w = attention_scores(q, kc, cfg, mask)
+        y = torch.einsum("bkgqs,bskd->bqkgd", w.to(vc.dtype), vc)
+    elif s > 1:
         _paged_prefill_append(cache, k, v)
         w = attention_scores(q, k, cfg, mask[..., :s])
         y = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
@@ -267,13 +318,18 @@ def _paged_attention(params, q, k, v, cache, cfg: AttnCfg, mpo: MPOConfig,
 
 
 def apply_attention(params, x, cfg: AttnCfg, mpo: MPOConfig, *, positions, mask,
-                    cache=None, phase: str = "train"):
+                    cache=None, phase: str = "train", chunk: bool = False):
     """Returns (y, cache).
 
     ``cache``: one layer's dense ring buffer ``dict(k, v, pos)`` with per-slot
     positions, or its paged form (k_pages / v_pages / page_table / free_list
     / free_count / pos, see ``transformer.init_cache(paged=True)``); either
-    is updated in place.  ``phase`` feeds the engine's per-matrix planning."""
+    is updated in place.  ``phase`` feeds the engine's per-matrix planning.
+    ``chunk=True`` marks a multi-token prefill CHUNK continuing at the
+    cache's current position (``transformer.prefill_chunk``): the caller
+    gives offset positions and mask; the dense cache already appends a
+    multi-token write at ``pos``, the paged one switches to the chunk
+    append."""
     b, s = x.shape[0], x.shape[1]
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(L.apply_linear(params["wq"], x, cfg=mpo, phase=phase), h, dh)
@@ -286,7 +342,7 @@ def apply_attention(params, x, cfg: AttnCfg, mpo: MPOConfig, *, positions, mask,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     if cache is not None and "k_pages" in cache:
-        return _paged_attention(params, q, k, v, cache, cfg, mpo, mask, phase)
+        return _paged_attention(params, q, k, v, cache, cfg, mpo, mask, phase, chunk)
     if cache is not None:
         kc, vc, idx = cache["k"], cache["v"], cache["pos"]
         max_len = kc.shape[1]

@@ -68,18 +68,18 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _layer_fwd(cfg: ModelConfig, x, layer, *, positions, mask, cache=None,
-               phase="train"):
+               phase="train", chunk=False):
     h = nn.apply_rmsnorm(layer["ln1"], x)
     a, _ = nn.apply_attention(layer["attn"], h, attn_cfg(cfg), cfg.mpo,
                               positions=positions, mask=mask, cache=cache,
-                              phase=phase)
+                              phase=phase, chunk=chunk)
     x = x + a
     h = nn.apply_rmsnorm(layer["ln2"], x)
     return x + nn.apply_mlp(layer["mlp"], h, cfg.mlp_act, cfg.mpo, phase=phase)
 
 
 def _run_stack(cfg: ModelConfig, params, x, *, positions, mask, mask_local,
-               caches=None, phase="train"):
+               caches=None, phase="train", chunk=False):
     """The layer stack; ``caches`` (leading layer dim) is updated in place."""
     for i in range(cfg.num_layers):
         layer = nn.index_layer(params["layers"], 0 if cfg.share_layers else i)
@@ -93,7 +93,7 @@ def _run_stack(cfg: ModelConfig, params, x, *, positions, mask, mask_local,
                 x, layer, m, use_reentrant=False)
         else:
             x = _layer_fwd(cfg, x, layer, positions=positions, mask=m, cache=cache,
-                           phase=phase)
+                           phase=phase, chunk=chunk)
     return x
 
 
@@ -154,14 +154,19 @@ def forward_cls(params, batch, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
-               paged: bool = False, page_size: int = 16, device=None) -> dict:
-    """KV cache with PER-SLOT positions: ``pos`` is (layers, batch).
+               paged: bool = False, page_size: int = 16, pool_pages: int | None = None,
+               device=None) -> dict:
+    """KV cache with PER-SLOT positions: ``pos`` is (layers, batch), so each
+    slot of a ``pipeline.scheduler.ServePool`` sits at its own offset.
 
-    ``paged=True`` keeps K/V in a pool of ``batch * max_len / page_size``
-    fixed-size pages; each slot maps logical pages to physical ones through
+    ``paged=True`` keeps K/V in a pool of fixed-size pages, by default
+    ``batch * max_len / page_size`` of them (every slot full), so allocation
+    never exhausts it; each slot maps logical pages to physical ones through
     its ``page_table`` row (-1 = unmapped), and pages are popped off the
-    ``free_list`` stack as a slot's context grows.  Every leaf keeps the
-    leading layer dim."""
+    ``free_list`` stack as a slot's context grows.  ``pool_pages`` smaller
+    oversubscribes the pool; ``ServePool``'s page-reservation admission then
+    keeps the free list from underflowing.  Every leaf keeps the leading
+    layer dim."""
     dtype = dtype or cfg.torch_dtype
     acfg = attn_cfg(cfg)
     nl = cfg.num_layers
@@ -179,7 +184,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
             f"divides max_len (e.g. {math.gcd(max_len, page_size)}) or round "
             f"max_len up to {page_size * (-(-max_len // page_size))}.")
     mp = max_len // page_size                     # logical pages per slot
-    pool = batch * mp
+    pool = batch * mp if pool_pages is None else int(pool_pages)
+    if not 1 <= pool <= batch * mp:
+        raise ValueError(
+            f"pool_pages={pool_pages} out of range [1, {batch * mp}] "
+            f"(batch={batch} slots x {mp} pages each); oversubscribe by "
+            f"passing fewer pages than batch*max_pages, never more")
     pshape = (nl, pool, page_size, acfg.num_kv_heads, acfg.head_dim)
     i32 = dict(dtype=torch.int32, device=device)
     return {
@@ -229,6 +239,35 @@ def prefill(params, batch, cache, cfg: ModelConfig, *, phase="prefill"):
                    mask_local=mask_local, caches=cache, phase=phase)
     x = nn.apply_rmsnorm(params["final_norm"], x)
     return _logits(cfg, params, x[:, -1:], phase), cache
+
+
+def prefill_chunk(params, batch, cache, cfg: ModelConfig, *, phase="prefill"):
+    """One CHUNK of an incremental prefill: ``s`` prompt tokens at each
+    slot's CURRENT cache offset (``cache["pos"]``), their K/V appended in
+    place.  Chunk ``c``'s queries apply RoPE at their global offsets and
+    attend every key at or before them (earlier chunks included), so the
+    chunks in turn give one whole ``prefill``'s tokens.
+
+    Returns ``(logits (B, s, V), cache)`` — ALL chunk positions: the caller
+    takes the real last prompt token's row (under length-bucketed padding
+    generally not the last row).  Rows must share one offset (admission is
+    batch 1; the dense write starts at row 0's position)."""
+    x = _embed_inputs(cfg, params, batch["tokens"], phase)
+    s, dev = x.shape[1], x.device
+    max_len = cache_kv_len(cache)
+    start = cache["pos"][0].clone()                # the layers advance the cache's
+    positions = start[:, None] + torch.arange(s, device=dev)[None, :]   # (B, s)
+    kj = torch.arange(max_len, device=dev)[None, None, :]
+    qi = positions[:, :, None]                     # (B, s, 1)
+    mask = (kj <= qi)[:, None]                     # (B, 1, s, max_len)
+    if cfg.local_window is not None:
+        mask_local = mask & (kj > qi - cfg.local_window)[:, None]
+    else:
+        mask_local = mask
+    x = _run_stack(cfg, params, x, positions=positions, mask=mask,
+                   mask_local=mask_local, caches=cache, phase=phase, chunk=True)
+    x = nn.apply_rmsnorm(params["final_norm"], x)
+    return _logits(cfg, params, x, phase), cache
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, *, phase="decode"):

@@ -26,17 +26,19 @@ every stage here; the ``ssm`` family (mamba2-130m) serves, and its
 fine-tuning and squeezing wait for a backward of the SSD scan kernel.
 ``save`` / ``restore`` persist the whole session (``resilience.state``), and
 ``ckpt_dir`` makes ``finetune`` (checkpoint/resume) and ``squeeze`` (the
-iteration journal) resumable after a preemption.  The serving pool and fleet
-come with a later slice of the port; those entry points raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.  The session's
-device is the card unless the caller passes ``device="cpu"``; there is no
-silent move to the CPU.
+iteration journal) resumable after a preemption.  ``serve_pool`` serves
+many tenants through one continuously batched ``ServePool``
+(``pipeline.scheduler``), and ``serve_fleet`` puts replicas of it behind a
+``PoolRouter`` (``pipeline.router``) that retries, trips, rebuilds and
+sheds.  The session's device is the card unless the caller passes
+``device="cpu"``; there is no silent move to the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Any, Callable
 
 import numpy as np
@@ -84,7 +86,7 @@ class ServeHandle:
         self.version = version
         self.paged = paged
         self.device = model.device
-        self._prefill, self._decode, self._init_serve = make_serve_steps(
+        self._prefill, self._decode, self._init_serve, _ = make_serve_steps(
             model, weight_cache=weight_cache, paged=paged, page_size=page_size)
         self._reset_cache = model.reset_cache
         t0 = time.perf_counter()
@@ -159,6 +161,9 @@ class Session:
         self._loss_default: Callable | None = None
         self.conversion_report: dict = {}  # matrix path -> relative error
         self.squeeze_history: list = []
+        # every ServePool this session built, weakly: a pool the caller
+        # dropped stops pinning its snapshot and leaves report()
+        self._pools: list[weakref.ref] = []
 
     @property
     def params(self) -> dict:
@@ -213,11 +218,87 @@ class Session:
                                      "max_rel_err": max(errs.values(), default=0.0)})
         return s
 
-    def serve_pool(self, *args, **kwargs):
-        _not_yet("Session.serve_pool", "item 4")
+    def serve_pool(self, slots: int, max_len: int, *, weight_cache: bool = True,
+                   mesh=None, paged: bool = False, page_size: int = 16,
+                   pool_pages: int | None = None, admission_retry_limit: int = 1000,
+                   guard_logits: bool = True, prefill_chunk: int | None = None,
+                   bucket_prompts: bool = False, bucket_min: int = 8, clock=None):
+        """Multi-tenant batched decode over the CURRENT weights: a
+        ``pipeline.scheduler.ServePool`` with ``slots`` decode rows.
+        Requests are admitted into free slots (batch-1 prefill copied into
+        the pool cache), one decode step advances ALL live tenants, and
+        finished slots are recycled without re-prefilling anyone.  Pool
+        stats surface in ``report()`` while the caller holds the pool.
 
-    def serve_fleet(self, *args, **kwargs):
-        _not_yet("Session.serve_fleet", "item 4")
+        Like ``serve()``, the pool snapshots the weights at construction;
+        build a new pool after any ``finetune``/``squeeze``.  ``pool_pages``
+        oversubscribes the paged KV pool (admission then backpressures on
+        page reservations), ``guard_logits`` quarantines a slot whose logits
+        go NaN/inf, ``admission_retry_limit`` bounds the backpressure
+        retries; ``bucket_prompts`` pads prompts to power-of-two lengths and
+        ``prefill_chunk=N`` streams admission N tokens a step, both giving
+        the whole-prompt admission's tokens.  ``clock=`` is the time source
+        of deadlines and budgets (``pipeline.clock``).  Example::
+
+            pool = session.serve_pool(slots=4, max_len=64, paged=True)
+            rids = [pool.submit(p, max_new_tokens=16) for p in prompts]
+            outputs = pool.run()            # {rid: token ids}
+        """
+        from repro_torch.pipeline.scheduler import ServePool  # lazy
+        if mesh is not None:
+            _not_yet("Session.serve_pool(mesh=...)", "item 8")
+        t0 = time.perf_counter()
+        pool = ServePool(self.model, self.params, slots, max_len,
+                         weight_cache=weight_cache, version=self._version, paged=paged,
+                         page_size=page_size, pool_pages=pool_pages,
+                         admission_retry_limit=admission_retry_limit,
+                         guard_logits=guard_logits, prefill_chunk=prefill_chunk,
+                         bucket_prompts=bucket_prompts, bucket_min=bucket_min,
+                         clock=clock)
+        self._pools = [r for r in self._pools if r() is not None]
+        self._pools.append(weakref.ref(pool))
+        self._record("serve", t0, {"pool": True, "slots": slots, "max_len": max_len,
+                                   "init_seconds": pool.init_seconds})
+        return pool
+
+    def serve_fleet(self, replicas: int, slots: int, max_len: int, *,
+                    session_dir: str | None = None, clock=None,
+                    router: dict | None = None, **pool_kw):
+        """A replicated serving fleet behind one ``PoolRouter``: ``replicas``
+        pools over the CURRENT weights, least-loaded routing,
+        retry-on-another-replica with capped backoff, per-replica circuit
+        breaking and queue-depth load shedding, behind the surface a single
+        pool has (``traffic.replay`` drives it unchanged).
+
+        ``session_dir``: the session is saved there ONCE, and a tripped or
+        crashed replica is rebuilt by ``Session.restore(session_dir,
+        device=self.device).serve_pool(...)`` — on this session's device.
+        Without it a rebuild snapshots this live session's weights again.
+        ``router`` kwargs pass through to ``PoolRouter``; ``pool_kw`` to
+        every ``serve_pool`` replica.  All replicas, the router and any
+        replay loop share ONE ``clock``.  Example::
+
+            router = session.serve_fleet(3, 4, 64, paged=True, session_dir="runs/fleet")
+            outputs = router.run()
+        """
+        from repro_torch.pipeline.clock import WallClock  # lazy
+        from repro_torch.pipeline.router import PoolRouter  # lazy
+        if replicas < 1:
+            raise ValueError(f"replicas={replicas} must be >= 1")
+        clock = WallClock() if clock is None else clock
+        pools = [self.serve_pool(slots, max_len, clock=clock, **pool_kw)
+                 for _ in range(replicas)]
+        if session_dir is not None:
+            self.save(session_dir)
+            device = self.device
+
+            def rebuild():
+                restored = Session.restore(session_dir, device=device)
+                return restored.serve_pool(slots, max_len, clock=clock, **pool_kw)
+        else:
+            def rebuild():
+                return self.serve_pool(slots, max_len, clock=clock, **pool_kw)
+        return PoolRouter(pools, rebuild_fn=rebuild, clock=clock, **(router or {}))
 
     # ---- persistence ----
 
@@ -469,8 +550,9 @@ class Session:
     # ---- report ----
 
     def report(self) -> dict:
-        """Where the session is, what each stage cost, and the compression
-        ratio rho (Eq. 5) over every factorized matrix."""
+        """Where the session is, what each stage cost, the compression
+        ratio rho (Eq. 5) over every factorized matrix, and the stats of
+        every ``ServePool`` the caller still holds (``serve_pools``)."""
         out: dict[str, Any] = {
             "arch": self.cfg.name,
             "task": self.task,
@@ -491,6 +573,11 @@ class Session:
             out["conversion_mean_rel_err"] = float(np.mean(errs))
         if self.squeeze_history:
             out["squeeze_events"] = len(self.squeeze_history)
+        pools = [p for p in (ref() for ref in self._pools) if p is not None]
+        if pools:
+            # every still-alive ServePool this session built (weakly held;
+            # stale-version pools included: their stats carry the version)
+            out["serve_pools"] = [p.stats() for p in pools]
         return out
 
 

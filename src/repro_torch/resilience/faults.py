@@ -20,14 +20,33 @@ site                 instrumented in
 ``ckpt`` I/O         every file operation inside the checkpoint writer
                      (transient ``OSError``; the manager retries with
                      exponential backoff)
+decode logits        ``pipeline.scheduler.ServePool.step`` — the chosen
+                     slot's logits row becomes NaN before the guard runs
+page admission       ``ServePool`` admission — reports the page pool as
+                     exhausted for the first N attempts (backpressure)
+admission chunk      ``ServePool`` chunked admission — expires the
+                     in-flight request's deadline between prefill chunks
+                     (the half-built batch-1 cache is dropped without
+                     touching the pool page table)
+flash kernel         ``kernels.decode_attention.flash_decode_attention``
+                     — raises before dispatch, on the CPU and the card
+                     alike, as a failed launch would
+``kill-pool``        ``pipeline.router.PoolRouter.step`` — replica IDX
+                     "crashes" at router step STEP: its in-flight tenants
+                     fail over, the replica is rebuilt from the session
+                     checkpoint (breaker open -> half-open -> closed)
+``trip-pool``        ``PoolRouter.step`` — force replica IDX's circuit
+                     breaker open (as a failure storm would)
+``shed-storm``       ``PoolRouter.submit`` — the next K submissions are
+                     load-shed at the front door (status ``shed``)
 ===================  =====================================================
 
 ``FaultPlan`` carries every field of the reference's plan and ``parse``
 reads its whole grammar, so a ``--chaos`` spec means the same in both
-packages.  The serving sites' checks (decode logits, page admission,
-admission chunks, the flash kernel, the pool router's kill / trip / shed)
-come with their callers, the serving front end (ROADMAP.md, Queue 1 item
-4); until then those fields are parsed and carried, and nothing reads them.
+packages.  The port's flash kernel has no fallback: where the reference
+degrades a failed flash call to its gather path, the port's
+``InjectedKernelError`` (like a real ``KernelLaunchError``) propagates out
+of ``ServePool.step``, and ``PoolRouter`` counts it as that replica's crash.
 
 Activate a plan with ``fault_scope``::
 
@@ -39,7 +58,8 @@ Activate a plan with ``fault_scope``::
 The active plan is a plain module global — NOT thread-local — so faults
 reach the checkpoint manager's background writer thread too.  Every check
 is a no-op when no plan is active; production code pays one global read
-per site.  The module needs nothing beyond the standard library.
+per site.  The module needs nothing beyond the standard library (the NaN
+site imports numpy when it fires).
 
 ``Preemption`` and ``CrashPoint`` derive from ``BaseException`` on
 purpose: like a real SIGKILL they must sail through ``except Exception``
@@ -89,8 +109,11 @@ class FaultPlan:
     crash_ckpt_step: int | None = None   # restrict to one step (else first)
     # {site: count} transient OSErrors; each check consumes one
     io_errors: dict = dataclasses.field(default_factory=dict)
-    # ---- serving sites (read by the serving front end, Queue 1 item 4) ----
-    # NaN-poison one slot's logits at one pool decode step (0-based), one-shot
+    # ---- serving sites (pipeline.scheduler / pipeline.router) ----
+    # NaN-poison one slot's logits at one pool decode step (0-based).
+    # ONE-SHOT: consumed when it fires, so in a replicated fleet only the
+    # first pool to reach the step is poisoned — the retry on a different
+    # replica must see healthy logits.
     nan_decode_step: int | None = None
     nan_decode_slot: int = 0
     # report the page pool exhausted for the first N admission attempts
@@ -98,7 +121,7 @@ class FaultPlan:
     # expire the in-flight chunked admission's deadline after this many
     # prefill chunks landed (1-based: K=1 fires between chunk 1 and 2)
     expire_admit_chunk: int | None = None
-    # flash decode-attention raises
+    # flash decode-attention raises (as a failed launch would); not one-shot
     flash_raises: bool = False
     # crash replica IDX at router step STEP (one-shot): (IDX, STEP)
     kill_pool: tuple | None = None
@@ -217,3 +240,77 @@ def io_check(site: str) -> None:
         p.io_errors[site] = n - 1
         raise InjectedIOError(
             f"injected transient I/O error at {site!r} ({n - 1} more queued)")
+
+
+def corrupt_decode_logits(logits, step: int):
+    """Host float32 numpy copy of ``logits`` (a tensor) with the planned slot's
+    row set to NaN when this is the chosen decode step, else ``None`` (no
+    copy, no transfer).  One-shot: the fault is consumed when it fires, so
+    only ONE pool in a replicated fleet is poisoned (the retry replica sees
+    healthy logits)."""
+    p = _ACTIVE
+    if p is None or p.nan_decode_step is None or step != p.nan_decode_step:
+        return None
+    p.nan_decode_step = None        # consumed
+    import numpy as np
+    out = np.array(logits.detach().float().cpu().numpy(), np.float32)
+    out[p.nan_decode_slot] = np.nan
+    return out
+
+
+def admit_chunk_expired(chunks_done: int) -> bool:
+    """True when the plan expires the in-flight chunked admission after
+    ``chunks_done`` prefill chunks (checked between chunks; one-shot)."""
+    p = _ACTIVE
+    if p is None or p.expire_admit_chunk is None:
+        return False
+    if chunks_done >= p.expire_admit_chunk:
+        p.expire_admit_chunk = None     # consumed
+        return True
+    return False
+
+
+def page_admission_denied() -> bool:
+    """True while the plan still owes simulated pool-exhaustion denials."""
+    p = _ACTIVE
+    if p is None or p.deny_page_admissions <= 0:
+        return False
+    p.deny_page_admissions -= 1
+    return True
+
+
+def check_flash() -> None:
+    """Raise as a failed flash decode-attention launch would."""
+    p = _ACTIVE
+    if p is not None and p.flash_raises:
+        raise InjectedKernelError(
+            "injected flash decode-attention kernel failure")
+
+
+def pool_kill_due(step: int) -> int | None:
+    """Replica index to "crash" at router step ``step`` (one-shot), else
+    ``None``.  Checked at the top of ``PoolRouter.step``."""
+    p = _ACTIVE
+    if p is None or p.kill_pool is None or step != p.kill_pool[1]:
+        return None
+    idx = p.kill_pool[0]
+    p.kill_pool = None              # consumed
+    return idx
+
+
+def pool_trip_due() -> int | None:
+    """Replica index whose breaker the plan forces open (one-shot)."""
+    p = _ACTIVE
+    if p is None or p.trip_pool is None:
+        return None
+    idx, p.trip_pool = p.trip_pool, None
+    return idx
+
+
+def shed_request() -> bool:
+    """True while the plan still owes forced front-door sheds."""
+    p = _ACTIVE
+    if p is None or p.shed_storm <= 0:
+        return False
+    p.shed_storm -= 1
+    return True

@@ -129,16 +129,21 @@ def make_cls_loss(cfg):
 
 
 class ServeSteps(NamedTuple):
-    """The serving step bundle ``make_serve_steps`` returns."""
+    """The serving step bundle ``make_serve_steps`` returns.  Unpacks like
+    the reference's (``prefill, decode, init_serve, chunk = ...``);
+    ``prefill_chunk`` is ``None`` for families without one (``ssm``)."""
 
     prefill: Any
     decode: Any
     init_serve: Any
+    prefill_chunk: Any = None
 
 
 def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
-                     paged: bool = False, page_size: int = 16) -> ServeSteps:
-    """``ServeSteps(prefill, decode, init_serve)`` for batched serving.
+                     paged: bool = False, page_size: int = 16,
+                     pool_pages: int | None = None) -> ServeSteps:
+    """``ServeSteps(prefill, decode, init_serve, prefill_chunk)`` for
+    batched serving.
 
     ``init_serve(params, batch, max_len)`` runs ONCE per serving session: it
     allocates the cache (the KV cache with per-slot positions, paged when
@@ -153,12 +158,19 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
     handle.  Re-run ``init_serve`` to serve weights changed since.
 
     ``decode(params, tokens, cache)`` returns ``(next_tokens (B, 1) int32,
-    logits, cache)`` with greedy argmax; both steps update ``cache`` in place.
+    logits, cache)`` with greedy argmax; ``prefill_chunk(params, batch,
+    cache)`` continues a prefill at the cache's current offsets and returns
+    the logits of EVERY chunk position (``None`` for the ``ssm`` family).
+    Every step updates ``cache`` in place.  ``pool_pages`` oversubscribes
+    the paged pool below ``batch * max_pages`` (only behind ``ServePool``'s
+    page-reservation admission).
     """
     if mesh is not None:
         raise NotImplementedError("mesh-sharded serving comes with ROADMAP.md, "
                                   "Queue 1 item 8")
     cache_kw = {"paged": True, "page_size": page_size} if paged else {}
+    if paged and pool_pages is not None:
+        cache_kw["pool_pages"] = pool_pages
 
     def init_serve(params, batch: int, max_len: int):
         cache = model.init_cache(batch, max_len, **cache_kw)
@@ -175,4 +187,11 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
         next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
         return next_tok, logits, cache
 
-    return ServeSteps(prefill_step, decode_step, init_serve)
+    prefill_chunk_step = None
+    if model.prefill_chunk is not None:
+        chunk = model.prefill_chunk
+
+        def prefill_chunk_step(params, batch, cache):
+            return chunk(params, batch, cache, phase="prefill")
+
+    return ServeSteps(prefill_step, decode_step, init_serve, prefill_chunk_step)

@@ -257,19 +257,20 @@ def test_report_and_later_stages(pair):
     assert 0 < rep["compression_ratio"] < 1
     assert rep["compression_ratio"] == compression_ratio(ts.params)
     assert sum(c.numel() for c in cores) < rep["params_total"]
-    # finetune, from_dense, squeeze and persistence are ported
-    # (tests/test_torch_train.py, tests/test_torch_lifecycle.py,
-    # tests/test_torch_persistence.py); the later stages raise naming their
+    # finetune, from_dense, squeeze, persistence and the serving front end
+    # are ported (tests/test_torch_train.py, tests/test_torch_lifecycle.py,
+    # tests/test_torch_persistence.py, tests/test_torch_serve_pool.py,
+    # tests/test_torch_router.py); serving over a mesh raises naming its
     # ROADMAP.md item
     fresh = TSession.init(ts.cfg, device="cpu")
     rep = fresh.finetune(steps=1, seq_len=8, batch_size=2)
     assert {"trainable", "reduction", "loss_first", "loss_final", "history"} <= set(rep)
     assert fresh.report()["stage"] == "finetune"
-    for call, item in ((ts.serve_pool, "item 4"), (ts.serve_fleet, "item 4")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
+    for call in (lambda: ts.serve(2, 16, mesh=object()),
+                 lambda: ts.serve_pool(2, 16, mesh=object()),
+                 lambda: ts.serve_fleet(2, 2, 16, mesh=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 8"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 8"):
-        ts.serve(2, 16, mesh=object())
 
 
 def test_other_families_raise():
