@@ -32,7 +32,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
    MPO-linear forward at bert-base's matrices (M = 1, 8,
    100 at attn and 1024), at mamba2-130m's in_proj (768 -> 3352; M = 1, 8,
    100 and 4096) and out_proj (1536 -> 768; M = 8 and 4096), and its tied
-   head (768 -> 50432, M = 8), both dtypes.
+   head (768 -> 50432, M = 8), both dtypes; in bf16 at the dense LLM
+   configurations' matrices: gemma2-27b's wq (4608 -> 4096, M = 8 and 4096)
+   and tied head (4608 -> 256000, M = 8), mistral-nemo-12b's w_up (5120 ->
+   14336, M = 4096), nemotron-4-15b's wq (6144 -> 6144, M = 8 and 4096).
+   Flash decode also at gemma2-27b's geometry (KV = 16, G = 2, Dh = 128,
+   softcap 50, a 64-key window's bias), mistral-nemo-12b's (KV = 8, G = 4)
+   and nemotron-4-15b's (KV = 8, G = 6), ragged, both dtypes.
 3. path — full-width bert-base served from 8 prompts of 128 tokens,
    ``serve(8, 256, paged=True)``, 32 generated tokens, once with the weight
    cache and once factorized through the MPO-linear kernel.  Launch counts
@@ -88,8 +94,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    spectra, tt_round, re-tune and evaluation; both kernels at every distinct
    squeezed core shape against their plain versions (M = 2048, bf16); (e)
    the squeezed model served, ``serve(8, 160, paged=True)`` both ways: a new
-   weights version, the cached W equal to the squeezed cores'
-   reconstruction, prefill logits of the two runs within ``PATH_TOL``, flash
+   weights version, the cached W the squeezed cores' contraction rounded
+   once to bf16 (bit for bit), prefill logits of the two runs within ``PATH_TOL``, flash
    and forward launches; (f) cuSOLVER against LAPACK: the smoke model's exact conversion
    and three squeeze moves on the card and on the CPU, the same
    (layer, bond, new_dim) sequence, predicted errors and reconstructions
@@ -137,9 +143,41 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (0 trips) and with ``kill-pool:1:10`` (a rebuild, its parameters on the
    card), every request done with the serial tokens; (e) ``flash-raise``:
    a pool step raises ``InjectedKernelError``, no plain version runs.
-9. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+9. albert — albert-base (bf16, one stored layer run 12 times) at full
+   width and depth through phase 6's lifecycle: ``from_dense`` of an exact
+   and a truncated tree (errors, Eq. 4 bounds, seconds); 4 LFA steps of the
+   ``cls`` task at 16 x 128 (284,020 of 702,836 parameters train, central
+   cores unchanged, the cores backward 12 calls a matrix a step); four
+   squeeze iterations at phase 6's settings (each event against its float64
+   recount, rho falling, no plan lost ``kernel``, the cores backward in the
+   re-tunes only); the squeezed model served ``serve(8, 256, paged=True)``
+   from 8 x 128 prompts, 32 new tokens, with the weight cache (its W the
+   cores' contraction in bf16) and factorized (prefill logits within
+   ``PATH_TOL``, flash once a layer a decode step); float32 greedy tokens
+   of the squeezed tree identical across paged factorized, paged cached and
+   the unpaged cache; the session saved and restored on the card, serving
+   the same tokens both ways.
+10. llm — gemma2-27b, mistral-nemo-12b, nemotron-4-15b and qwen3-14b, one at
+   a time, each freed before the next: the memory of a bf16 cached handle
+   reckoned from the shapes first; (a) bf16 at full width and depth,
+   ``serve(8, 640, paged=True)`` from 8 x 512 prompts, 16 new tokens, with
+   the weight cache (init, ``cache_weights`` seconds and bytes, prefill,
+   decode, tok/s, peak memory; flash once a layer a step and no other
+   kernel); (a') the same model factorized, the tensor-core forward launched
+   exactly as the engine's plans name it, matrix by matrix (mistral-nemo-12b
+   and qwen3-14b at 4 layers); (b) float32 at
+   full width and 2 layers (gemma2-27b: one 4352-token prompt, past its
+   4096-token window; the others 2 x 128), 16 new tokens: greedy tokens
+   identical across the three runs of phase 4, every step's logits within
+   ``f32_tol`` of the teacher-forced forward's on the same tokens, the
+   forward kernels the float32 plans name (``csrc/mpo_linear.cu`` at
+   gemma2's and nemotron's FFN), and gemma2's w_down (36864 -> 4608)
+   through ``csrc/mpo_linear.cu`` against its plain version at M = 64.
+   The factorized runs of mistral-nemo-12b and qwen3-14b are cut to 4
+   layers (``LLM_FACT_LAYERS``).
+11. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
    squeezed shapes' times are phase 6's records).
-10. last line: ``{"ok": true, "device": {...}}``.
+12. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -218,8 +256,32 @@ CPU_TOL = 1e-4
 # has two replicas of 4 slots; mamba2-130m pools of 4 slots at max_len 544
 POOL_SLOTS, POOL_MAX_LEN, POOL_PAGE, POOL_REQUESTS, F32_REQUESTS = 8, 160, 16, 32, 16
 FLEET_SLOTS, MAMBA_SLOTS = 4, 4
+# albert-base (phase 9): the paper's other subject model through phase 6's
+# lifecycle and phases 3-4's serving, at bert-base's sizes
+ALBERT_LFA_COUNTS = (284_020, 702_836)           # trainable, total (reference's count)
+# the dense LLM configurations (phase 10): bf16 at full width and depth from 8
+# prompts of 512 tokens, 16 new; float32 at full width and 2 layers, 16 new,
+# from 2 prompts of 128 (gemma2-27b: one of 4352, past its 4096-token window);
+# gemma2's CUDA-core FFN held against its plain version at M = 64.  The
+# factorized bf16 runs of mistral-nemo-12b and qwen3-14b are cut to 4 layers:
+# the forward takes ~140 ms a call at their FFN (phase 2's mistral w_up case
+# on an H100), ~17 s a full-depth prefill (PERF.md)
+LLM_ARCHS = ("gemma2-27b", "mistral-nemo-12b", "nemotron-4-15b", "qwen3-14b")
+LLM_BATCH, LLM_PROMPT, LLM_MAX_LEN, LLM_NEW = 8, 512, 640, 16
+LLM_FACT_LAYERS = {"mistral-nemo-12b": 4, "qwen3-14b": 4}
+LLM_F32_LAYERS, LLM_F32_NEW, LLM_F32_CASE_M = 2, 16, 64
+LLM_F32_PROMPT, LLM_F32_SHORT = {"gemma2-27b": (1, 4352)}, (2, 128)
 PEAK_BYTES_S = 3.35e12                           # H100 SXM HBM3
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 non-tensor
+
+
+def f32_tol(terms: int, layers: int = 1) -> float:
+    """float32 against float32 summed in another order over ``terms`` terms:
+    ``TOL``'s 1e-4 is set for 3072, and the rounding of a sum grows as the
+    root of its terms, so 1e-4 x sqrt(terms / 3072); each layer of a run
+    adds its own.  gemma2-27b's d_ff of 36864 over two layers gives 6.9e-4,
+    below the 2^-9 (2.0e-3) one bf16 rounding would add."""
+    return TOL["float32"] * math.sqrt(terms / 3072) * layers
 
 
 def emit(**kw):
@@ -345,6 +407,43 @@ def planned_modes(engine, params: dict, train_tokens: int, prefill_tokens: int,
     return out
 
 
+def serve_plan(engine, params: dict, cfg, batch: int, prompt: int,
+               dtype: str) -> tuple[dict, dict]:
+    """How the engine plans a factorized serving run on the card (``linear``'s
+    rules): each layer matrix at a prefill's ``batch * prompt`` rows, the
+    head (E^T when ``tied``, else ``lm_head``) at the prefill's last
+    position (``batch`` rows), and in decode the ``cached`` plan re-made as a
+    prefill of ``batch`` rows (raw cores).  Returns ``({matrix: {"prefill":
+    mode, "decode": mode}}, {kernel: [launches a prefill, launches a decode
+    step]})`` with the kernel ``mpo_linear`` routes each ``kernel`` plan to;
+    a layer matrix runs once a layer (``num_layers`` times for the one
+    stored layer of ``share_layers``)."""
+    from repro_torch.core import squeeze as SQ
+    from repro_torch.core.layers import cores_to_list
+    from repro_torch.kernels import mpo_linear as MK
+    modes, launches = {}, {}
+    for path, cd in SQ.find_mpo_layers(params).items():
+        cores = cores_to_list(cd)
+        shapes = tuple(tuple(c.shape[-4:]) for c in cores)
+        if path[0] == "embed":
+            if not cfg.tie_embeddings:
+                continue                     # looked up, never multiplied
+            shapes = tuple((d0, j, i, d1) for d0, i, j, d1 in shapes)      # E^T
+        head = path[0] in ("embed", "lm_head")
+        rows = batch if head else batch * prompt
+        plan = lambda m, ph: engine.plan(shapes, m, ph, dtype, "cuda").mode
+        dec = plan(batch, "decode")
+        use = {"prefill": plan(rows, "prefill"),
+               "decode": plan(batch, "prefill") if dec == "cached" else dec}
+        modes["/".join(path[:-1])] = use
+        route = {"mma": "mpo_linear_fwd_mma", "cuda_core": "mpo_linear_fwd"}.get(
+            MK.forward_kernel(shapes, dtype))
+        for k, ph in enumerate(("prefill", "decode")):
+            if use[ph] == "kernel":
+                launches.setdefault(route, [0, 0])[k] += 1 if head else cfg.num_layers
+    return modes, launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -395,11 +494,12 @@ def main() -> int:
         each (``repro_torch.timing.device_ms``)."""
         return device_ms(fn, flush_buf, reps)
 
-    def check(name, out, ref, dtype, extra):
+    def check(name, out, ref, dtype, extra, tol=None):
+        tol = TOL[dtype] if tol is None else tol
         err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
-        if not (err <= TOL[dtype] * scale and torch.isfinite(out).all()):
-            fail(f"{name} {extra}: max abs err {err} > {TOL[dtype]} x {scale}")
+        if not (err <= tol * scale and torch.isfinite(out).all()):
+            fail(f"{name} {extra}: max abs err {err} > {tol} x {scale}")
         return err
 
     # ---- 2. kernels against their plain versions ----
@@ -415,7 +515,7 @@ def main() -> int:
     mma_lib = MK._mma_lib()
     kname = {"mma": "mpo_linear_fwd_mma", "cuda_core": "mpo_linear_fwd"}
 
-    def fwd_case(mname, cores32, m, dtype, phase="kernels"):
+    def fwd_case(mname, cores32, m, dtype, phase="kernels", reps=10, tol=None):
         """The MPO-linear forward through ``MK.mpo_linear`` against its plain
         version: the kernel ``MK.forward_kernel`` names for the shapes (the
         tensor-core kernel in both dtypes, ``csrc/mpo_linear.cu`` for narrow
@@ -423,7 +523,8 @@ def main() -> int:
         tensor-core kernel the plan's shared memory and workspace match the
         CUDA source's, the workspace stays under a quarter of a bf16 W's
         bytes, and in float32 ``csrc/mpo_linear.cu`` is timed beside it
-        (``prev_ms``)."""
+        (``prev_ms``).  ``tol`` replaces ``TOL`` where more terms are summed
+        than it was set for; ``reps`` shortens the timing of a slow case."""
         tdt = getattr(torch, dtype)
         cores = [c.to(tdt).contiguous() for c in cores32]
         shapes = tuple(tuple(c.shape) for c in cores)
@@ -461,24 +562,26 @@ def main() -> int:
             if dtype == "float32" and MK._launch_plan(shapes) is not None:
                 # the CUDA-core kernel the float32 path ran before, as the yardstick
                 extra["prev_ms"] = timed(lambda: MK.mpo_linear_cuda_core(cores, shapes, j_dim,
-                                                                          m, x))
+                                                                          m, x), reps)
         ref = MK.mpo_linear_plain(cores, x)
-        err = check(kname[route], y, ref, dtype, f"{mname} M={m} {dtype}")
+        tol = TOL[dtype] if tol is None else tol
+        err = check(kname[route], y, ref, dtype, f"{mname} M={m} {dtype}", tol)
         isz = x.element_size()
         nbytes = isz * (x.numel() + sum(c.numel() for c in cores) + m * j_dim)
         ops = 2 * m * i_dim * j_dim
         w = mpo.reconstruct(cores)
         rec = dict(
             kernel=kname[route], matrix=mname, shapes=[list(c.shape) for c in cores],
-            M=m, dtype=dtype, max_abs_err=err, tol=TOL[dtype], deterministic=True, **extra,
-            kernel_ms=timed(lambda: MK.mpo_linear(cores, x)),
-            plain_ms=timed(lambda: MK.mpo_linear_plain(cores, x)),
-            library_ms=timed(lambda: torch.matmul(x, mpo.reconstruct(cores))),
-            dense_matmul_ms=timed(lambda: torch.matmul(x, w)),
+            M=m, dtype=dtype, max_abs_err=err, tol=tol, deterministic=True, **extra,
+            kernel_ms=timed(lambda: MK.mpo_linear(cores, x), reps),
+            plain_ms=timed(lambda: MK.mpo_linear_plain(cores, x), reps),
+            library_ms=timed(lambda: torch.matmul(x, mpo.reconstruct(cores)), reps),
+            dense_matmul_ms=timed(lambda: torch.matmul(x, w), reps),
             bound_ms=1e3 * max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]),
             bound_by="bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_OPS_S[dtype]
             else "operations")
         emit(phase=phase, **rec)
+        del w
         return rec
 
     for mname, cores32 in mats.items():
@@ -496,7 +599,10 @@ def main() -> int:
     results[("mpo", "smoke wq", 48, "float32")] = fwd_case("smoke bert-base wq", smoke_wq, 48,
                                                           "float32")
 
-    def flash_case(kv, g, dh, dtype, softcap, lens):
+    def flash_case(kv, g, dh, dtype, softcap, lens, window=None):
+        """Flash decode against its plain version over ragged slots; with
+        ``window``, each slot's bias masks the keys a local layer drops (the
+        ones more than ``window`` behind its newest, as ``mask_local`` does)."""
         tdt = getattr(torch, dtype)
         ps, mp = 16, MAX_LEN // 16
         p = BATCH * mp
@@ -507,8 +613,11 @@ def main() -> int:
         npg = (lens_t + ps - 1) // ps
         perm = torch.randperm(p, generator=gen).reshape(BATCH, mp).int()
         table = torch.where(torch.arange(mp)[None] < npg[:, None], perm, -1).int()
-        bias = torch.where(torch.arange(mp * ps)[None] < lens_t[:, None], 0.0,
-                           DA.MASK_VALUE).float()
+        kpos = torch.arange(mp * ps)[None]
+        keep = kpos < lens_t[:, None]
+        if window is not None:
+            keep &= kpos >= lens_t[:, None] - window
+        bias = torch.where(keep, 0.0, DA.MASK_VALUE).float()
         table, lens_d, bias = table.to(dev), lens_t.to(dev), bias.to(dev)
         args = (q, kp, vp, table, lens_d, bias)
         out = DA.flash_decode_attention(*args, softcap=softcap)
@@ -546,7 +655,7 @@ def main() -> int:
             library_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, kg, vg, attn_mask=amask))
         rec = dict(kernel="flash_decode_attention", KV=kv, G=g, Dh=dh, page_size=ps,
-                   lengths=lens, softcap=softcap, dtype=dtype, max_abs_err=err,
+                   lengths=lens, softcap=softcap, window=window, dtype=dtype, max_abs_err=err,
                    tol=TOL[dtype], splits=plan.splits, kt=plan.kt, deterministic=True,
                    kernel_ms=timed(lambda: DA.flash_decode_attention(*args, softcap=softcap)),
                    prev_ms=timed(serial),
@@ -571,6 +680,16 @@ def main() -> int:
         # the serving path's own geometry: every slot at the same length
         results[("flash", "path", dtype)] = flash_case(12, 1, 64, dtype, None,
                                                        [PROMPT + 16] * BATCH)
+        # the dense LLM configurations' geometries, ragged: gemma2-27b's (KV =
+        # 16, G = 2) with its softcap 50 and a local layer's window bias (64
+        # keys, so that it binds within a slot's 256 here; its own 4096 binds
+        # in phase 10's 4352-token prompt), mistral-nemo-12b's (G = 4) and
+        # nemotron-4-15b's (G = 6)
+        results[("flash", "gemma2-27b", dtype)] = flash_case(16, 2, 128, dtype, 50.0, ragged,
+                                                             window=64)
+        results[("flash", "mistral-nemo-12b", dtype)] = flash_case(8, 4, 128, dtype, None,
+                                                                   ragged)
+        results[("flash", "nemotron-4-15b", dtype)] = flash_case(8, 6, 128, dtype, None, ragged)
 
     # the SSD scan at mamba2-130m's head geometry, and the MPO-linear forward
     # at its projections
@@ -681,6 +800,31 @@ def main() -> int:
         results[("mpo", "head", MAMBA_BATCH, dtype)] = fwd_case(
             "mamba2-130m head", head, MAMBA_BATCH, dtype)
 
+    # the bf16 forward at the dense LLM configurations' matrices (one layer
+    # and the embedding drawn for each): a decode step's M = 8 and a
+    # prefill's 8 x 512
+    from repro_torch.models import transformer as TR
+
+    def llm_matrix(arch, name):
+        cfg = configs.get_config(arch)
+        lg = torch.Generator().manual_seed(SEED)
+        if name == "head":
+            emb = L.init_embedding(lg, cfg.vocab_size, cfg.d_model, cfg=cfg.mpo)
+            return [c.to(dev) for c in mpo.transpose_cores(cores_to_list(emb["cores"]))]
+        layer = TR.init_layer(lg, cfg)
+        return [c.to(dev) for c in
+                cores_to_list(layer["attn" if name in layer["attn"] else "mlp"][name]["cores"])]
+
+    llm_m = LLM_BATCH * LLM_PROMPT
+    for arch, name, ms in (("gemma2-27b", "wq", (8, llm_m)), ("gemma2-27b", "head", (8,)),
+                           ("mistral-nemo-12b", "w_up", (llm_m,)),
+                           ("nemotron-4-15b", "wq", (8, llm_m))):
+        cores32 = llm_matrix(arch, name)
+        for m in ms:
+            results[("mpo", arch, name, m, "bfloat16")] = fwd_case(f"{arch} {name}", cores32, m,
+                                                                   "bfloat16")
+        del cores32
+
     # ---- 3. the serving paths at full width ----
     def kernel_mode(cfg):
         """``cfg`` with every factorized matmul in the kernel mode."""
@@ -705,8 +849,8 @@ def main() -> int:
                 "flash_decode_attention_plain": DA.flash_decode_attention_plain.calls,
                 "ssd_scan_plain": SSD.ssd_scan_plain.calls}
 
-    def serve_run(sess, arch, prompts, max_len, kernels, **serve_kw):
-        """Warm up, then one timed prefill and NEW_TOKENS - 1 decode steps,
+    def serve_run(sess, arch, prompts, max_len, kernels, new_tokens=NEW_TOKENS, **serve_kw):
+        """Warm up, then one timed prefill and ``new_tokens`` - 1 decode steps,
         the launch counts zeroed just before each and read just after; emits
         the run's record and fails on non-finite output, a factorized run
         that never launched the MPO-linear kernel, or any plain-version call.
@@ -727,14 +871,14 @@ def main() -> int:
         zero_counts()
         tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
         out, steps = [tok], []
-        for _ in range(NEW_TOKENS - 1):
+        for _ in range(new_tokens - 1):
             tok, step_logits = handle.decode(tok)
             out.append(tok)
             steps.append(step_logits)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         per_decode = read_counts()
-        n_dec = NEW_TOKENS - 1
+        n_dec = new_tokens - 1
         decode_step_ms[(arch, serve_kw.get("weight_cache", True))] = 1e3 * (t2 - t1) / n_dec
         cache = handle.cache if isinstance(handle.cache, dict) else {"state": handle.cache}
         finite = (bool(torch.isfinite(logits).all())
@@ -744,9 +888,9 @@ def main() -> int:
         tokens = torch.cat(out, 1)
         wc = serve_kw.get("weight_cache", True)
         emit(phase="path", arch=arch, dtype=sess.cfg.dtype, **serve_kw, batch=batch,
-             prompt=prompts.shape[1], max_len=max_len, new_tokens=NEW_TOKENS,
+             prompt=prompts.shape[1], max_len=max_len, new_tokens=new_tokens,
              prefill_ms=1e3 * (t1 - t0), decode_ms_per_step=1e3 * (t2 - t1) / n_dec,
-             tokens_per_s=batch * NEW_TOKENS / (t2 - t0),
+             tokens_per_s=batch * new_tokens / (t2 - t0),
              peak_mem_bytes=torch.cuda.max_memory_allocated(), mem_before_bytes=mem_before,
              cache_bytes=sum(t.numel() * t.element_size() for t in cache.values()),
              launches_per_prefill={k: per_prefill[k] for k in kernels},
@@ -754,7 +898,7 @@ def main() -> int:
              plain_calls=sum(per_prefill[k] + per_decode[k] for k in plains),
              logits_finite=finite, tokens_shape=list(tokens.shape),
              compression_ratio=sess.report()["compression_ratio"])
-        if not finite or tokens.shape != (batch, NEW_TOKENS):
+        if not finite or tokens.shape != (batch, new_tokens):
             fail(f"{arch} weight_cache={wc}: non-finite logits or cache, or tokens of "
                  f"shape {tuple(tokens.shape)}")
         # the full-width matrices run the tensor-core kernel, never the
@@ -869,31 +1013,45 @@ def main() -> int:
     del msess, handle
 
     # ---- 4. float32 token parity, then the smoke model card vs CPU ----
+    def greedy_runs(what, sess, prompts, max_len, new_tokens):
+        """Greedy generation three ways, each handle dropped after its run:
+        paged + factorized, paged + weight cache, the unpaged (dense) cache
+        + weight cache.  Fails unless the tokens are identical.  Returns
+        ``({run: (tokens, each step's logits)} on the CPU, min top-2 margin,
+        {run: wall s})``."""
+        runs, wall = {}, {}
+        for name, kw in (("paged_factorized", dict(paged=True, weight_cache=False)),
+                         ("paged_cached", dict(paged=True, weight_cache=True)),
+                         ("dense_cached", dict(paged=False, weight_cache=True))):
+            t0 = time.perf_counter()
+            h = sess.serve(len(prompts), max_len, **kw)
+            logits = h.prefill({"tokens": prompts})
+            steps = [logits[:, -1]]
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            toks = [tok]
+            for _ in range(new_tokens - 1):
+                tok, lg = h.decode(tok)
+                toks.append(tok)
+                steps.append(lg[:, -1])
+            runs[name] = (torch.cat(toks, 1).cpu(), torch.stack(steps, 1).cpu())
+            wall[name] = time.perf_counter() - t0
+            sess._serve.clear()
+            del h, logits, steps
+        torch.cuda.empty_cache()
+        ref_tokens, ref_logits = runs["dense_cached"]
+        top2 = ref_logits.topk(2, dim=-1).values
+        for name, (toks, _) in runs.items():
+            if not torch.equal(toks, ref_tokens):
+                row, step = (toks != ref_tokens).nonzero()[0].tolist()
+                fail(f"{what}: {name} differs from dense_cached at slot {row} step {step} "
+                     f"(top-2 margin there {top2[row, step, 0] - top2[row, step, 1]})")
+        return runs, (top2[..., 0] - top2[..., 1]).min().item(), wall
+
     t_f32 = time.perf_counter()
     s32 = Session.init("bert-base", smoke=False, seed=SEED, dtype="float32")
-    runs = {}
     zero_counts()
-    for name, kw in (("paged_factorized", dict(paged=True, weight_cache=False)),
-                     ("paged_cached", dict(paged=True, weight_cache=True)),
-                     ("dense_cached", dict(paged=False, weight_cache=True))):
-        h = s32.serve(BATCH, MAX_LEN, **kw)
-        logits = h.prefill({"tokens": prompts})
-        steps = [logits[:, -1]]
-        tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-        toks = [tok]
-        for _ in range(NEW_TOKENS - 1):
-            tok, lg = h.decode(tok)
-            toks.append(tok)
-            steps.append(lg[:, -1])
-        runs[name] = (torch.cat(toks, 1).cpu(), torch.stack(steps, 1).cpu())
-    ref_tokens, ref_logits = runs["dense_cached"]
-    top2 = ref_logits.topk(2, dim=-1).values
-    min_margin = (top2[..., 0] - top2[..., 1]).min().item()
-    for name, (toks, _) in runs.items():
-        if not torch.equal(toks, ref_tokens):
-            row, step = (toks != ref_tokens).nonzero()[0].tolist()
-            fail(f"float32 token parity: {name} differs from dense_cached at slot {row} "
-                 f"step {step} (top-2 margin there {top2[row, step, 0] - top2[row, step, 1]})")
+    runs, min_margin, _ = greedy_runs("float32 token parity", s32, prompts, MAX_LEN,
+                                      NEW_TOKENS)
     f32_counts = read_counts()
     emit(phase="parity", dtype="float32", runs=sorted(runs), identical=True,
          tokens=NEW_TOKENS, min_top2_margin=min_margin, launches=f32_counts,
@@ -1367,18 +1525,21 @@ def main() -> int:
         if per_decode["flash_decode_attention"] == 0:
             fail(f"serve after squeeze weight_cache={wc}: decode never launched flash")
         if wc:
-            wdiff, dense_mats = 0.0, 0
+            # the cached W: the squeezed cores' float32 contraction rounded
+            # once to the activation dtype, bit for bit
+            differ, dense_mats = [], 0
             for path, cd in SQ.find_mpo_layers(life.params).items():
                 node = _at(handle.params, path[:-1])
                 if "w" in node:
-                    want = mpo.reconstruct_stacked(cores_to_list(cd))
-                    d = ((node["w"].float() - want).abs().max() / want.abs().max()).item()
-                    wdiff, dense_mats = max(wdiff, d), dense_mats + 1
+                    want = mpo.reconstruct_stacked(cores_to_list(cd)).to(life.cfg.torch_dtype)
+                    dense_mats += 1
+                    if not torch.equal(node["w"], want):
+                        differ.append("/".join(path[:-1]))
             emit(phase="lifecycle", step="serve weight cache", densified=dense_mats,
-                 cached_w_vs_reconstruct_max_rel_diff=wdiff)
-            if dense_mats == 0 or wdiff > 1e-6:
-                fail(f"serve after squeeze: {dense_mats} densified matrices, cached W differs "
-                     f"from the squeezed cores' reconstruction by {wdiff}")
+                 dtype=life.cfg.dtype, cached_w_not_the_cores_contraction=differ)
+            if dense_mats == 0 or differ:
+                fail(f"serve after squeeze: {dense_mats} densified matrices, the cached W of "
+                     f"{differ} is not the squeezed cores' contraction in {life.cfg.dtype}")
     diff = (life_logits[True] - life_logits[False]).abs().max().item()
     scale = life_logits[True].abs().max().item()
     emit(phase="lifecycle", step="serve", prefill_logits_max_abs_diff=diff, scale=scale,
@@ -1778,10 +1939,10 @@ def main() -> int:
         if name == "whole, weight cache":
             parked_rows(pool, bsess.cfg)
         del pool                 # each run's peak memory is its own pool's
-    same = [np.array_equal(a, b) for a, b in zip(bert_runs["whole, weight cache"],
-                                                  bert_runs["chunk 32 + bucket, weight cache"])]
+    agree = [np.array_equal(a, b) for a, b in zip(bert_runs["whole, weight cache"],
+                                                   bert_runs["chunk 32 + bucket, weight cache"])]
     emit(phase="serve_pool", arch="bert-base", dtype="bfloat16",
-         whole_vs_chunked_same_tokens=f"{sum(same)}/{len(same)}",
+         whole_vs_chunked_same_tokens=f"{sum(agree)}/{len(agree)}",
          phase3_decode_ms_per_step={"weight cache": decode_step_ms[("bert-base", True)],
                                     "factorized": decode_step_ms[("bert-base", False)]})
     del bsess
@@ -1916,7 +2077,340 @@ def main() -> int:
     del m32, pool
     emit(phase="serve_pool", s=time.perf_counter() - s_t0)
 
-    # ---- 9. the kernels line: one entry per kernel and dtype ----
+    # ---- 9. albert-base: from_dense -> LFA -> squeeze -> serve, saved and restored ----
+    a_t0 = time.perf_counter()
+    aprompts = np.random.default_rng(SEED + 2).integers(
+        0, 30000, (BATCH, PROMPT)).astype(np.int32)          # albert's 30000 real ids
+    # (a) Algorithm 1, exact (the reconstructions of a random MPO init) and
+    # truncated (the port's dense build, full-rank Gaussian)
+    src = Session.init("albert-base", smoke=False, seed=SEED)
+    acfg = src.cfg
+    dense = exact_dense(src.params)
+    conv = {}
+    t0 = sync_clock()
+    alb = Session.from_dense(dense, acfg)
+    conv["exact"] = sync_clock() - t0
+    exact_errs = eq4_errors(alb.params, dense)
+    rep = alb.report()
+    a32 = dataclasses.replace(acfg, dtype="float32")
+    with torch.no_grad():
+        ptok = torch.as_tensor(aprompts, device=dev)
+        l_src = TR.forward(src.params, {"tokens": ptok}, a32, phase="prefill").float()
+        l_conv = TR.forward(alb.params, {"tokens": ptok}, a32, phase="prefill").float()
+    ldiff, lscale = (l_conv - l_src).abs().max().item(), l_src.abs().max().item()
+    del src, dense, l_src, l_conv
+    dense = TMOD.build(dataclasses.replace(acfg, mpo=dataclasses.replace(acfg.mpo, enabled=False)),
+                       seed=SEED).tree()
+    t0 = sync_clock()
+    trunc = Session.from_dense(dense, acfg)
+    conv["truncated"] = sync_clock() - t0
+    trunc_errs = eq4_errors(trunc.params, dense)
+    worst = max(e["rel_err"] / e["bound"] for e in trunc_errs)
+    emit(phase="albert", step="from_dense", from_dense_s=conv,
+         exact={"matrices": rep["stages"][-1]["matrices"],
+                "conversion_max_rel_err": rep["conversion_max_rel_err"],
+                "max_eq4_bound": max(e["bound"] for e in exact_errs), "tol": EXACT_TOL,
+                "f32_prefill_logits_max_abs_diff": ldiff, "scale": lscale,
+                "logits_tol": SMOKE_TOL},
+         truncated={"matrices_by_layer": len(trunc_errs),
+                    "max_rel_err": max(e["rel_err"] for e in trunc_errs),
+                    "max_eq4_bound": max(e["bound"] for e in trunc_errs),
+                    "max_err_over_eq4_bound": worst, "slack": EQ4_SLACK})
+    if not rep["conversion_max_rel_err"] <= EXACT_TOL or not ldiff <= SMOKE_TOL * lscale:
+        fail(f"albert-base from_dense of an exact tree: error {rep['conversion_max_rel_err']}, "
+             f"float32 prefill logits {ldiff} from the source model's (scale {lscale})")
+    if not worst <= 1 + EQ4_SLACK:
+        fail(f"albert-base from_dense truncated: an error exceeds Eq. 4's bound by {worst}")
+    del trunc, dense
+
+    # (b) LFA on the converted session: the one stored layer runs 12 times a
+    # step, so the cores backward runs 12 times a matrix a step
+    a_plans = planned_modes(alb.engine, alb.params, tokens, BATCH * PROMPT, BATCH)
+    a_train = sum(m == "kernel" for (_, use), m in a_plans.items() if use == "train")
+    central = {k: v.clone() for k, v in alb.model.state_dict().items() if k.endswith(".central")}
+    zero_all()
+    t0 = sync_clock()
+    ft = alb.finetune(mode="lfa", steps=LIFE_STEPS, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                      seed=SEED, log_every=1)
+    ft_s = sync_clock() - t0
+    counts = kernel_counts()
+    want_bwd = LIFE_STEPS * acfg.num_layers * a_train
+    unchanged = all(torch.equal(v, alb.model.state_dict()[k]) for k, v in central.items())
+    emit(phase="albert", step="finetune lfa", steps=LIFE_STEPS, batch=TRAIN_BATCH,
+         seq_len=TRAIN_SEQ, s=ft_s, ms_per_step=1e3 * ft_s / LIFE_STEPS,
+         losses=[h["loss"] for h in ft["history"]], trainable=ft["trainable"], total=ft["total"],
+         launches={k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores")},
+         bwd_calls_expected=want_bwd, matrices_planned_kernel=a_train,
+         central_unchanged=unchanged)
+    fold("albert-base lifecycle finetune lfa", counts,
+         ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"))
+    if (ft["trainable"], ft["total"]) != ALBERT_LFA_COUNTS:
+        fail(f"albert-base LFA: {ft['trainable']} of {ft['total']} trainable, expected "
+             f"{ALBERT_LFA_COUNTS}")
+    if counts["mpo_linear_bwd_cores"] != want_bwd or not central or not unchanged:
+        fail(f"albert-base LFA: {counts['mpo_linear_bwd_cores']} cores-backward calls, "
+             f"expected {want_bwd}; central cores unchanged {unchanged}")
+    if not all(math.isfinite(h["loss"]) for h in ft["history"]):
+        fail(f"albert-base LFA: losses {[h['loss'] for h in ft['history']]}")
+
+    # (c) Algorithm 2 at phase 6's settings: every iteration accepted
+    a_ev = dict.fromkeys(fwd_bwd(), 0)
+
+    def a_eval(p):
+        before = fwd_bwd()
+        metric = alb.evaluate(p, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH)
+        for k, v in fwd_bwd().items():
+            a_ev[k] += v - before[k]
+        return metric
+
+    trees, events = [], []
+    zero_all()
+    t0 = sync_clock()
+    for _ in range(LIFE_ITERS):
+        trees.append(clone(alb.params))
+        events += alb.squeeze(step=1, max_iters=1, finetune_steps=LIFE_STEPS, seq_len=TRAIN_SEQ,
+                              batch_size=TRAIN_BATCH, delta=1.0, eval_fn=a_eval)
+    squeeze_s = sync_clock() - t0
+    counts = kernel_counts()
+    retune = {k: counts[k] - a_ev[k] for k in a_ev}
+    if len(events) != LIFE_ITERS:
+        fail(f"albert-base squeeze: {len(events)} events, expected {LIFE_ITERS}")
+    for it, (ev, pre) in enumerate(zip(events, trees)):
+        emit(phase="albert", step="squeeze iteration", iteration=it,
+             layer="/".join(ev.layer[:-1]), bond=ev.bond, new_dim=ev.new_dim,
+             predicted_error=ev.predicted_error, metric=ev.metric, seconds=ev.seconds,
+             **check_event(ev, pre))
+    del trees
+    stages = [r for r in alb.report()["stages"] if r["stage"] == "squeeze"][-LIFE_ITERS:]
+    a_after = planned_modes(alb.engine, alb.params, tokens, BATCH * PROMPT, BATCH)
+    lost = {k: a_after[k] for k, m in a_plans.items() if m == "kernel" and a_after[k] != "kernel"}
+    want_bwd = LIFE_ITERS * LIFE_STEPS * acfg.num_layers * a_train
+    emit(phase="albert", step="squeeze", s=squeeze_s, events=len(events),
+         rho_before=stages[0]["rho_before"], rho_after=stages[-1]["rho_after"],
+         launches_in_retune=retune, launches_in_evaluations=a_ev,
+         bwd_calls_expected=want_bwd, plans_lost_kernel=lost)
+    fold("albert-base lifecycle squeeze", counts, ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"))
+    if not stages[-1]["rho_after"] < stages[0]["rho_before"] or lost:
+        fail(f"albert-base squeeze: rho {stages[0]['rho_before']} -> "
+             f"{stages[-1]['rho_after']}, plans no longer kernel {lost}")
+    if retune["mpo_linear_bwd_cores"] != want_bwd or a_ev["mpo_linear_bwd_cores"]:
+        fail(f"albert-base squeeze: {retune['mpo_linear_bwd_cores']} cores-backward calls in "
+             f"the re-tunes (expected {want_bwd}), {a_ev['mpo_linear_bwd_cores']} in evaluations")
+
+    # (d) the squeezed model served in bf16, with the weight cache and without
+    a_logits, a_tokens = {}, {}
+    for wc in (True, False):
+        handle, _, per_decode, a_logits[wc] = serve_run(
+            alb, "albert-base squeezed", aprompts, MAX_LEN,
+            ("mpo_linear_fwd_mma", "flash_decode_attention"), paged=True, weight_cache=wc)
+        if per_decode["flash_decode_attention"] != acfg.num_layers * (NEW_TOKENS - 1):
+            fail(f"albert-base weight_cache={wc}: {per_decode['flash_decode_attention']} flash "
+                 f"launches in {NEW_TOKENS - 1} decode steps of {acfg.num_layers} layers")
+        if wc:          # the cached W: the squeezed cores' contraction rounded once to bf16
+            nodes = {p: _at(handle.params, p[:-1]) for p in SQ.find_mpo_layers(alb.params)}
+            cached = {p: n["w"] for p, n in nodes.items() if "w" in n}
+            differ = [p for p, w in cached.items() if not torch.equal(w, mpo.reconstruct_stacked(
+                cores_to_list(SQ.find_mpo_layers(alb.params)[p])).to(acfg.torch_dtype))]
+            if not cached or differ:
+                fail(f"albert-base weight cache: {len(cached)} matrices cached, {differ} not "
+                     "their cores' W in bf16")
+        a_tokens[wc] = handle.generate({"tokens": aprompts}, NEW_TOKENS)
+        alb._serve.clear()
+        del handle
+    diff = (a_logits[True] - a_logits[False]).abs().max().item()
+    scale = a_logits[True].abs().max().item()
+    emit(phase="albert", step="serve", prefill_logits_max_abs_diff=diff, scale=scale,
+         tol=PATH_TOL, report={k: v for k, v in alb.report().items() if k != "stages"})
+    if diff > PATH_TOL * scale:
+        fail(f"albert-base: prefill logits of the two bf16 runs differ by {diff}")
+    del a_logits
+
+    # (e) float32 token parity on the squeezed tree (phase 4's three runs)
+    s32 = Session.init(a32, seed=SEED)
+    s32.model.set_tree(alb.params)
+    zero_counts()
+    _, margin, wall = greedy_runs("albert-base float32 token parity", s32, aprompts, MAX_LEN,
+                                  NEW_TOKENS)
+    counts = read_counts()
+    emit(phase="albert", step="float32 parity", runs=sorted(wall), identical=True,
+         min_top2_margin=margin, wall_s=wall, launches=counts)
+    if (counts["mpo_linear_fwd_mma"] == 0 or counts["flash_decode_attention"] == 0
+            or counts["mpo_linear_fwd"] or any(counts[k] for k in plains)):
+        fail(f"albert-base float32 serving: launches {counts}")
+    f32_mma["albert-base float32 serve (three runs)"] = counts["mpo_linear_fwd_mma"]
+    f32_flash["albert-base float32 serve (two paged runs)"] = counts["flash_decode_attention"]
+    del s32
+
+    # (f) the squeezed session saved and restored on the card: the same tokens
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_albert_"))
+    try:
+        t0 = sync_clock()
+        alb.save(str(tmp / "session"))
+        save_s = sync_clock() - t0
+        t0 = sync_clock()
+        r = Session.restore(str(tmp / "session"))
+        restore_s = sync_clock() - t0
+        restored = {}
+        for wc in (True, False):
+            zero_all()
+            got = r.serve(BATCH, MAX_LEN, paged=True, weight_cache=wc).generate(
+                {"tokens": aprompts}, NEW_TOKENS)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            fold(f"albert-base restored serve weight_cache={wc}", counts,
+                 ("flash_decode_attention",) + (() if wc else ("mpo_linear_fwd_mma",)))
+            restored[f"weight_cache={wc}"] = torch.equal(got, a_tokens[wc])
+        emit(phase="albert", step="save/restore", save_s=save_s, restore_s=restore_s,
+             directory_mb=dir_bytes(tmp) / 1e6, leaves_equal=same(params_of(r), params_of(alb)),
+             tokens_equal=restored)
+        if not all(restored.values()) or not same(params_of(r), params_of(alb)):
+            fail(f"albert-base restore: tokens equal {restored}")
+        del r
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del alb
+    torch.cuda.empty_cache()
+    emit(phase="albert", s=time.perf_counter() - a_t0)
+
+    # ---- 10. the dense LLM configurations at full width ----
+    from repro_torch.core.engine import engine_for
+
+    l_t0 = time.perf_counter()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+
+    def reckon(cfg, batch, max_len):
+        """Device bytes of a bf16 weight-cached handle, from the shapes
+        alone (no weights drawn): the cached W in bf16 (every matrix whose
+        decode plan is ``cached``), the float32 master weights, the KV cache."""
+        with torch.device("meta"):
+            params = TR.init(torch.Generator(), cfg)
+        eng = engine_for(cfg.mpo)
+        cached = 0
+        for cd in SQ.find_mpo_layers(params).values():
+            cores = cores_to_list(cd)
+            if eng.plan(tuple(tuple(c.shape[-4:]) for c in cores), 1, "decode").mode == "cached":
+                cached += 2 * math.prod(cores[0].shape[:-4]) * math.prod(
+                    c.shape[-3] for c in cores) * math.prod(c.shape[-2] for c in cores)
+        return {"cached_w_bf16_bytes": cached,
+                "master_f32_bytes": 4 * sum(t.numel() for t in lightweight.leaves(params)),
+                "kv_cache_bf16_bytes": 2 * 2 * cfg.num_layers * batch * max_len
+                * cfg.num_kv_heads * cfg.head_dim}
+
+    def llm_gate(what, counts, want):
+        """Exactly the forward launches the engine's plans name, and no
+        plain version."""
+        got = {k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd")}
+        if got != {k: want.get(k, 0) for k in got} or any(counts[k] for k in plains):
+            fail(f"{what}: launches {counts}, the plans name {want}")
+
+    lrng = np.random.default_rng(SEED + 3)
+    for arch in LLM_ARCHS:
+        cfg = configs.get_config(arch)
+        rk = reckon(cfg, LLM_BATCH, LLM_MAX_LEN)
+        emit(phase="llm", arch=arch, step="memory", card_bytes=card_bytes, **rk,
+             sum_bytes=sum(rk.values()))
+        lprompts = lrng.integers(0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)
+        torch.cuda.empty_cache()
+        t0 = sync_clock()
+        sess = Session.init(cfg, seed=SEED)
+        init_s = sync_clock() - t0
+        # (a) bf16, full width and depth, the weight cache: flash the only kernel
+        handle, _, per_decode, _ = serve_run(
+            sess, arch, lprompts, LLM_MAX_LEN, ("mpo_linear_fwd_mma", "flash_decode_attention"),
+            new_tokens=LLM_NEW, paged=True, weight_cache=True)
+        cached = sum(_at(handle.params, p[:-1])["w"].numel() * 2
+                     for p in SQ.find_mpo_layers(sess.params) if "w" in _at(handle.params, p[:-1]))
+        peak = torch.cuda.max_memory_allocated()
+        emit(phase="llm", arch=arch, step="weight cache", layers=cfg.num_layers, init_s=init_s,
+             cache_weights_s=handle.init_seconds, cached_w_bytes=cached, peak_mem_bytes=peak,
+             card_bytes=card_bytes, flash_per_decode_step=per_decode["flash_decode_attention"]
+             / (LLM_NEW - 1))
+        if cached != rk["cached_w_bf16_bytes"] or peak >= card_bytes:
+            fail(f"{arch}: cached W {cached} B (reckoned {rk['cached_w_bf16_bytes']}), peak "
+                 f"{peak} B on a card of {card_bytes}")
+        if (per_decode["flash_decode_attention"] != cfg.num_layers * (LLM_NEW - 1)
+                or per_decode["mpo_linear_fwd_mma"]):
+            fail(f"{arch} weight cache: decode launches {per_decode}; flash once a layer a step "
+                 "and nothing else")
+        sess._serve.clear()
+        del handle
+        torch.cuda.empty_cache()
+        # (a') the same model factorized: the forward on every matrix its plan
+        # takes (at LLM_FACT_LAYERS' depth where full depth takes too long)
+        if arch in LLM_FACT_LAYERS:
+            del sess
+            torch.cuda.empty_cache()
+            sess = Session.init(dataclasses.replace(cfg, num_layers=LLM_FACT_LAYERS[arch]),
+                                seed=SEED)
+        depth = sess.cfg.num_layers
+        modes, want = serve_plan(sess.engine, sess.params, sess.cfg, LLM_BATCH, LLM_PROMPT,
+                                 "bfloat16")
+        handle, per_prefill, per_decode, _ = serve_run(
+            sess, arch if depth == cfg.num_layers else f"{arch} ({depth} layers)", lprompts,
+            LLM_MAX_LEN, ("mpo_linear_fwd_mma", "flash_decode_attention"),
+            new_tokens=LLM_NEW, paged=True, weight_cache=False)
+        emit(phase="llm", arch=arch, step="factorized plans", layers=depth,
+             depth_cut=depth != cfg.num_layers, modes=modes,
+             launches_planned={k: {"prefill": v[0], "decode_step": v[1]}
+                               for k, v in want.items()})
+        llm_gate(f"{arch} factorized prefill", per_prefill, {k: v[0] for k, v in want.items()})
+        llm_gate(f"{arch} factorized decode", per_decode,
+                 {k: v[1] * (LLM_NEW - 1) for k, v in want.items()})
+        sess._serve.clear()
+        del handle, sess
+        torch.cuda.empty_cache()
+        # (b) float32, full width, LLM_F32_LAYERS layers: tokens of three runs,
+        # decode logits against the teacher-forced forward
+        c32 = dataclasses.replace(cfg, dtype="float32", num_layers=LLM_F32_LAYERS)
+        s32 = Session.init(c32, seed=SEED)
+        fb, fp = LLM_F32_PROMPT.get(arch, LLM_F32_SHORT)
+        fprompts = lrng.integers(0, cfg.vocab_size, (fb, fp)).astype(np.int32)
+        f_len = -(-(fp + LLM_F32_NEW) // POOL_PAGE) * POOL_PAGE
+        zero_counts()
+        runs, margin, wall = greedy_runs(f"{arch} float32 token parity", s32, fprompts, f_len,
+                                         LLM_F32_NEW)
+        counts = read_counts()
+        _, want = serve_plan(s32.engine, s32.params, c32, fb, fp, "float32")
+        llm_gate(f"{arch} float32 runs", counts,
+                 {k: v[0] + v[1] * (LLM_F32_NEW - 1) for k, v in want.items()})
+        if counts["flash_decode_attention"] != 2 * LLM_F32_LAYERS * (LLM_F32_NEW - 1):
+            fail(f"{arch} float32: {counts['flash_decode_attention']} flash launches in the two "
+                 "paged runs")
+        tree = s32.model.cache_weights(s32.params)
+        seq = torch.cat([torch.as_tensor(fprompts), runs["dense_cached"][0][:, :-1]], 1).to(dev)
+        with torch.no_grad():
+            hidden = TR.forward_hidden(tree, {"tokens": seq}, c32, phase="prefill")
+            tf = TR.logits_head(tree, hidden[:, fp - 1:], c32, phase="prefill").float().cpu()
+        del tree, hidden
+        terms = max(c32.d_ff, c32.d_model, c32.num_heads * c32.head_dim, fp + LLM_F32_NEW)
+        tol = f32_tol(terms, LLM_F32_LAYERS)
+        tscale = tf.abs().max().item()
+        tdiff = {name: (lg - tf).abs().max().item() for name, (_, lg) in runs.items()}
+        emit(phase="llm", arch=arch, step="float32 parity", layers=LLM_F32_LAYERS, batch=fb,
+             prompt=fp, window=c32.local_window, new_tokens=LLM_F32_NEW, identical=True,
+             min_top2_margin=margin, wall_s=wall,
+             launches={k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd",
+                                              "flash_decode_attention")},
+             teacher_forced_max_abs_diff=tdiff, scale=tscale, summed_terms=terms, tol=tol)
+        if not max(tdiff.values()) <= tol * tscale:
+            fail(f"{arch} float32: decode logits {tdiff} from the teacher-forced forward's "
+                 f"(tol {tol} x {tscale})")
+        for k, d in (("mpo_linear_fwd_mma", f32_mma), ("mpo_linear_fwd", cuda_core),
+                     ("flash_decode_attention", f32_flash)):
+            if counts[k]:
+                d[f"{arch} float32 {LLM_F32_LAYERS} layers (three runs)"] = counts[k]
+        if arch == "gemma2-27b":
+            # the CUDA-core forward at gemma2's FFN, where the float32 prefill
+            # sends it: w_down sums d_ff = 36864 terms an output
+            wd = cores_to_list(s32.params["layers"]["mlp"]["w_down"]["cores"])
+            results[("mpo", arch, "w_down", LLM_F32_CASE_M, "float32")] = fwd_case(
+                f"{arch} w_down", [c[0] for c in wd], LLM_F32_CASE_M, "float32", phase="llm",
+                reps=1, tol=f32_tol(c32.d_ff))
+        del s32, runs
+        torch.cuda.empty_cache()
+    emit(phase="llm", s=time.perf_counter() - l_t0)
+
+    # ---- 11. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,
@@ -1936,9 +2430,13 @@ def main() -> int:
               launches_by_path=f32_mma,
               prev_ms=results[("mpo", "attn", 8, "float32")]["prev_ms"]),
         entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu", fwd[1],
-              results[("mpo", "smoke wq", 48, "float32")],
-              "smoke bert-base wq (narrow: the tensor-core plan refuses it), M=48, float32",
-              sum(cuda_core.values()), launches_by_path=cuda_core),
+              results[("mpo", "gemma2-27b", "w_down", LLM_F32_CASE_M, "float32")],
+              f"gemma2-27b w_down (36864 -> 4608: the tensor-core plan refuses it), "
+              f"M={LLM_F32_CASE_M}, float32", sum(cuda_core.values()),
+              launches_by_path=cuda_core,
+              smoke_case={k: results[("mpo", "smoke wq", 48, "float32")][k] for k in (
+                  "matrix", "M", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                  "library_ms")}),
         entry("flash_decode_attention", "cuda", "src/repro_torch/csrc/decode_attention.cu",
               "src/repro/kernels/decode_attention.py:166", fk,
               "bert-base geometry KV=12 G=1 Dh=64 ps=16, 8 slots at 144 keys, bfloat16",

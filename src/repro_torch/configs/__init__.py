@@ -7,12 +7,17 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, scaled_down
 
-# arch id -> module name; the other architectures of the reference come with
-# their families (ROADMAP.md, Queue 1 item 7)
+# arch id -> module name, under the reference's ids; the reference's other
+# families (moe, hybrid, encdec, vlm) come with ROADMAP.md, Queue 1 item 7
 ARCHS = {
+    "gemma2-27b": "gemma2_27b",
+    "nemotron-4-15b": "nemotron4_15b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
     "qwen3-14b": "qwen3_14b",
-    "bert-base": "bert_base",
     "mamba2-130m": "mamba2_130m",
+    # the paper's own subjects
+    "albert-base": "albert_base",
+    "bert-base": "bert_base",
 }
 
 

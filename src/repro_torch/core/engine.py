@@ -248,9 +248,14 @@ class MPOEngine:
         """One-time densification at serving init (next to the KV cache).
 
         Returns a new params tree where every factorized matrix whose decode
-        plan is ``cached`` is replaced by its contracted dense ``{"w": W}``;
-        everything else passes through untouched.  Scan-stacked leading
-        layer dims are contracted layer by layer.  The result is a SNAPSHOT:
+        plan is ``cached`` is replaced by its contracted dense ``{"w": W}``
+        in ``dtype`` (the cores' float32 when None); everything else passes
+        through untouched.  Each matrix of a stack (leading layer dims) is
+        contracted on its own into one preallocated ``(L, I, J)`` tensor
+        (``mpo.reconstruct_stacked``), so the peak above the result is one
+        layer's float32 W.  W rounded to
+        the activation dtype here has the bits the cast at every use
+        (``linear``, ``embedding``) would give it.  The result is a SNAPSHOT:
         re-run after any core mutation."""
         if not isinstance(params, dict):
             return params
@@ -259,8 +264,7 @@ class MPOEngine:
             shapes = tuple(tuple(c.shape[-4:]) for c in cores)
             if self.plan(shapes, 1, "decode").mode != "cached":
                 return params
-            w = mpo.reconstruct_stacked(cores)
-            return {"w": w if dtype is None else w.to(dtype)}
+            return {"w": mpo.reconstruct_stacked(cores, dtype)}
         return {k: self.cache_weights(v, dtype=dtype) for k, v in params.items()}
 
 

@@ -22,6 +22,7 @@ the tensors' device.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Sequence
 
@@ -139,16 +140,15 @@ class MPOSpec:
 # --------------------------------------------------------------------------
 
 
-def reconstruct(cores: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Contract cores back to the matrix ``W[I, J]``.
-
-    Core 0's i/j legs stay separate leading axes through the chain, as the
-    reference keeps them, so every intermediate rounds the same way."""
+def _chain(cores: Sequence[torch.Tensor]) -> tuple[torch.Tensor, list[int]]:
+    """The cores contracted along their bonds, ``(t, perm)``: ``t`` holds
+    W's digits as (i1, j1, i2, j2, ..., in, jn) axes and ``t.permute(perm)``
+    orders them (i1..in, j1..jn), the row-major ``W[I, J]``."""
     n = len(cores)
     ins = [c.shape[1] for c in cores]
     outs = [c.shape[2] for c in cores]
     if n == 1:
-        return cores[0][0, :, :, 0]
+        return cores[0][0, :, :, 0], [0, 1]
     acc = cores[0][0]  # (i1, j1, d1)
     i1, j1 = ins[0], outs[0]
     mid = 1
@@ -160,10 +160,30 @@ def reconstruct(cores: Sequence[torch.Tensor]) -> torch.Tensor:
         acc = acc.reshape(i1, j1, mid, d1)
     # acc: (i1, j1, (i2 j2 ... in jn), 1) -> (I, J)
     rest = [x for k in range(1, n) for x in (ins[k], outs[k])]
-    t = acc.reshape([i1, j1] + rest)
     perm = ([0] + [2 + 2 * k for k in range(n - 1)]
             + [1] + [3 + 2 * k for k in range(n - 1)])
-    return t.permute(perm).reshape(math.prod(ins), math.prod(outs))
+    return acc.reshape([i1, j1] + rest), perm
+
+
+def reconstruct(cores: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Contract cores back to the matrix ``W[I, J]``.
+
+    Core 0's i/j legs stay separate leading axes through the chain, as the
+    reference keeps them, so every intermediate rounds the same way."""
+    t, perm = _chain(cores)
+    return t.permute(perm).reshape(math.prod(c.shape[1] for c in cores),
+                                   math.prod(c.shape[2] for c in cores))
+
+
+def reconstruct_into(cores: Sequence[torch.Tensor], out: torch.Tensor) -> torch.Tensor:
+    """``out.copy_(reconstruct(cores))`` — the same values, rounded once to
+    ``out``'s dtype — without the contiguous (I, J) copy in the cores'
+    dtype: the chain's last product is permuted straight into ``out``, so
+    one matrix in the cores' dtype is all that lives beside it."""
+    t, perm = _chain(cores)
+    digits = [t.shape[p] for p in perm]
+    out.view(digits).copy_(t.permute(perm))
+    return out
 
 
 def apply_mpo(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -193,13 +213,19 @@ def apply_mpo_t(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return apply_mpo(transpose_cores(cores), x)
 
 
-def reconstruct_stacked(cores: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``reconstruct`` over any leading stacked dims (scanned layers), one
-    matrix at a time."""
-    if cores[0].dim() == 4:
-        return reconstruct(list(cores))
-    return torch.stack([reconstruct_stacked([c[i] for c in cores])
-                        for i in range(cores[0].shape[0])])
+def reconstruct_stacked(cores: Sequence[torch.Tensor], dtype=None) -> torch.Tensor:
+    """``reconstruct`` over any leading stacked dims (scanned layers): each
+    matrix contracted on its own (``reconstruct_into``) into one
+    preallocated ``(..., I, J)`` tensor in ``dtype`` (the cores' when None),
+    so one matrix in the cores' dtype is all that lives beside it."""
+    lead = tuple(cores[0].shape[:-4])
+    out = torch.empty(lead + (math.prod(c.shape[-3] for c in cores),
+                              math.prod(c.shape[-2] for c in cores)),
+                      dtype=cores[0].dtype if dtype is None else dtype,
+                      device=cores[0].device)
+    for idx in itertools.product(*map(range, lead)):
+        reconstruct_into([c[idx] for c in cores], out[idx])
+    return out
 
 
 def embed_lookup(cores: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Tensor:

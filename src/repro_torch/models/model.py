@@ -171,8 +171,9 @@ class Model(_Tree):
 
     def cache_weights(self, params: dict) -> dict:
         """Serving-time weight cache: contract decode-``cached`` matrices to
-        dense W once (see ``MPOEngine.cache_weights``)."""
-        return engine_for(self.cfg.mpo).cache_weights(params)
+        dense W once, in the config's activation dtype (see
+        ``MPOEngine.cache_weights``)."""
+        return engine_for(self.cfg.mpo).cache_weights(params, dtype=self.cfg.torch_dtype)
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:

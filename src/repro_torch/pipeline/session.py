@@ -493,7 +493,7 @@ class Session:
         best, history = squeeze_mod.run_dimension_squeezing(
             self.params, finetune_fn, eval_fn, delta=delta, max_iters=max_iters, step=step,
             min_bond=min_bond, verbose=verbose,
-            weight_cache=self.engine.cache_weights if weight_cache else None,
+            weight_cache=self.model.cache_weights if weight_cache else None,
             start_iter=start_iter, initial_history=init_hist, baseline_metric=baseline,
             on_iteration=journal.record if journal else None)
         self.model.set_tree(best)

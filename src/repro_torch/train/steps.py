@@ -149,7 +149,8 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
     allocates the cache (the KV cache with per-slot positions, paged when
     ``paged``; the SSM state tensor for the ``ssm`` family) and —
     when ``weight_cache`` — contracts every factorized matrix whose decode
-    plan is ``cached`` into its dense W, returning ``(serve_params, cache)``.
+    plan is ``cached`` into its dense W in the config's activation dtype,
+    returning ``(serve_params, cache)``.
     Pass the returned ``serve_params`` to the steps.  ``serve_params`` is a
     SNAPSHOT of the weights, as the reference's immutable arrays are: the
     dense W it contracts, and a clone of every leaf it passes through

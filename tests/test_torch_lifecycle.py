@@ -30,7 +30,15 @@ Tolerances (float32, two frameworks' LAPACK calls):
   isolated sign flips; a wrong batch offset or lr gives > 1), frozen
   leaves bit-unchanged.
 - serving after the squeeze: prefill logits within 5e-4 of their largest
-  magnitude (2e-4 observed), greedy tokens identical."""
+  magnitude (2e-4 observed), greedy tokens identical.
+- albert-base (one stored layer, ``share_layers``) with the re-tune: a sign
+  flip of the re-tune (above) lands in the one layer every position of the
+  stack applies, so the served logits inherit the reconstructions' gap
+  whole (1.7e-3 of W, 1.4e-3 of the logits measured, where bert-base's
+  independent layers give 4.9e-4): prefill logits, and every decode step's
+  logits fed the reference's greedy tokens, within ``REC_TUNED_TOL`` of
+  their largest magnitude, and the greedy tokens identical up to the first
+  step whose reference top-2 margin is within twice that gap."""
 
 import dataclasses
 
@@ -55,7 +63,8 @@ from repro_torch.core.layers import cores_to_list
 from repro_torch.models import model as TModel
 
 # (arch, LFA re-tune steps a squeeze iteration)
-CASES = (("bert-base", 0), ("qwen3-14b", 0), ("bert-base", 2))
+CASES = (("bert-base", 0), ("qwen3-14b", 0), ("bert-base", 2), ("albert-base", 0),
+         ("albert-base", 2))
 SEQ, BATCH, ITERS = 16, 4, 3
 CONV_TOL, LOGIT_TOL, EPS_TOL, GAP = 1e-5, 1e-4, 1e-4, 1e-3
 REC_TOL, SERVE_TOL = 5e-4, 5e-4
@@ -115,7 +124,8 @@ def lifecycle(request):
         _assert_clear_winners(chosen_from[0], ITERS)
     return dict(js=js, ts=ts, dense_np=dense_np, prompts=prompts, converted=converted,
                 pre=pre, jev=jev, tev=tev, rho_before=rho_before,
-                rec_tol=REC_TUNED_TOL if steps else REC_TOL)
+                rec_tol=REC_TUNED_TOL if steps else REC_TOL,
+                shared_tuned=bool(steps and tcfg.share_layers))
 
 
 def test_from_dense_conversion_errors_and_logits_match_reference(lifecycle):
@@ -190,10 +200,30 @@ def test_serve_after_squeeze_redensifies_and_matches_reference(lifecycle):
             assert torch.equal(node["w"], want), path
     got = h.prefill({"tokens": prompts}).numpy()
     want = np.asarray(js.serve(3, 16).prefill({"tokens": jnp.asarray(prompts)}), np.float32)
-    assert _max_rel(got, want) <= SERVE_TOL
     tt = h.generate({"tokens": prompts}, 6).numpy()
     jt = np.asarray(js.serve(3, 16).generate({"tokens": jnp.asarray(prompts)}, 6))
-    np.testing.assert_array_equal(tt, jt)
+    if not lifecycle["shared_tuned"]:
+        assert _max_rel(got, want) <= SERVE_TOL
+        np.testing.assert_array_equal(tt, jt)
+        return
+    # one shared re-tuned layer (module docstring): logits within the
+    # reconstructions' gap, teacher-forced on the reference's tokens
+    assert _max_rel(got, want) <= REC_TUNED_TOL
+    jh, th = js.serve(3, 16), h.reset()
+    steps = [(th.prefill({"tokens": prompts}).numpy()[:, -1],
+              np.asarray(jh.prefill({"tokens": jnp.asarray(prompts)}), np.float32)[:, -1])]
+    for k in range(jt.shape[1] - 1):
+        tok = jt[:, k:k + 1]
+        steps.append((th.decode(tok)[1].numpy()[:, -1],
+                      np.asarray(jh.decode(jnp.asarray(tok))[1], np.float32)[:, -1]))
+    for k, (a, b) in enumerate(steps):
+        assert _max_rel(a, b) <= REC_TUNED_TOL, k
+    ref = np.stack([b for _, b in steps], 1)                      # (slot, step, V)
+    top2 = np.sort(ref, -1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > 2 * REC_TUNED_TOL * np.abs(ref).max()
+    for row in range(jt.shape[0]):
+        n = int(np.argmin(clear[row])) if not clear[row].all() else jt.shape[1]
+        np.testing.assert_array_equal(tt[row, :n], jt[row, :n])
 
 
 def test_set_tree_carries_a_squeezed_reference_tree(lifecycle):

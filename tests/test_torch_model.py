@@ -26,7 +26,8 @@ from repro_torch.models import model as TModel
 from repro_torch.models import nn as TNN
 from repro_torch.pipeline.session import compression_ratio
 
-ARCHS = ("bert-base", "qwen3-14b")
+ARCHS = ("bert-base", "qwen3-14b", "albert-base", "gemma2-27b", "mistral-nemo-12b",
+         "nemotron-4-15b")
 TOL = 1e-4
 
 
