@@ -175,9 +175,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
    through ``csrc/mpo_linear.cu`` against its plain version at M = 64.
    The factorized runs of mistral-nemo-12b and qwen3-14b are cut to 4
    layers (``LLM_FACT_LAYERS``).
-11. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+11. ssm_train — the SSM family fine-tuned and squeezed: (a) the SSD scan's
+   backward kernel (``csrc/ssd_scan_bwd.cu``, four launches a call) against
+   its plain version from the same forward scratch, at mamba2-130m's
+   training shape (4 x 512), phase 2's 8 x 512, 8 x 100 and 1 x 4096, with
+   a random and a zero final-state cotangent, both dtypes: every gradient
+   within ``SSD_BWD_TOL``, two launches bit-identical, the plan's shared
+   memory and scratch equal to the CUDA source's; the call, each of its
+   launches alone and the plain version timed, with the bound; (b) the
+   float32 smoke mamba2-130m with every matmul in the kernel mode: one train
+   step's gradients of every leaf and a 3-step loss trajectory on the card
+   against the CPU (plain versions) within ``TRAIN_TOL``, the SSD backward
+   launched, no plain version; (c) full-width mamba2-130m (bf16) through
+   the paper's lifecycle: ``from_dense`` of an exact tree (error <= 1e-4),
+   ``finetune(mode="lfa", seq_len=512, batch_size=4, steps=8)`` (finite
+   losses, central cores unchanged, 4,015,888 of 6,018,832 parameters
+   training, the SSD backward 24 calls a step and its forward 48 (remat),
+   both MPO-linear kernels, no plain version; ms a step, peak memory, the
+   cores backward's scratch against an f32 dW at every matrix), two calls
+   of ``squeeze(step=1, max_iters=1, finetune_steps=4, delta=1.0)`` at 4 x
+   512 (each event against its float64 recount, rho falling, no matrix
+   losing a ``kernel`` plan, the SSD backward in the re-tunes), the squeezed
+   model served ``serve(8, 544)`` both ways from phase 3's prompts under
+   phase 3's gates, and a fine-tuning run preempted at step 4 and resumed,
+   bit-identical to one run through.
+12. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
    squeezed shapes' times are phase 6's records).
-12. last line: ``{"ok": true, "device": {...}}``.
+13. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -271,6 +295,18 @@ LLM_BATCH, LLM_PROMPT, LLM_MAX_LEN, LLM_NEW = 8, 512, 640, 16
 LLM_FACT_LAYERS = {"mistral-nemo-12b": 4, "qwen3-14b": 4}
 LLM_F32_LAYERS, LLM_F32_NEW, LLM_F32_CASE_M = 2, 16, 64
 LLM_F32_PROMPT, LLM_F32_SHORT = {"gemma2-27b": (1, 4352)}, (2, 128)
+# the SSM family's fine-tuning (phase 11): full-width mamba2-130m LFA at 4 x
+# 512 tokens (4 chunks of 128 a sequence) and its squeeze at the same size
+SSM_BATCH, SSM_SEQ, SSM_STEPS = 4, 512, 8
+MAMBA_LFA_COUNTS = (4_015_888, 6_018_832)        # trainable, total (reference's count)
+# the SSD backward against its plain version.  A float32 gradient (every one
+# of the float32 kernel; dt, a_log and D of the bf16 one) sums products of the
+# kernel's bf16 terms (three a float32 value, a pair for bf16's f32-valued
+# operands: 2^-16) in another order over up to 4096 positions -> 1e-4 of its
+# largest magnitude; a bf16 gradient (dx, dB, dC) is one rounding of such a
+# sum, which the other order can move across a boundary -> one bf16 step at
+# the largest value, doubled
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 PEAK_BYTES_S = 3.35e12                           # H100 SXM HBM3
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 non-tensor
 
@@ -1122,12 +1158,13 @@ def main() -> int:
              bf16_vs_f32_prefill_logits_rel_norm=((got - ref).norm() / ref.norm()).item())
     del m32, mruns
 
-    def f32_routes(params, train):
+    def f32_routes(params, train, tied_head=False):
         """The forward kernels the float32 plan sends this model's factorized
         matmuls to: serving, every matrix as x @ W and the tied logits as
         x @ E^T; the classification train step, every matrix but the
         embedding (looked up, not multiplied) as x @ W and its i/j-swapped
-        form (dL/dx)."""
+        form (dL/dx); the LM train step of a tied head (``tied_head``) also
+        x @ E^T and its dL/dx, dy @ E."""
         routes = set()
 
         def walk(tree, name):
@@ -1135,7 +1172,7 @@ def main() -> int:
                 sh = [tuple(c.shape[-4:]) for c in cores_to_list(tree["cores"])]
                 swap = [(d0, j, i, d1) for d0, i, j, d1 in sh]
                 if name == "embed":
-                    forms = () if train else (swap,)
+                    forms = ((swap, sh) if tied_head else ()) if train else (swap,)
                 else:
                     forms = (sh, swap) if train else (sh,)
                 routes.update(kname[MK.forward_kernel(f, "float32")] for f in forms)
@@ -1147,10 +1184,10 @@ def main() -> int:
         walk(params, "")
         return routes
 
-    def gate_routes(what, counts, params, train):
+    def gate_routes(what, counts, params, train, tied_head=False):
         """Each forward kernel the float32 plan names launched, the other
         not; returns ``{kernel: launches}``."""
-        want = f32_routes(params, train)
+        want = f32_routes(params, train, tied_head)
         got = {k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd")}
         if any((got[k] > 0) != (k in want) for k in got) or any(counts[k] for k in plains):
             fail(f"{what}: launches {counts}; the float32 plan sends its matrices to "
@@ -2410,7 +2447,334 @@ def main() -> int:
         torch.cuda.empty_cache()
     emit(phase="llm", s=time.perf_counter() - l_t0)
 
-    # ---- 11. the kernels line: one entry per kernel and dtype ----
+    # ---- 11. ssm_train: the SSD scan's backward; mamba2-130m fine-tuned and squeezed ----
+    s_t0 = time.perf_counter()
+    ssd_bwd_lib = SSD._bwd_lib()
+    grad_names = ("dx", "ddt", "da_log", "db", "dc", "dd_skip")
+
+    def ssd_bwd_case(bs, s, dtype, with_final, time_it):
+        """The backward kernel against its plain version from the same
+        forward scratch: every gradient within ``SSD_BWD_TOL`` of its
+        largest magnitude (by the gradient's dtype), two calls bit-identical,
+        the plan's shared memory and scratch equal to the CUDA source's; when
+        ``time_it``, the call, each of its four launches alone and the plain
+        version timed, with the bound."""
+        tdt = getattr(torch, dtype)
+        h, p, n = mcfg.ssm_heads, mcfg.ssm_head_dim, mcfg.ssm_state
+        x = torch.randn(bs, s, h, p, generator=gen).to(dev, tdt)
+        dt = torch.nn.functional.softplus(torch.randn(bs, s, h, generator=gen) - 4).to(dev)
+        a_log = (0.5 * torch.randn(h, generator=gen)).to(dev)
+        b = (0.3 * torch.randn(bs, s, n, generator=gen)).to(dev, tdt)
+        c = (0.3 * torch.randn(bs, s, n, generator=gen)).to(dev, tdt)
+        d_skip = (1 + 0.1 * torch.randn(h, generator=gen)).to(dev)
+        dy = torch.randn(bs, s, h, p, generator=gen).to(dev, tdt)
+        d_final = torch.randn(bs, h, n, p, generator=gen).to(dev) if with_final else None
+        args, chunk = (x, dt, a_log, b, c, d_skip), mcfg.ssm_chunk
+        q = min(chunk, s)
+        what = f"ssd_scan_bwd B={bs} S={s} {dtype} d_final={'random' if with_final else 'zero'}"
+        fws = SSD._forward(*args, chunk)[2]
+        got = SSD.ssd_scan_bwd(*args, dy, d_final, fws, chunk)
+        again = SSD.ssd_scan_bwd(*args, dy, d_final, fws, chunk)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            fail(f"{what}: two launches differ")
+        ref = SSD.ssd_scan_bwd_plain(*args, dy, d_final, chunk)
+        errs, rel = {}, {}
+        for name, u, r in zip(grad_names, got, ref):
+            tol = SSD_BWD_TOL["float32" if u.dtype == torch.float32 else "bfloat16"]
+            errs[name] = check("ssd_scan_bwd", u, r, dtype, f"{what} {name}", tol=tol)
+            rel[name] = errs[name] / r.float().abs().max().item()
+        plan = SSD._ssd_bwd_plan(bs, s, h, p, n, q, dtype, MK._sm_count(0))
+        code = SSD.DTYPES[tdt]
+        smem_c = tuple(ssd_bwd_lib.ssd_scan_bwd_smem(k, q, n, p, plan.group, code)
+                       for k in range(1, SSD.SSD_BWD_KERNELS + 1))
+        ws_c = ssd_bwd_lib.ssd_scan_bwd_workspace(bs, s, h, p, n, q, plan.group)
+        if (smem_c, ws_c) != (plan.smem, plan.workspace):
+            fail(f"{what}: the plan's shared memory / scratch {plan.smem} / {plan.workspace} "
+                 f"differ from the CUDA source's {smem_c} / {ws_c}")
+        rec = dict(kernel="ssd_scan_bwd", B=bs, S=s, H=h, P=p, N=n, chunk=q, dtype=dtype,
+                   d_final="random" if with_final else "zero",
+                   max_abs_err=max(errs.values()), max_rel_err=rel, tol=SSD_BWD_TOL,
+                   deterministic=True, group=plan.group, grids=list(plan.grids),
+                   smem_bytes=list(plan.smem), workspace_bytes=plan.workspace,
+                   forward_workspace_bytes=fws.numel() * 4,
+                   launches_per_call=SSD.SSD_BWD_KERNELS)
+        if time_it:
+            ws = torch.empty(plan.workspace // 4, dtype=torch.float32, device=dev)
+            grads = tuple(torch.empty_like(t) for t in args)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def run(k):
+                return lambda: SSD._run_bwd(args, dy, d_final, fws, grads, ws, q, plan.group,
+                                            stream, k)
+
+            if run(0)() != 0:
+                fail(f"{what}: the launches were refused")
+            isz = x.element_size()
+            # each input read once (x, dy, B, C, dt, a_log, D, d_final when
+            # given), each gradient written once
+            nbytes = (isz * (3 * x.numel() + 2 * b.numel() + 2 * c.numel())
+                      + 4 * (2 * dt.numel() + 4 * h + (d_final.numel() if with_final else 0)))
+            # C.B^T's causal half a chunk, d(C.B^T) times B and C; per head
+            # dM = dy xw^T and M^T dy (causal halves), B dS and xw dS^T, and for
+            # every chunk but the first C^T (e o dy) and dy prev^T
+            tri, nc = q * (q + 1) // 2, s // q
+            ops = 2 * bs * nc * 3 * tri * n + 2 * bs * h * (nc * (2 * tri * p + 2 * q * n * p)
+                                                             + (nc - 1) * 2 * q * n * p)
+            bound = {"bytes": nbytes / PEAK_BYTES_S, "operations": ops / PEAK_OPS_S[dtype]}
+            rec.update(launch_ms=[timed(run(k)) for k in range(1, SSD.SSD_BWD_KERNELS + 1)],
+                       kernel_ms=timed(lambda: SSD.ssd_scan_bwd(*args, dy, d_final, fws, chunk)),
+                       plain_ms=timed(lambda: SSD.ssd_scan_bwd_plain(*args, dy, d_final,
+                                                                     chunk)),
+                       library_ms=None, bound_ms=1e3 * max(bound.values()),
+                       bound_by=max(bound, key=bound.get),
+                       tc_bound_ms=(1e3 * max(nbytes / PEAK_BYTES_S,
+                                              6 * ops / PEAK_OPS_S["bfloat16"])
+                                    if dtype == "float32" else None))
+        emit(phase="ssm_train", **rec)
+        return rec
+
+    # (a) the kernel at the training shape (4 x 512), phase 2's cases
+    # (8 x 512, a 100-token chunk, 32 chunks), with and without a
+    # final-state cotangent, both dtypes
+    for dtype in ("bfloat16", "float32"):
+        for (bs, s), name in (((SSM_BATCH, SSM_SEQ), "train"), ((MAMBA_BATCH, MAMBA_PROMPT), "path"),
+                              ((MAMBA_BATCH, 100), "short"), ((1, 4096), "long")):
+            for with_final in (True, False):
+                rec = ssd_bwd_case(bs, s, dtype, with_final, time_it=with_final)
+                if with_final:
+                    results[("ssd_bwd", name, dtype)] = rec
+
+    ssm_counters = train_counters + ((SSD.ssd_scan_bwd, "launches"),
+                                     (SSD.ssd_scan_bwd_plain, "calls"))
+    ssm_plains = ("mpo_linear_plain", "mpo_linear_bwd_cores_plain", "ssd_scan_plain",
+                  "ssd_scan_bwd_plain")
+
+    def ssm_zero():
+        for fn, attr in ssm_counters:
+            setattr(fn, attr, 0)
+
+    def ssm_counts():
+        return {"mpo_linear_fwd": MK.mpo_linear_cuda_core.launches,
+                "mpo_linear_fwd_mma": MK.mpo_linear_mma.launches,
+                "mpo_linear_bwd_cores": MK.mpo_linear_bwd_cores.launches,
+                "ssd_scan": SSD.ssd_scan.launches, "ssd_scan_bwd": SSD.ssd_scan_bwd.launches,
+                "mpo_linear_plain": MK.mpo_linear_plain.calls,
+                "flash_decode_attention_plain": DA.flash_decode_attention_plain.calls,
+                "mpo_linear_bwd_cores_plain": MK.mpo_linear_bwd_cores_plain.calls,
+                "ssd_scan_plain": SSD.ssd_scan_plain.calls,
+                "ssd_scan_bwd_plain": SSD.ssd_scan_bwd_plain.calls}
+
+    def ssm_gate(path, counts, need):
+        """Fail unless every kernel of ``need`` launched and no plain version
+        (nor, in bf16, the CUDA-core forward) ran; add the launches to the
+        kernels line."""
+        other = sum(counts[k] for k in ssm_plains) + counts["mpo_linear_fwd"]
+        if any(counts[k] == 0 for k in need) or other:
+            fail(f"{path}: launches {counts}, plain-version or CUDA-core calls {other}")
+        for k in ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores", "ssd_scan", "ssd_scan_bwd"):
+            if counts[k]:
+                path_launches[k] = path_launches.get(k, 0) + counts[k]
+                by_path.setdefault(k, {})[path] = counts[k]
+
+    # (b) the float32 smoke model, every matmul in the kernel mode: card vs CPU
+    def ssm_grads_and_losses(device):
+        ss = Session.init(kernel_mode(configs.smoke_config("mamba2-130m")), seed=SEED,
+                          device=device)
+        ssm_zero()
+        seen = []
+        rec_opt = OPT.Optimizer(init=lambda p: OPT.OptState(0, None),
+                                update=lambda g, st, p: seen.append(g) or st)
+        step = TS.make_train_step(ss.model, rec_opt, ss._default_loss_fn())
+        batch = {k: torch.as_tensor(v).to(device)
+                 for k, v in ss._default_batch_fn(16, 4, SEED)(0).items()}
+        step(TS.TrainState(ss.params, rec_opt.init(ss.params)), batch)
+        grads = [g.detach().cpu() for g in lightweight.leaves(seen[0])]
+        hist = ss.finetune(steps=3, seq_len=16, batch_size=4, log_every=1)["history"]
+        if device == "cuda":
+            counts = ssm_counts()
+            got = gate_routes("the float32 smoke mamba2-130m train steps on the card", counts,
+                              ss.params, train=True, tied_head=True)
+            cuda_core["smoke mamba2-130m train (4 steps)"] = got["mpo_linear_fwd"]
+            f32_mma["smoke mamba2-130m train (4 steps)"] = got["mpo_linear_fwd_mma"]
+            f32_bwd["smoke mamba2-130m train (4 steps)"] = counts["mpo_linear_bwd_cores"]
+            f32_ssd["smoke mamba2-130m train (4 steps)"] = counts["ssd_scan"]
+            f32_ssd_bwd["smoke mamba2-130m train (4 steps)"] = counts["ssd_scan_bwd"]
+            if (not counts["ssd_scan_bwd"] or not counts["mpo_linear_bwd_cores"]
+                    or any(counts[k] for k in ssm_plains)):
+                fail(f"the float32 smoke mamba2-130m train steps on the card: {counts}")
+        return grads, [h["loss"] for h in hist]
+
+    f32_ssd_bwd = {}
+    card, cpu = ssm_grads_and_losses("cuda"), ssm_grads_and_losses("cpu")
+    gdiff = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(card[0], cpu[0]))
+    ldiff = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+    emit(phase="ssm_train", smoke="mamba2-130m", mode="kernel", dtype="float32",
+         leaves=len(card[0]), card_vs_cpu_grad_rel_diff=gdiff, card_vs_cpu_loss_rel_diff=ldiff,
+         losses_card=card[1], losses_cpu=cpu[1], tol=TRAIN_TOL,
+         ssd_scan_bwd_launches=f32_ssd_bwd)
+    if not gdiff <= TRAIN_TOL or not ldiff <= TRAIN_TOL:
+        fail(f"smoke mamba2-130m train step on the card differs from the CPU: grads {gdiff}, "
+             f"losses {card[1]} vs {cpu[1]}")
+
+    # (c) full-width mamba2-130m (bf16) through the paper's lifecycle
+    msrc = Session.init("mamba2-130m", smoke=False, seed=SEED)
+    mdense = exact_dense(msrc.params)
+    t0 = sync_clock()
+    ml = Session.from_dense(mdense, msrc.cfg)
+    conv_s = sync_clock() - t0
+    rep = ml.report()
+    emit(phase="ssm_train", step="from_dense exact", arch="mamba2-130m",
+         matrices=rep["stages"][-1]["matrices"], from_dense_s=conv_s,
+         conversion_max_rel_err=rep["conversion_max_rel_err"], tol=EXACT_TOL)
+    if not rep["conversion_max_rel_err"] <= EXACT_TOL:
+        fail(f"mamba2-130m from_dense of an exact tree: error {rep['conversion_max_rel_err']}")
+    del msrc, mdense
+
+    ssm_tokens = SSM_BATCH * SSM_SEQ
+    ft = dict(mode="lfa", seq_len=SSM_SEQ, batch_size=SSM_BATCH, log_every=1)
+    central = {k: v.clone() for k, v in ml.model.state_dict().items() if k.endswith(".central")}
+    ml.finetune(steps=1, seed=SEED + 1, **ft)            # warm-up, not counted
+    ssm_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync_clock()
+    rep = ml.finetune(steps=SSM_STEPS, seed=SEED, **ft)
+    ft_s = sync_clock() - t0
+    counts = ssm_counts()
+    losses = [h["loss"] for h in rep["history"]]
+    unchanged = all(torch.equal(v, ml.model.state_dict()[k]) for k, v in central.items())
+    # the cores backward's scratch at every matrix the step trains, against an f32 dW
+    scratch = {}
+    for path, cd in SQ.find_mpo_layers(ml.params).items():
+        cores = [c[0] if c.dim() == 5 else c for c in cores_to_list(cd)]
+        if path[0] == "embed":
+            cores = mpo.transpose_cores(cores)
+        shapes = tuple(tuple(c.shape) for c in cores)
+        mode = ml.engine.plan(shapes, ssm_tokens, "train", "bfloat16", "cuda").mode
+        plan = MK._bwd_plan(shapes, "bfloat16", sms)
+        i_dim = math.prod(sh[1] for sh in shapes)
+        j_dim = math.prod(sh[2] for sh in shapes)
+        scratch["/".join(path[:-1])] = {
+            "train_mode": mode, "workspace_bytes": plan.workspace if plan else None,
+            "dense_dw_f32_bytes": 4 * i_dim * j_dim}
+    per_step = {k: v / SSM_STEPS for k, v in counts.items()}
+    emit(phase="ssm_train", step="finetune lfa", arch="mamba2-130m", dtype=ml.cfg.dtype,
+         remat=ml.cfg.remat, batch=SSM_BATCH, seq_len=SSM_SEQ, steps=SSM_STEPS,
+         ms_per_step=1e3 * ft_s / SSM_STEPS, tokens_per_s=ssm_tokens * SSM_STEPS / ft_s,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), losses=losses,
+         trainable=rep["trainable"], total=rep["total"], reduction=rep["reduction"],
+         launches=counts, launches_per_step=per_step, central_cores=len(central),
+         central_unchanged=unchanged, cores_bwd_scratch=scratch)
+    layers = ml.cfg.num_layers
+    if len(losses) != SSM_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"mamba2-130m fine-tuning: losses {losses}")
+    if not central or not unchanged:
+        fail("mamba2-130m fine-tuning: a central core changed under LFA")
+    if (rep["trainable"], rep["total"]) != MAMBA_LFA_COUNTS:
+        fail(f"mamba2-130m fine-tuning: {rep['trainable']} of {rep['total']} trainable, "
+             f"expected {MAMBA_LFA_COUNTS}")
+    # remat: each layer's forward runs again in the backward
+    if counts["ssd_scan_bwd"] != layers * SSM_STEPS or counts["ssd_scan"] != 2 * layers * SSM_STEPS:
+        fail(f"mamba2-130m fine-tuning: {counts['ssd_scan_bwd']} SSD backward and "
+             f"{counts['ssd_scan']} forward launches in {SSM_STEPS} steps, expected "
+             f"{layers} and {2 * layers} a step")
+    ssm_gate("mamba2-130m finetune lfa", counts, ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"))
+
+    # two squeeze iterations, one a call (delta = 1.0 accepts it), at 4 x 512
+    plans_before = planned_modes(ml.engine, ml.params, ssm_tokens, MAMBA_BATCH * MAMBA_PROMPT,
+                                 MAMBA_BATCH)
+    rho0 = SQ.model_compression_ratio(ml.params)
+    events, sq_counts = [], dict.fromkeys(ssm_counts(), 0)
+    t0 = sync_clock()
+    for _ in range(2):
+        pre = lightweight.tree_map(lambda t: t.detach().clone(), ml.params)
+        ssm_zero()
+        evs = ml.squeeze(step=1, max_iters=1, finetune_steps=LIFE_STEPS, seq_len=SSM_SEQ,
+                         batch_size=SSM_BATCH, delta=1.0)
+        for k, v in ssm_counts().items():
+            sq_counts[k] += v
+        for ev in evs:
+            rc = check_event(ev, pre)
+            emit(phase="ssm_train", step="squeeze iteration", iteration=len(events),
+                 layer="/".join(ev.layer[:-1]), bond=ev.bond, new_dim=ev.new_dim,
+                 predicted_error=ev.predicted_error, metric=ev.metric, seconds=ev.seconds, **rc)
+            events.append(ev)
+        del pre
+    sq_s = sync_clock() - t0
+    rho1 = SQ.model_compression_ratio(ml.params)
+    plans_after = planned_modes(ml.engine, ml.params, ssm_tokens, MAMBA_BATCH * MAMBA_PROMPT,
+                                MAMBA_BATCH)
+    lost = {k: plans_after[k] for k, m in plans_before.items()
+            if m == "kernel" and plans_after[k] != "kernel"}
+    emit(phase="ssm_train", step="squeeze", arch="mamba2-130m", s=sq_s, events=len(events),
+         rho_before=rho0, rho_after=rho1, launches=sq_counts,
+         plans_after={f"{k[0]} {k[1]}": m for k, m in plans_after.items()})
+    if len(events) != 2 or not rho1 < rho0:
+        fail(f"mamba2-130m squeeze: {len(events)} events, rho {rho0} -> {rho1}")
+    if lost:
+        fail(f"mamba2-130m squeeze: matrices planned 'kernel' before and not after: {lost}")
+    if sq_counts["ssd_scan_bwd"] != 2 * LIFE_STEPS * layers:
+        fail(f"mamba2-130m squeeze: {sq_counts['ssd_scan_bwd']} SSD backward launches in the "
+             f"re-tunes, expected {2 * LIFE_STEPS * layers}")
+    ssm_gate("mamba2-130m squeeze (re-tunes and evaluations)", sq_counts,
+             ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"))
+
+    # the squeezed model served both ways from phase 3's prompts, under phase 3's gates
+    for wc in (True, False):
+        handle, per_prefill, per_decode, _ = serve_run(
+            ml, "mamba2-130m squeezed", mprompts, MAMBA_MAX_LEN, ("mpo_linear_fwd_mma", "ssd_scan"),
+            weight_cache=wc)
+        if per_prefill["mpo_linear_fwd_mma"] == 0 or per_decode["mpo_linear_fwd_mma"] == 0:
+            fail(f"squeezed mamba2-130m weight_cache={wc}: the head never launched "
+                 "mpo_linear_fwd_mma")
+        if per_prefill["ssd_scan"] != layers or per_decode["ssd_scan"]:
+            fail(f"squeezed mamba2-130m weight_cache={wc}: {per_prefill['ssd_scan']} SSD-scan "
+                 f"launches a prefill, {per_decode['ssd_scan']} in decode")
+        layer_check(handle, wc, per_prefill)
+    del ml, handle, central
+
+    # a fine-tuning run preempted at step 4 and resumed, against one run through
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ssm_"))
+    try:
+        a = Session.init("mamba2-130m", smoke=False, seed=SEED)
+        a.finetune(steps=SSM_STEPS, ckpt_dir=str(tmp / "a"), seed=SEED, **ft)
+        b = Session.init("mamba2-130m", smoke=False, seed=SEED)
+        with FLT.fault_scope(FLT.FaultPlan(preempt_finetune_step=4)):
+            expect_raise(FLT.Preemption, lambda: b.finetune(
+                steps=SSM_STEPS, ckpt_dir=str(tmp / "b"), seed=SEED, **ft), "preempted finetune")
+        drained = CKM.CheckpointManager(str(tmp / "b")).latest_step()
+        ssm_zero()
+        t0 = sync_clock()
+        b.finetune(steps=SSM_STEPS, ckpt_dir=str(tmp / "b"), seed=SEED, **ft)
+        resume_s = sync_clock() - t0
+        counts = ssm_counts()
+        with np.load(tmp / "a" / f"step_{SSM_STEPS}" / "arrays.npz") as za, \
+                np.load(tmp / "b" / f"step_{SSM_STEPS}" / "arrays.npz") as zb:
+            keys = sorted(za.files)
+            differ = [k for k in keys if not np.array_equal(za[k], zb[k])]
+            same_keys = keys == sorted(zb.files)
+        params_equal = same(params_of(a), params_of(b))
+        emit(phase="ssm_train", step="finetune resume", arch="mamba2-130m", preempted_at=4,
+             latest_step_after_preemption=drained, resumed_s=resume_s, launches_resumed=counts,
+             arrays=len(keys), arrays_differing=differ, params_bit_identical=params_equal)
+        if drained != 4:
+            fail(f"mamba2-130m preempted finetune: latest step {drained}, expected 4")
+        if not same_keys or differ or not params_equal:
+            fail(f"mamba2-130m finetune resume: arrays differing {differ}, same keys "
+                 f"{same_keys}, params bit-identical {params_equal}")
+        if counts["ssd_scan_bwd"] != layers * (SSM_STEPS - 4):
+            fail(f"mamba2-130m finetune resume: {counts['ssd_scan_bwd']} SSD backward launches")
+        ssm_gate("mamba2-130m finetune resumed", counts,
+                 ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"))
+        del a, b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(phase="ssm_train", s=time.perf_counter() - s_t0)
+
+    # ---- 12. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,
@@ -2420,6 +2784,8 @@ def main() -> int:
     fwd = ("src/repro_torch/csrc/mpo_linear_mma.cu", "src/repro/kernels/mpo_linear.py:216")
     bwd = ("src/repro_torch/csrc/mpo_linear_bwd.cu", "src/repro/kernels/mpo_linear.py:303")
     ssd = ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:60")
+    ssdb = ("src/repro_torch/csrc/ssd_scan_bwd.cu", "none: the reference has no Pallas "
+            "backward and differentiates its plain ssd_chunked (src/repro/models/mamba.py:37)")
     line = [
         entry("mpo_linear_fwd_mma", "cuda", *fwd, results[("mpo", "attn", 8, "bfloat16")],
               "bert-base attention matrix, M=8 (a decode step), bfloat16",
@@ -2464,10 +2830,21 @@ def main() -> int:
               launch_ms=results[("ssd", "path", "bfloat16")]["launch_ms"]),
         entry("ssd_scan", "cuda", *ssd, results[("ssd", "path", "float32")],
               f"mamba2-130m prefill: B={MAMBA_BATCH} S={MAMBA_PROMPT}, float32 (launches: the "
-              "float32 mamba2-130m serving runs)", sum(f32_ssd.values()),
+              "float32 mamba2-130m serving runs and smoke train steps)", sum(f32_ssd.values()),
               launches_by_path=f32_ssd, launches_per_call=SSD.SSD_KERNELS,
               launch_ms=results[("ssd", "path", "float32")]["launch_ms"],
               tc_bound_ms=results[("ssd", "path", "float32")]["tc_bound_ms"]),
+        entry("ssd_scan_bwd", "cuda", *ssdb, results[("ssd_bwd", "train", "bfloat16")],
+              f"mamba2-130m fine-tuning: B={SSM_BATCH} S={SSM_SEQ} H=24 P=64 N=128, chunk 128, "
+              "a random final-state cotangent, bfloat16", path_launches["ssd_scan_bwd"],
+              launches_per_call=SSD.SSD_BWD_KERNELS, launches_by_path=by_path["ssd_scan_bwd"],
+              launch_ms=results[("ssd_bwd", "train", "bfloat16")]["launch_ms"]),
+        entry("ssd_scan_bwd", "cuda", *ssdb, results[("ssd_bwd", "train", "float32")],
+              f"mamba2-130m fine-tuning: B={SSM_BATCH} S={SSM_SEQ}, float32 (launches: the "
+              "smoke float32 train steps)", sum(f32_ssd_bwd.values()),
+              launches_by_path=f32_ssd_bwd, launches_per_call=SSD.SSD_BWD_KERNELS,
+              launch_ms=results[("ssd_bwd", "train", "float32")]["launch_ms"],
+              tc_bound_ms=results[("ssd_bwd", "train", "float32")]["tc_bound_ms"]),
     ]
     if any(e["launches"] == 0 for e in line):
         fail(f"a kernel of the paths never launched: {[(e['name'], e['dtype'], e['launches']) for e in line]}")

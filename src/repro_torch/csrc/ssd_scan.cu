@@ -25,8 +25,9 @@
 //      rounded once to x's dtype.  Chunk 0 carries no state and skips C prev.
 //
 // dac is the chunk's cumulative sum of -exp(a_log) dt, one warp scan
-// (chunk_cumsum) with its roundings pinned, called by launches 1 and 3 alike,
-// so their decays agree bit for bit.  Every decay is exp of a difference of
+// (chunk_cumsum, ssd_common.cuh) with its roundings pinned, called by
+// launches 1 and 3 alike and by the backward (ssd_scan_bwd.cu), so their
+// decays agree bit for bit.  Every decay is exp of a difference of
 // it, never exp(dac_i) exp(-dac_j): dac reaches -200 within a chunk and
 // exp(200) overflows f32.
 //
@@ -58,10 +59,12 @@
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using repro::chunk_cumsum;
 using repro::cp_async16;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
@@ -204,41 +207,6 @@ __device__ inline void stage_tile(bf16* dst, int ld, int tstride, const T* src, 
             *reinterpret_cast<const uint4*>(h);
       }
     }
-  }
-}
-
-// dt of G heads' chunk rows into dts[g][qp] and their cumulative sums of
-// a_g dt into dac[g][qp], warp g for head h0 + g (zeros past q).  One warp
-// scan: 4 rows a lane in order, then a shuffle scan over the lanes, every
-// rounding pinned (no contraction), so launches 1 and 3 get the same bits.
-__device__ inline void chunk_cumsum(const float* dt, const float* a_log, long row0, int H,
-                                    int h0, int G, int q, int qp, float* dts, float* dac) {
-  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-  if (g >= G) return;
-  float* ts = dts + g * qp;
-  float* ds = dac + g * qp;
-  const int h = h0 + g;
-  for (int j = lane; j < qp; j += 32) ts[j] = j < q ? dt[(row0 + j) * H + h] : 0.f;
-  __syncwarp();
-  const float a = -expf(a_log[h]);
-  float v[4], run = 0.f;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int j = lane * 4 + t;
-    run = __fadd_rn(run, j < q ? __fmul_rn(a, ts[j]) : 0.f);
-    v[t] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl = __fadd_rn(incl, o);
-  }
-  const float excl = __fsub_rn(incl, run);
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int j = lane * 4 + t;
-    if (j < qp) ds[j] = j < q ? __fadd_rn(excl, v[t]) : 0.f;
   }
 }
 

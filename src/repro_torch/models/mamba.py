@@ -3,8 +3,9 @@ of ``repro.models.mamba``.
 
 Reference: Dao & Gu, "Transformers are SSMs" (arXiv:2405.21060).  The chunked
 SSD scan (intra-chunk quadratic term + inter-chunk state recurrence) runs
-through ``kernels.ssd_scan``: the hand-written kernel on the card, the plain
-version (the reference's ``ssd_chunked``) on the CPU.  The one-token decode
+through ``kernels.ssd_scan.SSDScanFn``: the hand-written forward and backward
+kernels on the card, their plain versions (the reference's ``ssd_chunked``
+and its gradients) on the CPU.  The one-token decode
 recurrence is plain tensor code, as the reference computes it outside any
 kernel.  in_proj / out_proj are MPO-factorized and go through the engine;
 the SSD scalars (A_log, D, dt_bias) are vectors and stay dense.
@@ -41,7 +42,9 @@ def ssd_chunked(x, dt, a_log, b, c, d_skip, chunk: int):
     reference asserts it is one; a pool admits prompts of any length) is
     padded at the end to one, with dt = 0 there: a step of dt = 0 neither
     decays the state (exp(0) = 1) nor adds to it, so the real positions'
-    outputs and the final state are the unpadded sequence's, in one scan."""
+    outputs and the final state are the unpadded sequence's, in one scan.
+    ``F.pad`` carries the gradients back to the real positions: the padded
+    ones' gradients are dropped with them."""
     s = x.shape[1]
     pad = -s % chunk if s > chunk else 0
     if pad:

@@ -21,9 +21,9 @@
 
 A densified weight-cache snapshot is only valid for the cores it was taken
 from: ``finetune`` and ``squeeze`` bump the weights version, so a later
-``serve`` re-densifies from the current cores.  The ``dense`` family runs
-every stage here; the ``ssm`` family (mamba2-130m) serves, and its
-fine-tuning and squeezing wait for a backward of the SSD scan kernel.
+``serve`` re-densifies from the current cores.  The ``dense`` and ``ssm``
+families (mamba2-130m, whose SSD scan trains through the backward kernel
+``kernels.ssd_scan.ssd_scan_bwd``) run every stage here.
 ``save`` / ``restore`` persist the whole session (``resilience.state``), and
 ``ckpt_dir`` makes ``finetune`` (checkpoint/resume) and ``squeeze`` (the
 iteration journal) resumable after a preemption.  ``serve_pool`` serves
@@ -390,12 +390,9 @@ class Session:
         ``ckpt_dir`` enables checkpoint/resume (an async save every
         ``ckpt_every`` steps, a blocking one at the end and on preemption;
         a rerun with the same ``ckpt_dir`` resumes at its latest step).
-        Returns a stage report with the loss history.  The ``ssm`` family
-        raises: its SSD scan kernel has no backward yet (ROADMAP.md, Queue 1
-        item 10), and the plain version may not stand in for it on the card."""
-        if self.cfg.family == "ssm":
-            _not_yet("Session.finetune of the ssm family (a backward for the SSD "
-                     "scan kernel)", "item 10")
+        Returns a stage report with the loss history.  In the ``ssm``
+        family the SSD scan runs through ``SSDScanFn``: its forward and
+        backward kernels on the card."""
         t0 = time.perf_counter()
         loss_fn = loss_fn or self._default_loss_fn()
         batch_fn = batch_fn or self._default_batch_fn(seq_len, batch_size, seed)
@@ -465,11 +462,8 @@ class Session:
         ``resilience.SqueezeJournal``): a preempted run re-invoked with the
         same ``ckpt_dir`` installs the journaled tree and resumes at the
         last completed iteration, reproducing the uninterrupted run's
-        history and tree bit for bit.  The ``ssm`` family raises, its
-        re-tune needing a backward of the SSD scan kernel (item 10)."""
-        if self.cfg.family == "ssm":
-            _not_yet("Session.squeeze of the ssm family (its re-tune needs a backward "
-                     "for the SSD scan kernel)", "item 10")
+        history and tree bit for bit.  The ``ssm`` family's re-tunes run
+        the SSD scan's backward kernel as ``finetune`` does."""
         t0 = time.perf_counter()
         loss_fn = loss_fn or self._default_loss_fn()
         batch_fn = batch_fn or self._default_batch_fn(seq_len, batch_size, seed)

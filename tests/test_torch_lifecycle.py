@@ -58,9 +58,11 @@ from repro_torch import Session as TSession
 from repro_torch import configs as tconfigs
 from repro_torch.core import mpo as TM
 from repro_torch.core import squeeze as TSQ
-from repro_torch.core.carry import jax_tree_to_torch
+from repro_torch.core.carry import jax_tree_to_torch, load_jax_params
 from repro_torch.core.layers import cores_to_list
+from repro_torch.kernels import ssd_scan as TSSD
 from repro_torch.models import model as TModel
+from repro_torch.resilience.journal import SqueezeJournal
 
 # (arch, LFA re-tune steps a squeeze iteration)
 CASES = (("bert-base", 0), ("qwen3-14b", 0), ("bert-base", 2), ("albert-base", 0),
@@ -226,6 +228,67 @@ def test_serve_after_squeeze_redensifies_and_matches_reference(lifecycle):
         np.testing.assert_array_equal(tt[row, :n], jt[row, :n])
 
 
+def test_ssm_lifecycle_matches_reference_on_carried_weights():
+    """mamba2-130m through the paper's workflow on both sides: ``from_dense``
+    of the reference's dense tree (conversion errors and reconstructions as
+    above), then the reference's converted tree carried into the port; 2 LFA
+    steps (losses and cores within ``tests/test_torch_train.py``'s
+    tolerances; every SSD scan of the port's steps runs its backward's
+    plain version), two squeeze iterations (the same events, each winner
+    clear of its runner-up, rho falling), then served: prefill logits within
+    ``SERVE_TOL``, greedy tokens identical.
+
+    The LFA trajectories are compared from one tree, and the squeeze runs
+    without a re-tune: the two frameworks' SVDs (in ``from_dense`` and in
+    each iteration's ``tt_round``) give the cores other gauges, and AdamW's
+    per-element steps are not gauge-invariant, so a re-tune after either
+    moves the two models' served logits apart by more than ``SERVE_TOL``;
+    ``test_squeeze_refusals_name_their_items`` runs the ssm re-tune."""
+    arch, steps, lr = "mamba2-130m", 2, 2e-3
+    jcfg, tcfg = jconfigs.smoke_config(arch), tconfigs.smoke_config(arch)
+    dense, _ = JModel.build(_dense_cfg(jcfg)).init_params(jax.random.PRNGKey(0))
+    js = JSession.from_dense(dense, jcfg)
+    ts = TSession.from_dense(jax.tree.map(np.asarray, dense), tcfg, device="cpu")
+    assert set(ts.conversion_report) == set(js.conversion_report)
+    for k, v in js.conversion_report.items():
+        assert ts.conversion_report[k] == pytest.approx(v, rel=CONV_TOL), k
+    for path, cd in TSQ.find_mpo_layers(ts.params).items():
+        rt = TM.reconstruct_stacked(cores_to_list(cd)).numpy()
+        rj = np.asarray(_reconstruct_stacked(j_cores_to_list(JSQ.find_mpo_layers(js.params)[path])))
+        assert _max_rel(rt, rj) <= REC_TOL, path
+    load_jax_params(ts.model, jax.tree.map(np.asarray, js.params))
+    calls = TSSD.ssd_scan_bwd_plain.calls
+    kw = dict(mode="lfa", steps=steps, lr=lr, seq_len=SEQ, batch_size=BATCH, log_every=1)
+    jr, tr = js.finetune(**kw), ts.finetune(**kw)
+    assert TSSD.ssd_scan_bwd_plain.calls == calls + steps * tcfg.num_layers
+    for jh, th in zip(jr["history"], tr["history"]):
+        assert th["loss"] == pytest.approx(jh["loss"], rel=2e-4)
+    assert (tr["trainable"], tr["total"]) == (jr["trainable"], jr["total"])
+    jf = jax.tree.map(np.asarray, js.params)
+    for path, cd in TSQ.find_mpo_layers(ts.params).items():
+        for name, core in cd.items():
+            want = JSQ.find_mpo_layers(jf)[path][name]
+            assert np.abs(core.detach().numpy() - want).max() <= lr * steps, (path, name)
+    _assert_clear_winners(ts.params, 2)
+    sq = dict(delta=100.0, max_iters=2, finetune_steps=0, seq_len=SEQ, batch_size=BATCH)
+    rho = TSQ.model_compression_ratio(ts.params)
+    jev, tev = js.squeeze(**sq), ts.squeeze(**sq)
+    assert len(tev) == len(jev) == 2
+    for j, t in zip(jev, tev):
+        assert (t.step, t.layer, t.bond, t.new_dim) == (j.step, j.layer, j.bond, j.new_dim)
+        assert t.predicted_error == pytest.approx(j.predicted_error, rel=EPS_TOL)
+        assert t.metric == pytest.approx(j.metric, rel=EPS_TOL, abs=EPS_TOL)
+    assert ts.report()["compression_ratio"] < rho
+    prompts = np.random.default_rng(0).integers(0, tcfg.vocab_size, (3, 7)).astype(np.int32)
+    h, jh = ts.serve(3, 16), js.serve(3, 16)
+    got = h.prefill({"tokens": prompts}).numpy()
+    want = np.asarray(jh.prefill({"tokens": jnp.asarray(prompts)}), np.float32)
+    assert _max_rel(got, want) <= SERVE_TOL
+    np.testing.assert_array_equal(h.reset().generate({"tokens": prompts}, 6).numpy(),
+                                  np.asarray(js.serve(3, 16).generate(
+                                      {"tokens": jnp.asarray(prompts)}, 6)))
+
+
 def test_set_tree_carries_a_squeezed_reference_tree(lifecycle):
     """A tree the reference squeezed enters a fresh port model through
     ``set_tree`` (bonds changed), and its forward matches the reference's;
@@ -338,10 +401,17 @@ def test_rejected_iteration_leaves_the_accepted_tree_untouched():
 
 
 def test_squeeze_refusals_name_their_items(tmp_path):
-    # the journal (ckpt_dir) is ported (tests/test_torch_persistence.py);
-    # the ssm family's squeeze raises before a journal is made
+    """The ssm family's squeeze, refused until the SSD scan had a backward
+    kernel, now runs: one iteration with a one-step LFA re-tune (the SSD
+    backward's plain version here) truncates a bond, and with ``ckpt_dir``
+    journals the accepted iteration there."""
     ms = TSession.init("mamba2-130m", device="cpu")
-    for kw in ({}, {"ckpt_dir": str(tmp_path / "journal")}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 10"):
-            ms.squeeze(**kw)
-    assert not (tmp_path / "journal").exists()
+    jdir = tmp_path / "journal"
+    calls, rho = TSSD.ssd_scan_bwd_plain.calls, TSQ.model_compression_ratio(ms.params)
+    ev = ms.squeeze(delta=100.0, max_iters=1, finetune_steps=1, seq_len=SEQ, batch_size=BATCH,
+                    ckpt_dir=str(jdir))
+    assert len(ev) == 1 and TSQ.model_compression_ratio(ms.params) < rho
+    assert TSSD.ssd_scan_bwd_plain.calls == calls + ms.cfg.num_layers
+    assert jdir.is_dir() and any(jdir.iterdir())
+    _, nxt, hist, _ = SqueezeJournal(str(jdir)).load(ms.params)
+    assert nxt == 1 and hist == ev

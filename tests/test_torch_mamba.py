@@ -318,15 +318,29 @@ def test_bf16_drift_over_depth_is_the_references():
 
 
 def test_paged_rejected_and_finetune_raises(pair):
+    """The paged KV cache is refused (the family has no KV sequence), as
+    the reference refuses it.  Fine-tuning, which raised before the SSD
+    scan had a backward kernel, now runs: one LFA step on a fresh session
+    (the pair's stays untouched for the other tests) goes through the SSD
+    scan's backward (its plain version here) and moves the auxiliary cores,
+    not the central ones."""
     js, ts = pair
     with pytest.raises(ValueError, match="paged KV cache requires"):
         js.serve(2, 32, paged=True)
     with pytest.raises(ValueError, match="paged KV cache requires"):
         ts.serve(2, 32, paged=True)
-    calls = TSSD.ssd_scan_plain.calls
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 10"):
-        ts.finetune(steps=1, seq_len=16, batch_size=2)
-    assert TSSD.ssd_scan_plain.calls == calls          # nothing ran
+    fresh = TSession.init(ARCH, device="cpu")
+    load_jax_params(fresh.model, _weights())
+    before = {k: v.clone() for k, v in fresh.model.state_dict().items()}
+    calls = TSSD.ssd_scan_bwd_plain.calls
+    rep = fresh.finetune(steps=1, seq_len=16, batch_size=2, log_every=1)
+    assert TSSD.ssd_scan_bwd_plain.calls == calls + ts.cfg.num_layers
+    assert len(rep["history"]) == 1 and np.isfinite(rep["history"][0]["loss"])
+    after = fresh.model.state_dict()
+    cores = [k for k in before if ".cores." in k]
+    central = [k for k in cores if k.endswith(".central")]
+    assert central and all(torch.equal(before[k], after[k]) for k in central)
+    assert all(not torch.equal(before[k], after[k]) for k in cores if k not in central)
     state = ts.model.init_cache(4, 99)
     assert tuple(state.shape) == (2, 4, ts.cfg.ssm_heads, 16, 16)
     assert state.dtype == torch.float32 and not state.any()

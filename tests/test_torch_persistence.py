@@ -80,7 +80,7 @@ def _records(s) -> list:
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["bert-base", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["bert-base", "qwen3-14b", "mamba2-130m"])
 def test_preempted_finetune_resumes_bit_identical(tmp_path, arch):
     """Preempted at step 2 of 4: the SIGTERM-drain save is step 2 (no
     periodic one at ``ckpt_every=100``), and the rerun resumes there.  The
@@ -107,14 +107,11 @@ def test_preempted_finetune_resumes_bit_identical(tmp_path, arch):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_preempted_squeeze_resumes_identically(tmp_path):
-    """Preempted at iteration 1 (2-step re-tunes): the journal holds
-    iteration 0, and the rerun installs it and reproduces the uninterrupted
-    run's history (all but ``seconds``), tree and rho exactly."""
+def _preempted_squeeze(tmp_path, arch):
     kw = dict(SQUEEZE_KW, finetune_steps=2)
-    ref = TSession.init("bert-base", device="cpu")
+    ref = TSession.init(arch, device="cpu")
     ref_hist = ref.squeeze(**kw)
-    s = TSession.init("bert-base", device="cpu")
+    s = TSession.init(arch, device="cpu")
     jdir = str(tmp_path / "journal")
     with faults.fault_scope(faults.FaultPlan(preempt_squeeze_iter=1)):
         with pytest.raises(faults.Preemption):
@@ -129,6 +126,19 @@ def test_preempted_squeeze_resumes_identically(tmp_path):
     assert TSQ.model_compression_ratio(s.params) == TSQ.model_compression_ratio(ref.params)
     # installing the journaled tree and the squeeze's result: two mutations
     assert s.weights_version == version + 2
+
+
+def test_preempted_squeeze_resumes_identically(tmp_path):
+    """Preempted at iteration 1 (2-step re-tunes): the journal holds
+    iteration 0, and the rerun installs it and reproduces the uninterrupted
+    run's history (all but ``seconds``), tree and rho exactly."""
+    _preempted_squeeze(tmp_path, "bert-base")
+
+
+def test_preempted_ssm_squeeze_resumes_identically(tmp_path):
+    """The same for mamba2-130m, whose re-tunes run the SSD scan's backward:
+    the resumed run reproduces the uninterrupted one bit for bit."""
+    _preempted_squeeze(tmp_path, "mamba2-130m")
 
 
 # --------------------------------------------------------------------------

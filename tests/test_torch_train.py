@@ -56,7 +56,7 @@ from repro_torch.train import loop as TLoop
 from repro_torch.train import steps as TSteps
 
 ARCHS = ("bert-base", "qwen3-14b", "albert-base", "gemma2-27b", "mistral-nemo-12b",
-         "nemotron-4-15b")
+         "nemotron-4-15b", "mamba2-130m")
 TOL = dict(atol=2e-4, rtol=2e-4)
 GRAD_TOL = {"factorized": 2e-4, "auto": 2.0 ** -8}    # relative to the leaf's max
 STEPS, LR = 5, 2e-3
