@@ -199,9 +199,40 @@ Phases, each printing JSON lines; any failure exits non-zero:
    model served ``serve(8, 544)`` both ways from phase 3's prompts under
    phase 3's gates, and a fine-tuning run preempted at step 4 and resumed,
    bit-identical to one run through.
-12. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
-   squeezed shapes' times are phase 6's records).
-13. last line: ``{"ok": true, "device": {...}}``.
+12. moe_vlm — the moe and vlm families at full width (``MOE_ARCHS``; depth
+   cut to fit the card, each model freed before the next): (a) the
+   MPO-linear forward over an expert stack in one launch, against its plain
+   version: llama4-maverick-400b-a17b's w_up (5120 -> 8192, 128 experts) at
+   a decode step's and a prefill's capacity rows (32 and 40 an expert) and
+   phi3.5-moe's w_up (4096 -> 6400, 16 experts) at 640, both dtypes (the
+   tensor-core kernel), smoke phi3.5-moe's experts in float32
+   (``csrc/mpo_linear.cu``): within ``TOL``, two launches bit-identical, one
+   launch a call, the plan's shared memory and the stack's workspace equal
+   to the CUDA source's, each expert's scratch under a quarter of its bf16
+   W; kernel, plain, library (``torch.matmul(x, reconstruct_stacked(cores))``)
+   and bound; flash at llava-next-34b's geometry (KV 8, G 7, Dh 128), ragged,
+   both dtypes; (b) the three smoke models in float32, every matmul in the
+   kernel mode, on the card against the CPU; (c) llama4-maverick, bf16,
+   ``MOE_FACT_LAYERS`` layers, factorized, ``serve(8, 640, paged=True)``
+   from 8 x 512 + 16: the forward launched exactly as the plans name it
+   (three stacked launches a MoE layer a call), no plain call; float32 at 1
+   layer, every decode step's logits against the teacher-forced forward's
+   (at ``capacity_factor`` = E, where no expert overflows); (d) phi3.5-moe,
+   bf16, ``PHI35_LAYERS`` layers, the weight cache: the same serve (flash
+   once a layer a step, the launches as planned), the same model factorized
+   at ``MOE_FACT_LAYERS`` layers (the stacked forward at every expert
+   matrix), a pool of 8 slots under
+   ``make_trace(32, 2 rps)`` (tok/s, p50/p99 latency and TTFT, occupancy),
+   float32 at 2 layers: three runs' tokens identical and a pool on a
+   ``VirtualClock`` against serial generation; (e) llava-next-34b, bf16,
+   8 x (1024 patches + 512 tokens) in ``serve(8, 1568, paged=True)``, cached
+   at the depth its reckoned peak allows (``LLAVA_LAYERS``) and factorized
+   at ``MOE_FACT_LAYERS``; float32 at 2 layers from one prompt, three runs'
+   tokens identical.
+13. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+   squeezed shapes' times are phase 6's records), the stacked forward and
+   flash at llava's geometry beside them.
+14. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -295,6 +326,23 @@ LLM_BATCH, LLM_PROMPT, LLM_MAX_LEN, LLM_NEW = 8, 512, 640, 16
 LLM_FACT_LAYERS = {"mistral-nemo-12b": 4, "qwen3-14b": 4}
 LLM_F32_LAYERS, LLM_F32_NEW, LLM_F32_CASE_M = 2, 16, 64
 LLM_F32_PROMPT, LLM_F32_SHORT = {"gemma2-27b": (1, 4352)}, (2, 128)
+# the moe and vlm families (phase 12), weights random from the seed at full
+# width, depth cut to fit the card (PERF.md section 4): llama4-maverick-400b-a17b
+# factorized at 4 of 48 layers (one layer's 3 x 128 expert matrices are 32.3
+# GB of bf16 W, 1.89 GB of f32 cores), float32 at 1 layer; phi3.5-moe-42b-a6.6b
+# from the weight cache at 24 of 32 layers (2.60 GB of bf16 W a layer) and
+# factorized at 4, a pool
+# of 8 slots under make_trace(32, 2 rps) and float32 at 2 layers (its pool
+# against serial generation over the trace's first 8 requests);
+# llava-next-34b from the weight cache at 60 layers if the reckoned peak stays
+# under MOE_PEAK_LIMIT, else 48, and factorized at 4, from 8 x (1024 patches +
+# 512 tokens) in serve(8, 1568); the stacked forward timed at STACK_REPS calls
+MOE_ARCHS = ("llama4-maverick-400b-a17b", "phi3.5-moe-42b-a6.6b", "llava-next-34b")
+LLAMA4, PHI35, LLAVA = MOE_ARCHS
+MOE_FACT_LAYERS, PHI35_LAYERS, LLAVA_LAYERS, LLAMA4_F32_NEW = 4, 24, (60, 48), 8
+MOE_PEAK_LIMIT, LLAVA_MAX_LEN, STACK_REPS = 78e9, 1568, 3
+MOE_POOL_SLOTS, MOE_POOL_MAX_LEN, MOE_POOL_REQUESTS, MOE_POOL_RPS = 8, 544, 32, 2.0
+MOE_POOL_VOCAB, MOE_F32_REQUESTS = 32064, 8        # phi3.5-moe's vocabulary before padding
 # the SSM family's fine-tuning (phase 11): full-width mamba2-130m LFA at 4 x
 # 512 tokens (4 chunks of 128 a sequence) and its squeeze at the same size
 SSM_BATCH, SSM_SEQ, SSM_STEPS = 4, 512, 8
@@ -444,16 +492,22 @@ def planned_modes(engine, params: dict, train_tokens: int, prefill_tokens: int,
 
 
 def serve_plan(engine, params: dict, cfg, batch: int, prompt: int,
-               dtype: str) -> tuple[dict, dict]:
+               dtype: str, weight_cache: bool = False) -> tuple[dict, dict]:
     """How the engine plans a factorized serving run on the card (``linear``'s
-    rules): each layer matrix at a prefill's ``batch * prompt`` rows, the
-    head (E^T when ``tied``, else ``lm_head``) at the prefill's last
-    position (``batch`` rows), and in decode the ``cached`` plan re-made as a
-    prefill of ``batch`` rows (raw cores).  Returns ``({matrix: {"prefill":
+    rules): each layer matrix at a prefill's ``batch * prompt`` rows (a
+    VLM's ``prompt`` counts its patches), an expert matrix at its capacity
+    rows an expert (``batch * cap``, ``cap`` of the prompt's length in
+    prefill, of one token in decode; the whole stack one launch), the head
+    (E^T when ``tied``, else ``lm_head``) at the prefill's last position
+    (``batch`` rows), and in decode the ``cached`` plan re-made as a prefill
+    of the decode's rows (raw cores).  Returns ``({matrix: {"prefill":
     mode, "decode": mode}}, {kernel: [launches a prefill, launches a decode
-    step]})`` with the kernel ``mpo_linear`` routes each ``kernel`` plan to;
+    step]})`` with the kernel ``mpo_linear`` routes each ``kernel`` plan to,
+    an expert stack's launches counted again under ``kernel + "_stacked"``;
     a layer matrix runs once a layer (``num_layers`` times for the one
-    stored layer of ``share_layers``)."""
+    stored layer of ``share_layers``).  With ``weight_cache`` the matrices
+    ``cache_weights`` contracts (decode plan ``cached`` at one token) run
+    their dense W and are left out."""
     from repro_torch.core import squeeze as SQ
     from repro_torch.core.layers import cores_to_list
     from repro_torch.kernels import mpo_linear as MK
@@ -461,22 +515,29 @@ def serve_plan(engine, params: dict, cfg, batch: int, prompt: int,
     for path, cd in SQ.find_mpo_layers(params).items():
         cores = cores_to_list(cd)
         shapes = tuple(tuple(c.shape[-4:]) for c in cores)
+        if weight_cache and engine.plan(shapes, 1, "decode").mode == "cached":
+            continue
         if path[0] == "embed":
             if not cfg.tie_embeddings:
                 continue                     # looked up, never multiplied
             shapes = tuple((d0, j, i, d1) for d0, i, j, d1 in shapes)      # E^T
         head = path[0] in ("embed", "lm_head")
-        rows = batch if head else batch * prompt
+        if "experts" in path:
+            cap = lambda s: max(4, int(cfg.capacity_factor * s * cfg.top_k / cfg.num_experts))
+            rows, dec_rows = batch * cap(prompt), batch * cap(1)
+        else:
+            rows, dec_rows = (batch if head else batch * prompt), batch
         plan = lambda m, ph: engine.plan(shapes, m, ph, dtype, "cuda").mode
-        dec = plan(batch, "decode")
+        dec = plan(dec_rows, "decode")
         use = {"prefill": plan(rows, "prefill"),
-               "decode": plan(batch, "prefill") if dec == "cached" else dec}
+               "decode": plan(dec_rows, "prefill") if dec == "cached" else dec}
         modes["/".join(path[:-1])] = use
         route = {"mma": "mpo_linear_fwd_mma", "cuda_core": "mpo_linear_fwd"}.get(
             MK.forward_kernel(shapes, dtype))
         for k, ph in enumerate(("prefill", "decode")):
             if use[ph] == "kernel":
-                launches.setdefault(route, [0, 0])[k] += 1 if head else cfg.num_layers
+                for key in (route, route + "_stacked") if "experts" in path else (route,):
+                    launches.setdefault(key, [0, 0])[k] += 1 if head else cfg.num_layers
     return modes, launches
 
 
@@ -559,65 +620,75 @@ def main() -> int:
         tensor-core kernel the plan's shared memory and workspace match the
         CUDA source's, the workspace stays under a quarter of a bf16 W's
         bytes, and in float32 ``csrc/mpo_linear.cu`` is timed beside it
-        (``prev_ms``).  ``tol`` replaces ``TOL`` where more terms are summed
-        than it was set for; ``reps`` shortens the timing of a slow case."""
+        (``prev_ms``).  5-D ``cores32`` are a stack of E matrices (a MoE
+        layer's experts) with x (E, M, I): one launch a call, the stack's
+        workspace E times a matrix's (the quarter-of-W gate per matrix),
+        the library yardstick ``torch.matmul(x, reconstruct_stacked(cores))``.
+        ``tol`` replaces ``TOL`` where more terms are summed than it was set
+        for; ``reps`` shortens the timing of a slow case."""
         tdt = getattr(torch, dtype)
         cores = [c.to(tdt).contiguous() for c in cores32]
-        shapes = tuple(tuple(c.shape) for c in cores)
-        i_dim = math.prod(c.shape[1] for c in cores)
-        j_dim = math.prod(c.shape[2] for c in cores)
-        x = torch.randn(m, i_dim, generator=gen).to(dev, tdt)
+        stack = cores[0].shape[:-4]                  # (E,) for an expert stack, else ()
+        n = math.prod(stack)
+        shapes = tuple(tuple(c.shape[-4:]) for c in cores)
+        i_dim = math.prod(c[1] for c in shapes)
+        j_dim = math.prod(c[2] for c in shapes)
+        rebuild = mpo.reconstruct_stacked if stack else mpo.reconstruct
+        x = torch.randn(*stack, m, i_dim, generator=gen).to(dev, tdt)
         route = MK.forward_kernel(shapes, dtype)
         counter = MK.mpo_linear_mma if route == "mma" else MK.mpo_linear_cuda_core
-        before = counter.launches
+        before, sbefore = counter.launches, counter.stacked_launches
         y = MK.mpo_linear(cores, x)
         again = MK.mpo_linear(cores, x)
         torch.cuda.synchronize()
-        if counter.launches != before + 2:
-            fail(f"{kname[route]} {mname} M={m} {dtype}: MK.mpo_linear did not launch it")
+        if (counter.launches, counter.stacked_launches) != (before + 2, sbefore + 2 * (n > 1)):
+            fail(f"{kname[route]} {mname} M={m} {dtype}: not one launch of it a call, or "
+                 "its stacked count wrong")
         if not torch.equal(y, again):
             fail(f"{kname[route]} {mname} M={m} {dtype}: two launches differ")
-        extra = {}
+        extra = {"experts": n} if stack else {}
         if route == "mma":
             plan = MK._mma_plan(shapes, m, dtype)
             dims = (ctypes.c_int * (4 * len(cores)))(*[d for sh in shapes for d in sh])
             code = MK.DTYPES[tdt]
             smem_c = mma_lib.mpo_linear_mma_smem(dims, len(cores), plan.split, plan.bm, code)
             ws_c = 4 * mma_lib.mpo_linear_mma_workspace(dims, len(cores), plan.split, m,
-                                                        plan.splits, code)
-            if (smem_c, ws_c) != (plan.smem, plan.workspace):
+                                                        plan.splits, n, code)
+            if (smem_c, ws_c) != (plan.smem, n * plan.workspace):
                 fail(f"mpo_linear_fwd_mma {mname} {dtype}: the plan's shared memory / "
-                     f"workspace {plan.smem} / {plan.workspace} differ from the CUDA "
+                     f"workspace {plan.smem} / {n * plan.workspace} differ from the CUDA "
                      f"source's {smem_c} / {ws_c}")
             if 4 * plan.workspace >= 2 * i_dim * j_dim:
-                fail(f"mpo_linear_fwd_mma {mname} M={m}: workspace {plan.workspace} B is "
-                     f"not below a quarter of a bf16 W's {2 * i_dim * j_dim} B")
-            extra = dict(split=plan.split, bm=plan.bm, tc=plan.tc, splits=plan.splits,
-                         smem_bytes=plan.smem, workspace_bytes=plan.workspace,
-                         w_bf16_bytes=2 * i_dim * j_dim)
-            if dtype == "float32" and MK._launch_plan(shapes) is not None:
+                fail(f"mpo_linear_fwd_mma {mname} M={m}: workspace {plan.workspace} B a "
+                     f"matrix is not below a quarter of its bf16 W's {2 * i_dim * j_dim} B")
+            extra.update(split=plan.split, bm=plan.bm, tc=plan.tc, splits=plan.splits,
+                         smem_bytes=plan.smem, workspace_bytes=n * plan.workspace,
+                         w_bf16_bytes=2 * n * i_dim * j_dim)
+            if dtype == "float32" and not stack and MK._launch_plan(shapes) is not None:
                 # the CUDA-core kernel the float32 path ran before, as the yardstick
                 extra["prev_ms"] = timed(lambda: MK.mpo_linear_cuda_core(cores, shapes, j_dim,
                                                                           m, x), reps)
         ref = MK.mpo_linear_plain(cores, x)
         tol = TOL[dtype] if tol is None else tol
         err = check(kname[route], y, ref, dtype, f"{mname} M={m} {dtype}", tol)
+        del y, again, ref
         isz = x.element_size()
-        nbytes = isz * (x.numel() + sum(c.numel() for c in cores) + m * j_dim)
-        ops = 2 * m * i_dim * j_dim
-        w = mpo.reconstruct(cores)
+        nbytes = isz * (x.numel() + sum(c.numel() for c in cores) + n * m * j_dim)
+        ops = 2 * n * m * i_dim * j_dim
         rec = dict(
             kernel=kname[route], matrix=mname, shapes=[list(c.shape) for c in cores],
             M=m, dtype=dtype, max_abs_err=err, tol=tol, deterministic=True, **extra,
             kernel_ms=timed(lambda: MK.mpo_linear(cores, x), reps),
             plain_ms=timed(lambda: MK.mpo_linear_plain(cores, x), reps),
-            library_ms=timed(lambda: torch.matmul(x, mpo.reconstruct(cores)), reps),
-            dense_matmul_ms=timed(lambda: torch.matmul(x, w), reps),
+            library_ms=timed(lambda: torch.matmul(x, rebuild(cores)), reps),
             bound_ms=1e3 * max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]),
             bound_by="bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_OPS_S[dtype]
             else "operations")
+        w = rebuild(cores)
+        rec["dense_matmul_ms"] = timed(lambda: torch.matmul(x, w), reps)
         emit(phase=phase, **rec)
         del w
+        torch.cuda.empty_cache()
         return rec
 
     for mname, cores32 in mats.items():
@@ -867,7 +938,8 @@ def main() -> int:
         return dataclasses.replace(cfg, mpo=dataclasses.replace(cfg.mpo, mode="kernel"))
 
     counters = ((MK.mpo_linear_cuda_core, "launches"), (MK.mpo_linear_mma, "launches"),
-                (DA.flash_decode_attention, "launches"),
+                (MK.mpo_linear_cuda_core, "stacked_launches"),
+                (MK.mpo_linear_mma, "stacked_launches"), (DA.flash_decode_attention, "launches"),
                 (SSD.ssd_scan, "launches"), (MK.mpo_linear_plain, "calls"),
                 (DA.flash_decode_attention_plain, "calls"), (SSD.ssd_scan_plain, "calls"))
     plains = ("mpo_linear_plain", "flash_decode_attention_plain", "ssd_scan_plain")
@@ -879,28 +951,33 @@ def main() -> int:
     def read_counts():
         return {"mpo_linear_fwd": MK.mpo_linear_cuda_core.launches,
                 "mpo_linear_fwd_mma": MK.mpo_linear_mma.launches,
+                "mpo_linear_fwd_stacked": MK.mpo_linear_cuda_core.stacked_launches,
+                "mpo_linear_fwd_mma_stacked": MK.mpo_linear_mma.stacked_launches,
                 "flash_decode_attention": DA.flash_decode_attention.launches,
                 "ssd_scan": SSD.ssd_scan.launches,
                 "mpo_linear_plain": MK.mpo_linear_plain.calls,
                 "flash_decode_attention_plain": DA.flash_decode_attention_plain.calls,
                 "ssd_scan_plain": SSD.ssd_scan_plain.calls}
 
-    def serve_run(sess, arch, prompts, max_len, kernels, new_tokens=NEW_TOKENS, **serve_kw):
+    def serve_run(sess, arch, prompts, max_len, kernels, new_tokens=NEW_TOKENS, extra=None,
+                  **serve_kw):
         """Warm up, then one timed prefill and ``new_tokens`` - 1 decode steps,
         the launch counts zeroed just before each and read just after; emits
         the run's record and fails on non-finite output, a factorized run
         that never launched the MPO-linear kernel, or any plain-version call.
-        Returns (handle, launches a prefill, launches in decode, logits)."""
+        ``extra`` joins the prompt batch (a VLM's ``patches``).  Returns
+        (handle, launches a prefill, launches in decode, logits)."""
         batch = len(prompts)
+        inputs = dict(extra or {}, tokens=prompts)
         handle = sess.serve(batch, max_len, **serve_kw)
-        handle.generate({"tokens": prompts}, 2)         # warm-up, not timed
+        handle.generate(inputs, 2)                      # warm-up, not timed
         handle.reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mem_before = torch.cuda.memory_allocated()
         zero_counts()
         t0 = time.perf_counter()
-        logits = handle.prefill({"tokens": prompts})
+        logits = handle.prefill(inputs)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         per_prefill = read_counts()
@@ -1049,19 +1126,19 @@ def main() -> int:
     del msess, handle
 
     # ---- 4. float32 token parity, then the smoke model card vs CPU ----
-    def greedy_runs(what, sess, prompts, max_len, new_tokens):
+    def greedy_runs(what, sess, prompts, max_len, new_tokens, extra=None):
         """Greedy generation three ways, each handle dropped after its run:
         paged + factorized, paged + weight cache, the unpaged (dense) cache
-        + weight cache.  Fails unless the tokens are identical.  Returns
-        ``({run: (tokens, each step's logits)} on the CPU, min top-2 margin,
-        {run: wall s})``."""
+        + weight cache (``extra`` joins the prompt batch).  Fails unless the
+        tokens are identical.  Returns ``({run: (tokens, each step's logits)}
+        on the CPU, min top-2 margin, {run: wall s})``."""
         runs, wall = {}, {}
         for name, kw in (("paged_factorized", dict(paged=True, weight_cache=False)),
                          ("paged_cached", dict(paged=True, weight_cache=True)),
                          ("dense_cached", dict(paged=False, weight_cache=True))):
             t0 = time.perf_counter()
             h = sess.serve(len(prompts), max_len, **kw)
-            logits = h.prefill({"tokens": prompts})
+            logits = h.prefill(dict(extra or {}, tokens=prompts))
             steps = [logits[:, -1]]
             tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
             toks = [tok]
@@ -1166,13 +1243,15 @@ def main() -> int:
         form (dL/dx); the LM train step of a tied head (``tied_head``) also
         x @ E^T and its dL/dx, dy @ E."""
         routes = set()
+        tied = "lm_head" not in params      # an untied embedding is only looked up
 
         def walk(tree, name):
             if "cores" in tree:
                 sh = [tuple(c.shape[-4:]) for c in cores_to_list(tree["cores"])]
                 swap = [(d0, j, i, d1) for d0, i, j, d1 in sh]
                 if name == "embed":
-                    forms = ((swap, sh) if tied_head else ()) if train else (swap,)
+                    forms = ((swap, sh) if tied_head else ()) if train else (
+                        (swap,) if tied else ())
                 else:
                     forms = (sh, swap) if train else (sh,)
                 routes.update(kname[MK.forward_kernel(f, "float32")] for f in forms)
@@ -2334,9 +2413,10 @@ def main() -> int:
                 * cfg.num_kv_heads * cfg.head_dim}
 
     def llm_gate(what, counts, want):
-        """Exactly the forward launches the engine's plans name, and no
-        plain version."""
-        got = {k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd")}
+        """Exactly the forward launches the engine's plans name, those over
+        an expert stack among them, and no plain version."""
+        got = {k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd",
+                                      "mpo_linear_fwd_mma_stacked", "mpo_linear_fwd_stacked")}
         if got != {k: want.get(k, 0) for k in got} or any(counts[k] for k in plains):
             fail(f"{what}: launches {counts}, the plans name {want}")
 
@@ -2774,7 +2854,366 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(phase="ssm_train", s=time.perf_counter() - s_t0)
 
-    # ---- 12. the kernels line: one entry per kernel and dtype ----
+    # ---- 12. moe_vlm: expert stacks in one launch; llama4, phi3.5, llava ----
+    v_t0 = time.perf_counter()
+    moe_rows = lambda cfg, s, b=LLM_BATCH: b * max(
+        4, int(cfg.capacity_factor * s * cfg.top_k / cfg.num_experts))
+    # float32 stacked launches (tensor-core, CUDA-core kernel) on the moe paths
+    f32_stacked, f32_moe_core = {}, {}
+
+    def expert_cores(cfg, name):
+        """One layer's expert matrix ``name`` of ``cfg``, stacked over the
+        experts, drawn on the card from the seed with ``mpo.init_cores``'s
+        scale (W of fan-in variance)."""
+        with torch.device("meta"):
+            layer = TR.init_layer(torch.Generator(), cfg)
+        shapes = [tuple(c.shape) for c in cores_to_list(layer["moe"]["experts"][name]["cores"])]
+        i_dim = math.prod(s[2] for s in shapes)
+        sigma = (1.0 / i_dim / math.prod(s[4] for s in shapes[:-1])) ** (1 / (2 * len(shapes)))
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        return [sigma * torch.randn(s, generator=g, device=dev) for s in shapes]
+
+    # (a) the stacked forward at every full-width expert shape of the paths:
+    # llama4-maverick's w_up (5120 -> 8192) and w_down (8192 -> 5120), 128
+    # experts, and phi3.5-moe's (4096 <-> 6400, 16 experts; the reference's
+    # kernel refuses its w_up, ROADMAP.md Queue 3 H), each at a decode's and
+    # a prefill's capacity rows an expert, both dtypes (w_gate has w_up's
+    # shape); w_up timed at STACK_REPS calls, the others checked at one;
+    # smoke phi3.5-moe's experts in float32 (csrc/mpo_linear.cu); flash at
+    # llava-next-34b's geometry
+    l4cfg, pcfg_full, vcfg = (configs.get_config(a) for a in MOE_ARCHS)
+    for arch, cfg in ((LLAMA4, l4cfg), (PHI35, pcfg_full)):
+        for name in ("w_up", "w_down"):
+            stack = expert_cores(cfg, name)
+            for m in (moe_rows(cfg, 1), moe_rows(cfg, LLM_PROMPT)):
+                for dtype in ("bfloat16", "float32"):
+                    # w_down sums over d_ff: f32_tol's rule for its float32 terms
+                    results[("stacked", arch, name, m, dtype)] = fwd_case(
+                        f"{arch} {name} ({cfg.num_experts} experts)", stack, m, dtype,
+                        phase="moe_vlm", reps=STACK_REPS if name == "w_up" else 1,
+                        tol=f32_tol(cfg.d_ff) if (dtype, name) == ("float32", "w_down")
+                        else None)
+            del stack
+            torch.cuda.empty_cache()
+    s_phi = configs.smoke_config(PHI35)
+    for name in ("w_up", "w_gate", "w_down"):
+        results[("stacked", "smoke", name)] = fwd_case(
+            f"smoke {PHI35} {name}", expert_cores(s_phi, name), moe_rows(s_phi, 12, 4),
+            "float32", phase="moe_vlm")
+    for dtype in ("bfloat16", "float32"):
+        results[("flash", LLAVA, dtype)] = flash_case(vcfg.num_kv_heads,
+                                                      vcfg.num_heads // vcfg.num_kv_heads,
+                                                      vcfg.head_dim, dtype, None, ragged)
+
+    # (b) the smoke models, every MPO matmul in the kernel mode: card vs CPU
+    for arch in MOE_ARCHS:
+        smoke = {}
+        for device in ("cuda", "cpu"):
+            ss = Session.init(kernel_mode(configs.smoke_config(arch)), seed=SEED, device=device)
+            srng = np.random.default_rng(SEED)
+            batch = {"tokens": srng.integers(0, ss.cfg.vocab_size, (4, 12)).astype(np.int32)}
+            if ss.cfg.family == "vlm":
+                batch["patches"] = srng.normal(size=(4, ss.cfg.frontend_len,
+                                                     ss.cfg.frontend_dim)).astype(np.float32)
+            zero_counts()
+            h = ss.serve(4, 48, paged=True, weight_cache=False)
+            logits = h.prefill(batch).float().cpu()
+            toks = h.generate(batch, 8).cpu()
+            smoke[device] = (logits, toks)
+            if device == "cuda":
+                sc = read_counts()
+                got = gate_routes(f"smoke {arch} (float32) on the card", sc, ss.params,
+                                  train=False)
+                for k, d in (("mpo_linear_fwd_mma", f32_mma), ("mpo_linear_fwd", cuda_core),
+                             ("mpo_linear_fwd_mma_stacked", f32_stacked),
+                             ("mpo_linear_fwd_stacked", f32_moe_core)):
+                    if sc[k]:
+                        d[f"smoke {arch} serve"] = sc[k]
+                if (ss.cfg.family == "moe") != bool(sc["mpo_linear_fwd_mma_stacked"]
+                                                    + sc["mpo_linear_fwd_stacked"]):
+                    fail(f"smoke {arch} on the card: stacked launches {sc}")
+        sdiff = (smoke["cuda"][0] - smoke["cpu"][0]).abs().max().item()
+        sscale = smoke["cpu"][0].abs().max().item()
+        emit(phase="moe_vlm", smoke=arch, mode="kernel", card_vs_cpu_logits_diff=sdiff,
+             scale=sscale, tol=SMOKE_TOL, launches_on_card=got,
+             tokens_identical=torch.equal(*[smoke[d][1] for d in smoke]))
+        if sdiff > SMOKE_TOL * sscale or not torch.equal(smoke["cuda"][1], smoke["cpu"][1]):
+            fail(f"smoke {arch} on the card differs from the CPU: logits {sdiff}, tokens "
+                 f"{smoke['cuda'][1].tolist()} vs {smoke['cpu'][1].tolist()}")
+        del ss, h
+
+    def exact_launches(what, counts, sess, batch, prompt, dtype, runs):
+        """Exactly the forward launches the engine's plans name over ``runs``
+        (``[(weight_cache, decode steps)]``), and no plain version; returns
+        the plans' modes."""
+        want = {}
+        for wc, steps in runs:
+            modes, plan = serve_plan(sess.engine, sess.params, sess.cfg, batch, prompt, dtype,
+                                     weight_cache=wc)
+            for k, (pre, dec) in plan.items():
+                want[k] = want.get(k, 0) + pre + dec * steps
+        llm_gate(what, counts, want)
+        return modes
+
+    def moe_memory(cfg, batch, max_len, prompt):
+        """``reckon``'s bytes, plus the paged prefill's attention transient:
+        the scores of every head in bf16 twice (product, mask), in f32 twice
+        (softmax in and out) and the bf16 weights, 14 bytes a score."""
+        rk = reckon(cfg, batch, max_len)
+        rk["prefill_attention_bytes"] = 14 * batch * cfg.num_heads * prompt * prompt
+        return rk, sum(rk.values())
+
+    # (c) llama4-maverick, bf16, full width, MOE_FACT_LAYERS layers, factorized:
+    # the stacked forward three launches a MoE layer a call
+    cfg4 = dataclasses.replace(l4cfg, num_layers=MOE_FACT_LAYERS)
+    rk, total = moe_memory(cfg4, LLM_BATCH, LLM_MAX_LEN, LLM_PROMPT)
+    emit(phase="moe_vlm", arch=LLAMA4, step="memory", layers=MOE_FACT_LAYERS,
+         card_bytes=card_bytes, **rk, sum_bytes=total)
+    lp = lrng.integers(0, l4cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)
+    t0 = sync_clock()
+    sess = Session.init(cfg4, seed=SEED)
+    init_s = sync_clock() - t0
+    modes, want = serve_plan(sess.engine, sess.params, cfg4, LLM_BATCH, LLM_PROMPT, "bfloat16")
+    experts = {k: u for k, u in modes.items() if "/experts/" in k}
+    if len(experts) != 3 or any(u != {"prefill": "kernel", "decode": "kernel"}
+                                for u in experts.values()):
+        fail(f"{LLAMA4}: the expert matrices plan {experts}, not the kernel in prefill and "
+             "decode")
+    handle, per_prefill, per_decode, _ = serve_run(
+        sess, f"{LLAMA4} ({MOE_FACT_LAYERS} layers)", lp, LLM_MAX_LEN,
+        ("mpo_linear_fwd_mma", "flash_decode_attention"), new_tokens=LLM_NEW, paged=True,
+        weight_cache=False)
+    emit(phase="moe_vlm", arch=LLAMA4, step="factorized plans", layers=MOE_FACT_LAYERS,
+         init_s=init_s, modes=modes,
+         expert_rows={"prefill": moe_rows(l4cfg, LLM_PROMPT), "decode": moe_rows(l4cfg, 1)},
+         stacked_launches_per_call=len(experts) * MOE_FACT_LAYERS,
+         launches_planned={k: {"prefill": v[0], "decode_step": v[1]} for k, v in want.items()},
+         workspace_bytes_last_call=MK.mpo_linear_mma.workspace_bytes)
+    llm_gate(f"{LLAMA4} factorized prefill", per_prefill, {k: v[0] for k, v in want.items()})
+    llm_gate(f"{LLAMA4} factorized decode", per_decode,
+             {k: v[1] * (LLM_NEW - 1) for k, v in want.items()})
+    # bf16 stacked launches on the moe paths, measured (llm_gate held them to
+    # the plans) and planned: 3 a MoE layer a call
+    st = "mpo_linear_fwd_mma_stacked"
+    moe_paths = {f"{LLAMA4} serve weight_cache=False":
+                 (per_prefill[st] + per_decode[st], len(experts) * MOE_FACT_LAYERS * LLM_NEW)}
+    sess._serve.clear()
+    del handle, sess
+    torch.cuda.empty_cache()
+    # float32, 1 layer: every decode step's logits against the teacher-forced
+    # forward's on the same tokens.  A capacity that binds drops tokens by the
+    # length of the sequence routed (prefill, one decode token, the whole
+    # teacher-forced sequence), so the check runs at capacity_factor = E,
+    # where no expert can overflow and the three compute one function
+    c32 = dataclasses.replace(l4cfg, dtype="float32", num_layers=1,
+                              capacity_factor=float(l4cfg.num_experts))
+    s32 = Session.init(c32, seed=SEED)
+    fb, fp = LLM_F32_SHORT
+    fprompts = lrng.integers(0, l4cfg.vocab_size, (fb, fp)).astype(np.int32)
+    f_len = -(-(fp + LLAMA4_F32_NEW) // POOL_PAGE) * POOL_PAGE
+    zero_counts()
+    t0 = sync_clock()
+    with torch.no_grad():
+        h = s32.serve(fb, f_len, paged=True, weight_cache=False)
+        lg = h.prefill({"tokens": fprompts})[:, -1]
+        steps, toks = [lg], [torch.argmax(lg, -1)[:, None].to(torch.int32)]
+        for _ in range(LLAMA4_F32_NEW - 1):
+            tok, lg = h.decode(toks[-1])
+            toks.append(tok)
+            steps.append(lg[:, -1])
+        served_s = sync_clock() - t0
+        counts = read_counts()
+        exact_launches(f"{LLAMA4} float32 serve", counts, s32, fb, fp, "float32",
+                       [(False, LLAMA4_F32_NEW - 1)])
+        seq = torch.cat([torch.as_tensor(fprompts, device=dev), torch.cat(toks[:-1], 1)], 1)
+        hidden = TR.forward_hidden(s32.params, {"tokens": seq}, c32, phase="prefill")
+        tf = TR.logits_head(s32.params, hidden[:, fp - 1:], c32, phase="prefill").float().cpu()
+    served = torch.stack(steps, 1).float().cpu()
+    terms = max(c32.d_ff, c32.d_model, c32.num_heads * c32.head_dim, fp + LLAMA4_F32_NEW)
+    tol = f32_tol(terms)
+    tdiff, tscale = (served - tf).abs().max().item(), tf.abs().max().item()
+    emit(phase="moe_vlm", arch=LLAMA4, step="float32 decode vs teacher-forced", layers=1,
+         capacity_factor=c32.capacity_factor, batch=fb, prompt=fp, new_tokens=LLAMA4_F32_NEW,
+         served_s=served_s, launches={k: counts[k] for k in ("mpo_linear_fwd_mma",
+                                                            "mpo_linear_fwd")},
+         teacher_forced_max_abs_diff=tdiff, scale=tscale, summed_terms=terms, tol=tol)
+    if not tdiff <= tol * tscale:
+        fail(f"{LLAMA4} float32: decode logits {tdiff} from the teacher-forced forward's "
+             f"(tol {tol} x {tscale})")
+    f32_stacked[f"{LLAMA4} float32 1 layer serve"] = counts[st]
+    f32_mma[f"{LLAMA4} float32 1 layer serve"] = counts["mpo_linear_fwd_mma"]
+    f32_flash[f"{LLAMA4} float32 1 layer serve"] = counts["flash_decode_attention"]
+    del s32, h, hidden, steps
+    torch.cuda.empty_cache()
+
+    # (d) phi3.5-moe, bf16, full width, PHI35_LAYERS layers, the weight cache;
+    # then a pool under open-loop traffic; then float32 at 2 layers
+    pcfg = dataclasses.replace(pcfg_full, num_layers=PHI35_LAYERS)
+    rk, total = moe_memory(pcfg, LLM_BATCH, LLM_MAX_LEN, LLM_PROMPT)
+    emit(phase="moe_vlm", arch=PHI35, step="memory", layers=PHI35_LAYERS, card_bytes=card_bytes,
+         **rk, sum_bytes=total)
+    pp = lrng.integers(0, pcfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)
+    t0 = sync_clock()
+    sess = Session.init(pcfg, seed=SEED)
+    init_s = sync_clock() - t0
+    handle, per_prefill, per_decode, _ = serve_run(
+        sess, f"{PHI35} ({PHI35_LAYERS} layers)", pp, LLM_MAX_LEN,
+        ("mpo_linear_fwd_mma", "flash_decode_attention"), new_tokens=LLM_NEW, paged=True,
+        weight_cache=True)
+    cached = sum(_at(handle.params, p[:-1])["w"].numel() * 2
+                 for p in SQ.find_mpo_layers(sess.params) if "w" in _at(handle.params, p[:-1]))
+    peak = torch.cuda.max_memory_allocated()
+    emit(phase="moe_vlm", arch=PHI35, step="weight cache", layers=PHI35_LAYERS, init_s=init_s,
+         cache_weights_s=handle.init_seconds, cached_w_bytes=cached, peak_mem_bytes=peak,
+         card_bytes=card_bytes,
+         flash_per_decode_step=per_decode["flash_decode_attention"] / (LLM_NEW - 1))
+    if cached != rk["cached_w_bf16_bytes"] or peak >= card_bytes:
+        fail(f"{PHI35}: cached W {cached} B (reckoned {rk['cached_w_bf16_bytes']}), peak "
+             f"{peak} B on a card of {card_bytes}")
+    if per_decode["flash_decode_attention"] != PHI35_LAYERS * (LLM_NEW - 1):
+        fail(f"{PHI35} weight cache: {per_decode['flash_decode_attention']} flash launches in "
+             "decode; once a layer a step")
+    exact_launches(f"{PHI35} weight cache", {k: per_prefill[k] + per_decode[k] for k in per_decode},
+                   sess, LLM_BATCH, LLM_PROMPT, "bfloat16", [(True, LLM_NEW - 1)])
+    sess._serve.clear()
+    del handle
+    torch.cuda.empty_cache()
+    # (d') the same model factorized at MOE_FACT_LAYERS layers: every expert
+    # matrix through the stacked forward (16 experts, 640 rows an expert in
+    # prefill, 32 in decode)
+    cut = Session.init(dataclasses.replace(pcfg, num_layers=MOE_FACT_LAYERS), seed=SEED)
+    modes, want = serve_plan(cut.engine, cut.params, cut.cfg, LLM_BATCH, LLM_PROMPT, "bfloat16")
+    experts = {k: u for k, u in modes.items() if "/experts/" in k}
+    if len(experts) != 3 or any(u != {"prefill": "kernel", "decode": "kernel"}
+                                for u in experts.values()):
+        fail(f"{PHI35}: the expert matrices plan {experts}, not the kernel in prefill and "
+             "decode")
+    h, per_prefill, per_decode, _ = serve_run(
+        cut, f"{PHI35} ({MOE_FACT_LAYERS} layers)", pp, LLM_MAX_LEN,
+        ("mpo_linear_fwd_mma", "flash_decode_attention"), new_tokens=LLM_NEW, paged=True,
+        weight_cache=False)
+    emit(phase="moe_vlm", arch=PHI35, step="factorized plans", layers=MOE_FACT_LAYERS,
+         modes=modes, expert_rows={"prefill": moe_rows(pcfg, LLM_PROMPT),
+                                   "decode": moe_rows(pcfg, 1)},
+         stacked_launches_per_call=len(experts) * MOE_FACT_LAYERS,
+         launches_planned={k: {"prefill": v[0], "decode_step": v[1]} for k, v in want.items()})
+    exact_launches(f"{PHI35} factorized", {k: per_prefill[k] + per_decode[k] for k in per_decode},
+                   cut, LLM_BATCH, LLM_PROMPT, "bfloat16", [(False, LLM_NEW - 1)])
+    moe_paths[f"{PHI35} serve weight_cache=False"] = (
+        per_prefill[st] + per_decode[st], len(experts) * MOE_FACT_LAYERS * LLM_NEW)
+    cut._serve.clear()
+    del h, cut
+    torch.cuda.empty_cache()
+    ptrace = TRF.make_trace(MOE_POOL_REQUESTS, MOE_POOL_RPS, seed=SEED, prompt_len=(64, 512),
+                            max_new=(8, 16), vocab_size=MOE_POOL_VOCAB)
+    pool, _, _, _ = open_loop(sess, f"{PHI35} bf16 pool: whole, weight cache", ptrace,
+                              MOE_POOL_SLOTS, MOE_POOL_MAX_LEN, ("flash_decode_attention",),
+                              **pool_kw)
+    del pool, sess
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(pcfg_full, dtype="float32", num_layers=LLM_F32_LAYERS)
+    s32 = Session.init(c32, seed=SEED)
+    fprompts = lrng.integers(0, c32.vocab_size, (fb, fp)).astype(np.int32)
+    f_len = -(-(fp + LLM_F32_NEW) // POOL_PAGE) * POOL_PAGE
+    zero_counts()
+    runs, margin, wall = greedy_runs(f"{PHI35} float32 token parity", s32, fprompts, f_len,
+                                     LLM_F32_NEW)
+    counts = read_counts()
+    exact_launches(f"{PHI35} float32 runs", counts, s32, fb, fp, "float32",
+                   [(False, LLM_F32_NEW - 1), (True, LLM_F32_NEW - 1), (True, LLM_F32_NEW - 1)])
+    emit(phase="moe_vlm", arch=PHI35, step="float32 parity", layers=LLM_F32_LAYERS, batch=fb,
+         prompt=fp, new_tokens=LLM_F32_NEW, runs=sorted(runs), identical=True,
+         min_top2_margin=margin, wall_s=wall,
+         launches={k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd",
+                                          "flash_decode_attention")})
+    f32_stacked[f"{PHI35} float32 {LLM_F32_LAYERS} layers (three runs)"] = counts[st]
+    f32_mma[f"{PHI35} float32 {LLM_F32_LAYERS} layers (three runs)"] = counts["mpo_linear_fwd_mma"]
+    f32_flash[f"{PHI35} float32 {LLM_F32_LAYERS} layers (three runs)"] = counts[
+        "flash_decode_attention"]
+    del runs
+    ftrace = ptrace[:MOE_F32_REQUESTS]
+    zero_counts()
+    clock = VirtualClock()
+    pool = s32.serve_pool(MOE_POOL_SLOTS, MOE_POOL_MAX_LEN, clock=clock, **pool_kw)
+    report = TRF.replay(pool, ftrace, clock=clock)
+    counts = read_counts()
+    pool_gate(f"{PHI35} float32 pool", counts, ("flash_decode_attention",))
+    f32_flash[f"{PHI35} float32 pool"] = counts["flash_decode_attention"]
+    del pool
+    serial = serial_run(s32, ftrace, MOE_POOL_MAX_LEN, **pool_kw)
+    parity = tie_rule(f"{PHI35} float32 pool", [r["tokens"] for r in report.records], serial)
+    emit(phase="moe_vlm", run=f"{PHI35} float32 pool, virtual clock", parity=parity,
+         summary=report.summary, launches=counts)
+    del s32, serial
+    torch.cuda.empty_cache()
+
+    # (e) llava-next-34b, bf16, full width: 8 x (1024 patches + 512 tokens),
+    # cached at the depth its reckoned peak allows and factorized at
+    # MOE_FACT_LAYERS layers; float32 at 2 layers, three runs
+    vprompt = vcfg.frontend_len + LLM_PROMPT
+    for depth in LLAVA_LAYERS:
+        rk, total = moe_memory(dataclasses.replace(vcfg, num_layers=depth), LLM_BATCH,
+                               LLAVA_MAX_LEN, vprompt)
+        emit(phase="moe_vlm", arch=LLAVA, step="memory", layers=depth, card_bytes=card_bytes,
+             limit_bytes=MOE_PEAK_LIMIT, **rk, sum_bytes=total)
+        if total < MOE_PEAK_LIMIT:
+            break
+    else:
+        fail(f"{LLAVA}: no depth of {LLAVA_LAYERS} fits {MOE_PEAK_LIMIT} B")
+    vp = lrng.integers(0, vcfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)
+    patches = np.random.default_rng(SEED + 4).normal(
+        size=(LLM_BATCH, vcfg.frontend_len, vcfg.frontend_dim)).astype(np.float32)
+    for wc, layers in ((True, depth), (False, MOE_FACT_LAYERS)):
+        vc = dataclasses.replace(vcfg, num_layers=layers)
+        t0 = sync_clock()
+        sess = Session.init(vc, seed=SEED)
+        init_s = sync_clock() - t0
+        handle, per_prefill, per_decode, _ = serve_run(
+            sess, f"{LLAVA} ({layers} layers)", vp, LLAVA_MAX_LEN,
+            ("mpo_linear_fwd_mma", "flash_decode_attention"), new_tokens=LLM_NEW,
+            extra={"patches": patches}, paged=True, weight_cache=wc)
+        modes = exact_launches(f"{LLAVA} weight_cache={wc}",
+                               {k: per_prefill[k] + per_decode[k] for k in per_decode}, sess,
+                               LLM_BATCH, vprompt, "bfloat16", [(wc, LLM_NEW - 1)])
+        emit(phase="moe_vlm", arch=LLAVA, step="weight cache" if wc else "factorized",
+             layers=layers, depth_cut=layers != vcfg.num_layers, init_s=init_s,
+             cache_weights_s=handle.init_seconds, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+             card_bytes=card_bytes, modes=modes,
+             flash_per_decode_step=per_decode["flash_decode_attention"] / (LLM_NEW - 1))
+        if per_decode["flash_decode_attention"] != layers * (LLM_NEW - 1):
+            fail(f"{LLAVA} weight_cache={wc}: {per_decode['flash_decode_attention']} flash "
+                 "launches in decode; once a layer a step")
+        sess._serve.clear()
+        del handle, sess
+        torch.cuda.empty_cache()
+    # one prompt: the float32 prefill sends the FFN (7168 <-> 20480) to the
+    # CUDA-core forward, ~6 s a launch at its 1152 rows
+    c32 = dataclasses.replace(vcfg, dtype="float32", num_layers=LLM_F32_LAYERS)
+    s32 = Session.init(c32, seed=SEED)
+    fb = 1
+    fprompts = lrng.integers(0, c32.vocab_size, (fb, fp)).astype(np.int32)
+    fpatches = patches[:fb]
+    f_len = -(-(vcfg.frontend_len + fp + LLM_F32_NEW) // POOL_PAGE) * POOL_PAGE
+    zero_counts()
+    runs, margin, wall = greedy_runs(f"{LLAVA} float32 token parity", s32, fprompts, f_len,
+                                     LLM_F32_NEW, extra={"patches": fpatches})
+    counts = read_counts()
+    exact_launches(f"{LLAVA} float32 runs", counts, s32, fb, vcfg.frontend_len + fp, "float32",
+                   [(False, LLM_F32_NEW - 1), (True, LLM_F32_NEW - 1), (True, LLM_F32_NEW - 1)])
+    emit(phase="moe_vlm", arch=LLAVA, step="float32 parity", layers=LLM_F32_LAYERS, batch=fb,
+         prompt=fp, patches=vcfg.frontend_len, new_tokens=LLM_F32_NEW, runs=sorted(runs),
+         identical=True, min_top2_margin=margin, wall_s=wall,
+         launches={k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd",
+                                          "flash_decode_attention")})
+    for k, d in (("mpo_linear_fwd_mma", f32_mma), ("mpo_linear_fwd", cuda_core),
+                 ("flash_decode_attention", f32_flash)):
+        if counts[k]:
+            d[f"{LLAVA} float32 {LLM_F32_LAYERS} layers (three runs)"] = counts[k]
+    del s32, runs
+    torch.cuda.empty_cache()
+    emit(phase="moe_vlm", s=time.perf_counter() - v_t0)
+
+    # ---- 13. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,
@@ -2845,6 +3284,38 @@ def main() -> int:
               launches_by_path=f32_ssd_bwd, launches_per_call=SSD.SSD_BWD_KERNELS,
               launch_ms=results[("ssd_bwd", "train", "float32")]["launch_ms"],
               tc_bound_ms=results[("ssd_bwd", "train", "float32")]["tc_bound_ms"]),
+    ]
+    stacked_path = {k: v[0] for k, v in moe_paths.items()}
+    if any(v[0] != v[1] for v in moe_paths.values()):
+        fail(f"stacked launches on the moe paths (measured, planned): {moe_paths}")
+    m_pre, m_dec = moe_rows(l4cfg, LLM_PROMPT), moe_rows(l4cfg, 1)
+    smoke_up = results[("stacked", "smoke", "w_up")]
+    vlm_flash = {k: v for k, v in by_path["flash_decode_attention"].items() if LLAVA in k}
+    line += [
+        entry("mpo_linear_fwd_mma", "cuda", *fwd,
+              results[("stacked", LLAMA4, "w_up", m_pre, "bfloat16")],
+              f"{LLAMA4} w_up (5120 -> 8192), {l4cfg.num_experts} experts stacked in one "
+              f"launch, M={m_pre} an expert (a prefill's capacity at 8 x 512), bfloat16",
+              sum(stacked_path.values()), launches_by_path=stacked_path, stacked=True,
+              planned=sum(v[1] for v in moe_paths.values()),
+              note="launches: the stacked calls of the bf16 moe paths, counted where they "
+                   "launch; planned: 3 a MoE layer a call"),
+        entry("mpo_linear_fwd_mma", "cuda", *fwd,
+              results[("stacked", LLAMA4, "w_up", m_dec, "float32")],
+              f"{LLAMA4} w_up, {l4cfg.num_experts} experts stacked, M={m_dec} an expert (a "
+              "decode step's capacity at batch 8), float32 (launches: the stacked calls of "
+              "the float32 moe runs)",
+              sum(f32_stacked.values()),
+              launches_by_path=f32_stacked, stacked=True),
+        entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu", fwd[1],
+              smoke_up, f"smoke {PHI35} w_up (64 -> 128), {smoke_up['experts']} experts stacked, "
+              f"M={smoke_up['M']} an expert, float32 (the tensor-core plan refuses it)",
+              sum(f32_moe_core.values()),
+              launches_by_path=f32_moe_core, stacked=True),
+        entry("flash_decode_attention", "cuda", "src/repro_torch/csrc/decode_attention.cu",
+              "src/repro/kernels/decode_attention.py:166", results[("flash", LLAVA, "bfloat16")],
+              f"{LLAVA} geometry KV=8 G=7 Dh=128 ps=16, ragged, bfloat16",
+              sum(vlm_flash.values()), launches_by_path=vlm_flash),
     ]
     if any(e["launches"] == 0 for e in line):
         fail(f"a kernel of the paths never launched: {[(e['name'], e['dtype'], e['launches']) for e in line]}")

@@ -207,26 +207,42 @@ class MPOEngine:
 
         Master weights stay f32 and are cast to the activation dtype at the
         point of use.  A dense ``{"w": ...}`` entry — a never-factorized
-        matrix or a serving-time cached W — short-circuits before planning."""
+        matrix or a serving-time cached W — short-circuits before planning.
+
+        A stack of E matrices of one shape (the experts of a MoE layer: cores
+        ``(E, d0, i, j, d1)``, x ``(E, N, I)``) is planned per matrix at N
+        tokens, as the reference's ``jax.vmap`` over the experts shows its
+        engine one matrix at a time, and all E run in one call of the planned
+        mode (one kernel launch on the card).  The kernel mode has no backward
+        over a stack yet (ROADMAP.md, Queue 1 item 7b): it raises where a
+        gradient is asked for."""
         if "w" in params:
             w = params["w"].to(x.dtype)
             return x @ (w.T if transpose else w)
         cores = self._prepare_cores(params, x.dtype)
         if transpose:
             cores = mpo.transpose_cores(cores)
-        tokens = math.prod(x.shape[:-1]) if x.dim() > 1 else 1
-        shapes = [c.shape for c in cores]
+        lead = cores[0].dim() - 4                  # 1 over an expert stack
+        tokens = math.prod(x.shape[lead:-1]) if x.dim() > 1 else 1
+        shapes = [c.shape[-4:] for c in cores]
         plan = self.plan(shapes, tokens, phase, x.dtype, x.device)
         if plan.mode == "cached" and self.cfg.mode == "auto":
             # "cached" assumes the rebuild was amortized at cache init, but
             # the caller passed raw cores: re-decide as a one-shot forward
             plan = self.plan(shapes, tokens, "prefill", x.dtype, x.device)
         if plan.mode == "kernel":
+            if lead and torch.is_grad_enabled() and (
+                    x.requires_grad or any(c.requires_grad for c in cores)):
+                raise NotImplementedError("the kernels' backward over an expert stack comes "
+                                          "with ROADMAP.md, Queue 1 item 7b")
             from repro_torch.kernels.mpo_linear import MPOLinearFn
             return MPOLinearFn.apply(x.contiguous(), *[c.contiguous() for c in cores])
         if plan.mode == "factorized":
-            return mpo.apply_mpo(cores, x)
+            return torch.vmap(mpo.apply_mpo)(cores, x) if lead else mpo.apply_mpo(cores, x)
         # "reconstruct" (or a forced "cached" over raw cores: contract now)
+        if lead:
+            w = mpo.reconstruct_stacked(cores)                      # (E, I, J)
+            return (x.reshape(w.shape[0], -1, w.shape[1]) @ w).reshape(*x.shape[:-1], w.shape[2])
         return mpo.matmul_reconstruct(x, cores)
 
     def logits(self, params: dict, h: torch.Tensor, *,
@@ -250,8 +266,9 @@ class MPOEngine:
         Returns a new params tree where every factorized matrix whose decode
         plan is ``cached`` is replaced by its contracted dense ``{"w": W}``
         in ``dtype`` (the cores' float32 when None); everything else passes
-        through untouched.  Each matrix of a stack (leading layer dims) is
-        contracted on its own into one preallocated ``(L, I, J)`` tensor
+        through untouched.  Each matrix of a stack (leading layer and
+        expert dims) is contracted on its own into one preallocated
+        ``(L, I, J)`` (``(L, E, I, J)``) tensor
         (``mpo.reconstruct_stacked``), so the peak above the result is one
         layer's float32 W.  W rounded to
         the activation dtype here has the bits the cast at every use

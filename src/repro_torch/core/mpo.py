@@ -204,8 +204,8 @@ def apply_mpo(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 def transpose_cores(cores: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """Cores of ``W^T`` (swap the i/j legs of every core)."""
-    return [c.permute(0, 2, 1, 3) for c in cores]
+    """Cores of ``W^T`` (swap the i/j legs of every core, stacked or not)."""
+    return [c.transpose(-3, -2) for c in cores]
 
 
 def apply_mpo_t(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,8 @@
 // Fused MPO-linear forward for Hopper on the CUDA cores, float32: y[M, J] =
 // x[M, I] @ W(cores), where W is rebuilt from the MPO cores inside each block
-// and never written to device memory.
+// and never written to device memory.  A stack of E matrices of one shape
+// (the experts of a MoE layer: cores (E, d0, i, j, d1), x [E, M, I], y
+// [E, M, J]) runs in the same launch, the expert a grid dimension.
 //
 // Replaces the Pallas TPU kernel repro/kernels/mpo_linear.py:_fwd_call /
 // _fwd_kernel for the float32 core shapes the tensor-core kernel
@@ -55,6 +57,7 @@ constexpr int PC = 32;  // suffix (is, js) pairs contracted together when buildi
 
 struct MpoArgs {
   const void* core[MAXN];
+  long cstride[MAXN];  // elements of core k a matrix of the stack
   int bond[MAXN + 1];  // d_0 .. d_n  (d_0 = d_n = 1)
   int fin[MAXN];       // i_k
   int fout[MAXN];      // j_k
@@ -63,6 +66,7 @@ struct MpoArgs {
   int n, s;            // cores, split bond
   int I, J, Is, Js, Ip;
   int M;
+  int E;               // matrices in the stack
   int dmax;            // largest bond
   int njp;             // prefix vectors a block holds
   int cb;              // vectors each chain buffer holds: max(PC, njp)
@@ -85,6 +89,10 @@ mpo_linear_fwd_kernel(MpoArgs a, const T* __restrict__ x, T* __restrict__ y) {
   const int tid = threadIdx.x;
   const int c0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
+  const int ex = blockIdx.z;                 // the matrix of the stack
+  x += (long)ex * a.M * a.I;
+  y += (long)ex * a.M * a.J;
+  auto core = [&](int k) { return static_cast<const T*>(a.core[k]) + ex * a.cstride[k]; };
   const int cend = min(c0 + BN, a.J);
   const int jp0 = c0 / a.Js;
   const int njp_blk = (cend - 1) / a.Js - jp0 + 1;
@@ -96,7 +104,7 @@ mpo_linear_fwd_kernel(MpoArgs a, const T* __restrict__ x, T* __restrict__ y) {
     float* in = bufA;
     float* out = bufB;
     for (int k = a.n - 1; k >= a.s; --k) {
-      const T* c = static_cast<const T*>(a.core[k]);
+      const T* c = core(k);
       const int d0 = a.bond[k], d1 = a.bond[k + 1];
       const long row = (long)a.fin[k] * a.fout[k] * d1;
       for (int e = tid; e < np * d0; e += THREADS) {
@@ -137,7 +145,7 @@ mpo_linear_fwd_kernel(MpoArgs a, const T* __restrict__ x, T* __restrict__ y) {
     float* in = bufA;
     float* out = bufB;
     for (int k = 0; k < a.s; ++k) {
-      const T* c = static_cast<const T*>(a.core[k]);
+      const T* c = core(k);
       const int d0 = a.bond[k], d1 = a.bond[k + 1];
       const long row = (long)a.fin[k] * a.fout[k] * d1;
       const int ik = (ip / a.sin[k]) % a.fin[k];
@@ -221,7 +229,7 @@ int launch(const MpoArgs& a, const void* x, void* y, cudaStream_t stream) {
                                        (size_t)2 * a.cb * a.dmax + KC * BN + BM * (KC + 1));
   cudaError_t err = repro::allow_smem(mpo_linear_fwd_kernel<T, BM, BN>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.J + BN - 1) / BN, (a.M + BM - 1) / BM);
+  dim3 grid((a.J + BN - 1) / BN, (a.M + BM - 1) / BM, a.E);
   mpo_linear_fwd_kernel<T, BM, BN><<<grid, THREADS, smem, stream>>>(
       a, static_cast<const T*>(x), static_cast<T*>(y));
   return (int)cudaGetLastError();
@@ -236,14 +244,17 @@ int launch_tile(int tile, const MpoArgs& a, const void* x, void* y, cudaStream_t
 
 }  // namespace
 
-// cores: n device pointers; shapes: n * 4 ints (d0, i, j, d1) per core.
+// cores: n device pointers; shapes: n * 4 ints (d0, i, j, d1) per core of
+// one matrix; E matrices stacked (each core E contiguous blocks of its
+// shape, x [E, M, I], y [E, M, J]; E = 1 for one matrix).
 // tile: 0 = 64 x 64 output tiles, 1 = 16 x 16 (njp must be sized for it).
 // x, cores and y float32.  Returns cudaGetLastError() after the launch (0 =
 // launched).
 extern "C" int mpo_linear_fwd(const void* const* cores, const int* shapes, int n, int split,
-                              int njp, int tile, const void* x, void* y, int M,
+                              int njp, int tile, const void* x, void* y, int M, int E,
                               void* stream) {
-  if (n < 2 || n > MAXN || split < 1 || split >= n) return (int)cudaErrorInvalidValue;
+  if (n < 2 || n > MAXN || split < 1 || split >= n || E < 1 || E > 65535)
+    return (int)cudaErrorInvalidValue;
   MpoArgs a;
   a.n = n;
   a.s = split;
@@ -254,6 +265,7 @@ extern "C" int mpo_linear_fwd(const void* const* cores, const int* shapes, int n
     a.bond[k] = shapes[4 * k];
     a.fin[k] = shapes[4 * k + 1];
     a.fout[k] = shapes[4 * k + 2];
+    a.cstride[k] = (long)shapes[4 * k] * a.fin[k] * a.fout[k] * shapes[4 * k + 3];
     a.I *= a.fin[k];
     a.J *= a.fout[k];
     if (k >= split) {
@@ -266,6 +278,7 @@ extern "C" int mpo_linear_fwd(const void* const* cores, const int* shapes, int n
   a.dmax = a.bond[n] > a.dmax ? a.bond[n] : a.dmax;
   a.Ip = a.I / a.Is;
   a.M = M;
+  a.E = E;
   a.njp = njp;
   a.cb = njp > PC ? njp : PC;
   // digit place values inside each group: the prefix cores [0, s) make up

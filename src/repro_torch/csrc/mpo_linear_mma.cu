@@ -1,6 +1,10 @@
 // MPO-linear forward for Hopper: y[M, J] = x[M, I] @ W(cores), with W rebuilt
 // in f32 on chip and its product with x on the tensor cores, for bfloat16 and
-// float32 activations.  W is never written to device memory.
+// float32 activations.  W is never written to device memory.  A stack of E
+// matrices of one shape (the experts of a MoE layer: cores (E, d0, i, j, d1),
+// x [E, M, I], y [E, M, J]) runs in the same launches, each launch's grid
+// gaining the expert: the expert's R, P and split partials are its own
+// blocks of the workspace.
 //
 // Replaces the Pallas TPU kernel repro/kernels/mpo_linear.py:_fwd_call /
 // _fwd_kernel (float32 core shapes the plan refuses keep csrc/mpo_linear.cu).
@@ -98,6 +102,7 @@ constexpr int kWTerms = sizeof(T) == 4 ? 3 : 2;
 
 struct Args {
   const void* core[MAXN];
+  long cstride[MAXN];  // elements of core k a matrix of the stack
   int bond[MAXN + 1];  // d_0 .. d_n  (d_0 = d_n = 1)
   int fin[MAXN];       // i_k
   int fout[MAXN];      // j_k
@@ -113,7 +118,19 @@ struct Args {
   int nst;             // stages over I
   int per;             // stages a split
   int S;               // splits
+  int E;               // matrices in the stack
 };
+
+// floats of P (one matrix): the prefix contraction through cores 0..s-2
+__host__ __device__ inline long p_floats(const Args& a) {
+  return a.s == 1 ? 1 : (long)(a.Ip / a.fin[a.s - 1]) * (a.Jp / a.fout[a.s - 1]) * a.bond[a.s - 1];
+}
+
+// core k of matrix e of the stack
+template <typename T>
+__device__ __forceinline__ const T* core_at(const Args& a, int k, int e) {
+  return static_cast<const T*>(a.core[k]) + e * a.cstride[k];
+}
 
 using repro::cp_async16;
 using repro::cp_async_commit;
@@ -132,8 +149,10 @@ __global__ void __launch_bounds__(THREADS) suffix_kernel(Args a, float* __restri
   const int npair = a.Is * a.Js;
   const int pc0 = blockIdx.x * PC;
   const int np = min(PC, npair - pc0);
+  const int ex = blockIdx.y;
+  R += (long)ex * npair * a.ds;
   for (int k = a.n - 1; k >= a.s; --k) {
-    const T* c = static_cast<const T*>(a.core[k]);
+    const T* c = core_at<T>(a, k, ex);
     const int d0 = a.bond[k], d1 = a.bond[k + 1];
     const long row = (long)a.fin[k] * a.fout[k] * d1;
     for (int e = threadIdx.x; e < np * d0; e += THREADS) {
@@ -171,6 +190,8 @@ __global__ void __launch_bounds__(THREADS) prefix_kernel(Args a, float* __restri
   extern __shared__ float sbuf[];
   float* in = sbuf;                 // [PC][dmax]
   float* out = sbuf + PC * a.dmax;  // [PC][dmax]
+  const int ex = blockIdx.y;
+  P += ex * p_floats(a);
   if (a.s == 1) {
     if (threadIdx.x == 0) P[0] = 1.f;
     return;
@@ -181,7 +202,7 @@ __global__ void __launch_bounds__(THREADS) prefix_kernel(Args a, float* __restri
   const int pc0 = blockIdx.x * PC;
   const int np = min(PC, npair - pc0);
   for (int k = 0; k < a.s - 1; ++k) {
-    const T* c = static_cast<const T*>(a.core[k]);
+    const T* c = core_at<T>(a, k, ex);
     const int d0 = a.bond[k], d1 = a.bond[k + 1];
     const long row = (long)a.fin[k] * a.fout[k] * d1;
     for (int e = threadIdx.x; e < np * d1; e += THREADS) {
@@ -224,10 +245,6 @@ size_t mma_smem(const Args& a, int bm) {
   return sizeof(float) * (size_t)a.ds * a.Is * a.Js + 2 * xstage * bm + 2 * lt_bytes(a) +
          xterms + kWTerms<T> * sizeof(bf16) * (size_t)BK * WP;
 }
-// floats of P: the prefix contraction through cores 0..s-2
-inline long p_floats(const Args& a) {
-  return a.s == 1 ? 1 : (long)(a.Ip / a.fin[a.s - 1]) * (a.Jp / a.fout[a.s - 1]) * a.bond[a.s - 1];
-}
 
 // 128-row tiles add 8 warps that form the next stage's L while the first 8
 // rebuild and multiply (one block an SM at 128 registers); smaller tiles keep
@@ -268,7 +285,14 @@ mma_kernel(Args a, const T* __restrict__ x, T* __restrict__ y,
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const int c0 = blockIdx.x * BN;
   const int split = blockIdx.y;
-  const int m0 = blockIdx.z * BM;
+  const int mtiles = (a.M + BM - 1) / BM;
+  const int ex = blockIdx.z / mtiles;                         // the matrix of the stack
+  const int m0 = blockIdx.z % mtiles * BM;
+  x += (long)ex * a.M * a.I;
+  y += (long)ex * a.M * a.J;
+  Rg += (long)ex * rsz;
+  P += ex * p_floats(a);
+  part += (long)ex * a.S * a.M * a.J;
   const int st0 = split * a.per;
   const int st1 = min(a.nst, st0 + a.per);
   const int jp0 = c0 / a.Js;
@@ -296,7 +320,7 @@ mma_kernel(Args a, const T* __restrict__ x, T* __restrict__ y,
     const int ipb = st * BK / a.Is;
     const int nvec = a.nq * a.njq;
     const int k = a.s - 1;
-    const T* c = static_cast<const T*>(a.core[k]);
+    const T* c = core_at<T>(a, k, ex);
     const int d0 = a.bond[k], fi = a.fin[k], fo = a.fout[k];
     const int Jpp = a.Jp / fo;
     const long row = (long)fi * fo * a.ds;
@@ -589,13 +613,16 @@ mma_kernel(Args a, const T* __restrict__ x, T* __restrict__ y,
     }
 }
 
-// y = (sum of the S partials, in split order), rounded to y's dtype once
+// y = (sum of the S partials, in split order), rounded to y's dtype once;
+// each matrix of the stack has its own [S, M, J] partials
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-reduce_kernel(const float* __restrict__ part, T* __restrict__ y, long mj, int S) {
-  for (long i = blockIdx.x * (long)THREADS + threadIdx.x; i < mj; i += (long)gridDim.x * THREADS) {
+reduce_kernel(const float* __restrict__ part, T* __restrict__ y, long mj, int S, int E) {
+  for (long i = blockIdx.x * (long)THREADS + threadIdx.x; i < E * mj;
+       i += (long)gridDim.x * THREADS) {
+    const long ex = i / mj, r = i % mj;
     float v = 0.f;
-    for (int k = 0; k < S; ++k) v += part[k * mj + i];
+    for (int k = 0; k < S; ++k) v += part[(ex * S + k) * mj + r];
     repro::st(y, i, v);
   }
 }
@@ -603,8 +630,8 @@ reduce_kernel(const float* __restrict__ part, T* __restrict__ y, long mj, int S)
 // Fills a from the core shapes for x elements of esize bytes; false when the
 // kernel cannot take them.
 bool make_args(Args& a, const void* const* cores, const int* shapes, int n, int split, int M,
-               int S, int esize) {
-  if (n < 2 || n > MAXN || split < 1 || split >= n || S < 1) return false;
+               int S, int E, int esize) {
+  if (n < 2 || n > MAXN || split < 1 || split >= n || S < 1 || E < 1) return false;
   a.n = n;
   a.s = split;
   a.I = a.J = a.Is = a.Js = 1;
@@ -614,6 +641,7 @@ bool make_args(Args& a, const void* const* cores, const int* shapes, int n, int 
     a.bond[k] = shapes[4 * k];
     a.fin[k] = shapes[4 * k + 1];
     a.fout[k] = shapes[4 * k + 2];
+    a.cstride[k] = (long)shapes[4 * k] * a.fin[k] * a.fout[k] * shapes[4 * k + 3];
     a.I *= a.fin[k];
     a.J *= a.fout[k];
     if (k >= split) {
@@ -627,6 +655,7 @@ bool make_args(Args& a, const void* const* cores, const int* shapes, int n, int 
   a.Ip = a.I / a.Is;
   a.Jp = a.J / a.Js;
   a.M = M;
+  a.E = E;
   a.ds = a.bond[split];
   for (int k = n - 1, pi = 1, po = 1; k >= 0; --k) {
     if (k == split - 1) pi = po = 1;
@@ -652,7 +681,9 @@ int launch_main(const Args& a, const void* x, void* y, const float* R, const flo
   const size_t smem = mma_smem<T>(a, BM);
   cudaError_t err = repro::allow_smem(mma_kernel<T, BM, TC>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.J + BN - 1) / BN, a.S, (a.M + BM - 1) / BM);
+  const long zdim = (long)a.E * ((a.M + BM - 1) / BM);  // matrices x row tiles
+  if (zdim > 65535) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((a.J + BN - 1) / BN, a.S, (unsigned)zdim);
   mma_kernel<T, BM, TC><<<grid, kSplitWarps<BM> ? 2 * THREADS : THREADS, smem, st>>>(
       a, static_cast<const T*>(x), static_cast<T*>(y), R, P, part);
   return (int)cudaGetLastError();
@@ -668,15 +699,18 @@ int launch_tc(int tc, const Args& a, const void* x, void* y, const float* R, con
 
 template <typename T>
 int launch(const Args& a, int bm, int tc, const void* x, void* y, float* ws, cudaStream_t st) {
+  // the workspace: every matrix's R, then every matrix's P, then every
+  // matrix's [S, M, J] partials
   float* R = ws;
   const long rsz = (long)a.ds * a.Is * a.Js;
-  float* P = R + rsz;
-  float* part = P + p_floats(a);
+  float* P = R + a.E * rsz;
+  float* part = P + a.E * p_floats(a);
   const size_t ssmem = 2 * sizeof(float) * PC * a.dmax;
-  suffix_kernel<T><<<(a.Is * a.Js + PC - 1) / PC, THREADS, ssmem, st>>>(a, R);
+  suffix_kernel<T><<<dim3((a.Is * a.Js + PC - 1) / PC, a.E), THREADS, ssmem, st>>>(a, R);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  prefix_kernel<T><<<(p_floats(a) / a.bond[a.s - 1] + PC - 1) / PC, THREADS, ssmem, st>>>(a, P);
+  prefix_kernel<T><<<dim3((p_floats(a) / a.bond[a.s - 1] + PC - 1) / PC, a.E), THREADS, ssmem,
+                     st>>>(a, P);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   if (bm == 128) rc = launch_tc<T, 128>(tc, a, x, y, R, P, part, st);
@@ -685,8 +719,9 @@ int launch(const Args& a, int bm, int tc, const void* x, void* y, float* ws, cud
   else rc = (int)cudaErrorInvalidValue;
   if (rc || a.S == 1) return rc;
   const long mj = (long)a.M * a.J;
-  const int blocks = (int)((mj + THREADS - 1) / THREADS < 4096 ? (mj + THREADS - 1) / THREADS : 4096);
-  reduce_kernel<T><<<blocks, THREADS, 0, st>>>(part, static_cast<T*>(y), mj, a.S);
+  const long want = (a.E * mj + THREADS - 1) / THREADS;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  reduce_kernel<T><<<blocks, THREADS, 0, st>>>(part, static_cast<T*>(y), mj, a.S, a.E);
   return (int)cudaGetLastError();
 }
 
@@ -696,31 +731,35 @@ int esize(int dtype) { return dtype == 0 ? 4 : dtype == 1 ? 2 : 0; }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, cores and y alike).
 
-// Floats of workspace one call takes: R, P, then (S > 1) the [S, M, J]
-// partials.
+// Floats of workspace one call over a stack of E matrices takes: each
+// matrix's R, P, then (S > 1) its [S, M, J] partials.
 extern "C" long mpo_linear_mma_workspace(const int* shapes, int n, int split, int M, int S,
-                                         int dtype) {
+                                         int E, int dtype) {
   Args a;
-  if (!esize(dtype) || !make_args(a, nullptr, shapes, n, split, M, S, esize(dtype))) return -1;
-  return (long)a.ds * a.Is * a.Js + p_floats(a) + (S > 1 ? (long)S * M * a.J : 0);
+  if (!esize(dtype) || !make_args(a, nullptr, shapes, n, split, M, S, E, esize(dtype))) return -1;
+  return E * ((long)a.ds * a.Is * a.Js + p_floats(a) + (S > 1 ? (long)S * M * a.J : 0));
 }
 
-// Dynamic shared memory of the main kernel at row tile bm, in bytes.
+// Dynamic shared memory of the main kernel at row tile bm, in bytes (a
+// block's: the same for any stack of matrices).
 extern "C" long mpo_linear_mma_smem(const int* shapes, int n, int split, int bm, int dtype) {
   Args a;
-  if (!esize(dtype) || !make_args(a, nullptr, shapes, n, split, 1, 1, esize(dtype))) return -1;
+  if (!esize(dtype) || !make_args(a, nullptr, shapes, n, split, 1, 1, 1, esize(dtype)))
+    return -1;
   return (long)(dtype == 0 ? mma_smem<float>(a, bm) : mma_smem<bf16>(a, bm));
 }
 
-// cores: n device pointers; shapes: n * 4 ints (d0, i, j, d1) per core.
-// bm: 16, 64 or 128 rows an output tile; tc: 4 or 2 jp columns a rebuild
-// patch; S: splits of I.  x [M, I] and y [M, J]; ws: the workspace.
-// Returns cudaGetLastError() after the launches (0 = launched).
+// cores: n device pointers; shapes: n * 4 ints (d0, i, j, d1) per core of
+// one matrix; E matrices stacked (each core E contiguous blocks of its
+// shape; E = 1 for one matrix).  bm: 16, 64 or 128 rows an output tile; tc:
+// 4 or 2 jp columns a rebuild patch; S: splits of I.  x [E, M, I] and y
+// [E, M, J]; ws: the workspace.  Returns cudaGetLastError() after the
+// launches (0 = launched).
 extern "C" int mpo_linear_mma_fwd(const void* const* cores, const int* shapes, int n, int split,
-                                  int bm, int tc, int S, const void* x, void* y, int M, void* ws,
-                                  int dtype, void* stream) {
+                                  int bm, int tc, int S, const void* x, void* y, int M, int E,
+                                  void* ws, int dtype, void* stream) {
   Args a;
-  if (!esize(dtype) || !make_args(a, cores, shapes, n, split, M, S, esize(dtype)))
+  if (!esize(dtype) || !make_args(a, cores, shapes, n, split, M, S, E, esize(dtype)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);

@@ -79,15 +79,30 @@ class SyntheticCLS:
 
 
 def make_batch_fn(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0):
-    """Batch function ``step -> numpy batch dict`` for the token-only families,
-    dense and ssm (the vlm and encdec inputs come with those families,
-    ROADMAP.md Queue 1 item 7)."""
-    if cfg.family not in ("dense", "ssm"):
+    """Batch function ``step -> numpy batch dict``.  A ``vlm`` batch adds
+    ``patches`` (drawn once from the seed, the same every step) and its
+    ``seq_len`` counts them: the text takes ``seq_len - frontend_len``
+    tokens and the labels are IGNORE over the patches.  The encdec inputs
+    come with that family (ROADMAP.md, Queue 1 item 7b)."""
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7")
-    lm = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch, seed=seed)
+            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7b")
+    text = shape.seq_len - (cfg.frontend_len if cfg.family == "vlm" else 0)
+    lm = SyntheticLM(cfg.vocab_size, text, shape.global_batch, seed=seed)
+    patches = None
+    if cfg.family == "vlm":
+        patches = np.random.default_rng(seed + 1234).normal(
+            0, 1, size=(shape.global_batch, cfg.frontend_len,
+                        cfg.frontend_dim)).astype(np.float32)
 
     def fn(step: int, shard: int = 0, num_shards: int = 1) -> dict:
-        return lm.batch(step, shard, num_shards)
+        b = lm.batch(step, shard, num_shards)
+        if patches is not None:
+            per = shape.global_batch // num_shards
+            b["patches"] = patches[shard * per:(shard + 1) * per]
+            pad = np.full((per, cfg.frontend_len), IGNORE, np.int32)
+            b["labels"] = np.concatenate([pad, b["labels"]], axis=1)
+        return b
 
     return fn
+

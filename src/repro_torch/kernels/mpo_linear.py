@@ -32,6 +32,10 @@ Three CUDA kernels replace the Pallas TPU kernels of
   are built here, so the CPU tests replay them.  No atomics: two runs give
   the same bits.
 
+Both forwards also take a stack of E matrices of one shape, the experts of a
+MoE layer (cores ``(E, d0, i, j, d1)``, x ``(E, M, I)``), in one launch: the
+grid gains the expert, the plan is the one matrix's at M rows.
+
 ``MPOLinearFn`` is the autograd function around them (the reference's
 ``_mpo_linear`` custom VJP): ``dL/dx`` is the forward over i/j-swapped
 cores, ``dL/dcores`` the backward kernel.  Each wrapper launches its kernel
@@ -125,7 +129,8 @@ class MmaPlan:
     tc: int             # jp columns a rebuild patch: 4 or 2
     splits: int         # S, blocks that share one tile's stages of I
     smem: int           # dynamic shared memory of the main kernel, bytes
-    workspace: int      # bytes of scratch: R, P, then the [S, M, J] f32 partials
+    workspace: int      # bytes of scratch: R, P, then the [S, M, J] f32 partials (a
+                        # matrix's: a stack of E takes E times it)
 
 
 def _mma_geometry(shapes: Sequence[tuple], s: int, dtype: str = "bfloat16") -> dict | None:
@@ -287,12 +292,15 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def mpo_linear_plain(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """The plain version: W rebuilt in f32, f32 product, one rounding to
-    x's dtype — the arithmetic the kernel does, in another order."""
+    x's dtype — the arithmetic the kernel does, in another order.  Over a
+    stack (5-D cores, x ``(E, ..., I)``) each matrix's W multiplies its own
+    rows, in one batched product."""
     mpo_linear_plain.calls += 1
     acc = _acc_dtype(x.dtype)
-    w = mpo.reconstruct([c.to(acc) for c in cores])
-    lead = x.shape[:-1]
-    return (x.reshape(-1, w.shape[0]).to(acc) @ w).to(x.dtype).reshape(*lead, w.shape[1])
+    cores = [c.to(acc) for c in cores]
+    w = (mpo.reconstruct_stacked if cores[0].dim() == 5 else mpo.reconstruct)(cores)
+    y = x.reshape(*w.shape[:-2], -1, w.shape[-2]).to(acc) @ w     # ([E,] rows, J)
+    return y.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
 
 
 mpo_linear_plain.calls = 0
@@ -304,7 +312,7 @@ def _lib() -> ctypes.CDLL:
     lib.mpo_linear_fwd.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.mpo_linear_fwd.restype = ctypes.c_int
     return lib
 
@@ -315,10 +323,10 @@ def _mma_lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mpo_linear_mma_smem.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32]
     lib.mpo_linear_mma_smem.restype = ctypes.c_long
-    lib.mpo_linear_mma_workspace.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32, i32]
+    lib.mpo_linear_mma_workspace.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32, i32, i32]
     lib.mpo_linear_mma_workspace.restype = ctypes.c_long
     lib.mpo_linear_mma_fwd.argtypes = [
-        ctypes.POINTER(ptr), ctypes.POINTER(i32), i32, i32, i32, i32, i32, ptr, ptr, i32,
+        ctypes.POINTER(ptr), ctypes.POINTER(i32), i32, i32, i32, i32, i32, ptr, ptr, i32, i32,
         ptr, i32, ptr]
     lib.mpo_linear_mma_fwd.restype = i32
     return lib
@@ -327,18 +335,30 @@ def _mma_lib() -> ctypes.CDLL:
 def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """``y[..., J] = x[..., I] @ W(cores)`` without W in device memory.
 
+    A stack of E matrices of one shape — 5-D cores ``(E, d0, i, j, d1)``,
+    x ``(E, ..., I)`` — gives y ``(E, ..., J)``, each matrix applied to its
+    own rows, in one launch (planned as one matrix at its ``M`` rows).
+
     CPU tensors take ``mpo_linear_plain``.  CUDA tensors launch the kernel
     ``forward_kernel`` names: ``csrc/mpo_linear_mma.cu`` (``mpo_linear_mma``)
     in both dtypes, or for the float32 shapes its plan refuses
     ``csrc/mpo_linear.cu`` (``mpo_linear_cuda_core``); each wrapper counts
-    its launches.  Raises on anything the kernels do not take: other devices
-    or dtypes, mixed dtypes, non-contiguous inputs, shapes neither takes."""
+    its launches, one a call, stacked or not.  Raises on anything the
+    kernels do not take: other devices or dtypes, mixed dtypes,
+    non-contiguous inputs, shapes neither takes."""
     cores = list(cores)
     if x.device.type == "cpu":
         return mpo_linear_plain(cores, x)
-    shapes = tuple(tuple(c.shape) for c in cores)
-    if any(len(s) != 4 for s in shapes):
-        raise ValueError(f"mpo_linear: cores must be 4-D, got {shapes}")
+    rank = cores[0].dim()
+    if rank not in (4, 5) or any(c.dim() != rank for c in cores):
+        raise ValueError(f"mpo_linear: cores must be 4-D, or 5-D for a stack, got "
+                         f"{[tuple(c.shape) for c in cores]}")
+    n_stack = cores[0].shape[0] if rank == 5 else 1
+    if rank == 5 and (any(c.shape[0] != n_stack for c in cores) or x.dim() < 2
+                      or x.shape[0] != n_stack):
+        raise ValueError(f"mpo_linear: a stack of {n_stack} matrices needs every core's and "
+                         f"x's leading dim {n_stack}, got x {tuple(x.shape)}")
+    shapes = tuple(tuple(c.shape[-4:]) for c in cores)
     for c in cores:
         if c.device != x.device or c.dtype != x.dtype or not c.is_contiguous():
             raise ValueError("mpo_linear: cores must be contiguous, on x's device "
@@ -352,13 +372,13 @@ def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mpo_linear: x has {x.shape[-1]} features, W has {i_dim} rows")
     if x.device.type != "cuda":
         raise ValueError(f"mpo_linear: unsupported device {x.device}")
-    m = math.prod(x.shape[:-1])
+    m = math.prod(x.shape[1 if rank == 5 else 0:-1])
     dtype = "float32" if x.dtype == torch.float32 else "bfloat16"
     route = _route(shapes, dtype)
     if route is None:
         raise ValueError(f"mpo_linear: no {dtype} kernel takes core shapes {shapes}")
     fn = mpo_linear_mma if route == "mma" else mpo_linear_cuda_core
-    return fn(cores, shapes, j_dim, m, x)
+    return fn(cores, shapes, j_dim, m, x, n_stack)
 
 
 @functools.lru_cache(maxsize=None)
@@ -368,60 +388,68 @@ def _dims(shapes: tuple):
 
 
 def mpo_linear_cuda_core(cores: list, shapes: tuple, j_dim: int, m: int,
-                         x: torch.Tensor) -> torch.Tensor:
+                         x: torch.Tensor, n_stack: int = 1) -> torch.Tensor:
     """Launches ``csrc/mpo_linear.cu`` on the float32 inputs ``mpo_linear``
-    checked (``mpo_linear_cuda_core.launches`` counts its launches)."""
+    checked, ``n_stack`` matrices of ``shapes`` at ``m`` rows each
+    (``mpo_linear_cuda_core.launches`` counts its launches,
+    ``.stacked_launches`` those over a stack of more than one matrix)."""
     tile = 1 if m <= SMALL_M else 0
     plan = _launch_plan(shapes, tile)
     if plan is None or x.dtype != torch.float32:
         raise ValueError(f"mpo_linear: the CUDA-core kernel does not take {x.dtype} "
                          f"core shapes {shapes}")
     split, njp = plan
-    if m > 65535 * TILES[tile][0]:
-        raise ValueError(f"mpo_linear: {m} rows exceed the launch grid")
+    if m > 65535 * TILES[tile][0] or n_stack > 65535:
+        raise ValueError(f"mpo_linear: {n_stack} x {m} rows exceed the launch grid")
     y = torch.empty(*x.shape[:-1], j_dim, dtype=x.dtype, device=x.device)
     if m == 0:
         return y
     ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
     _build.launch("mpo_linear_fwd", x, lambda stream: _lib().mpo_linear_fwd(
         ptrs, _dims(shapes), len(cores), split, njp, tile, x.data_ptr(), y.data_ptr(), m,
-        stream))
+        n_stack, stream))
     mpo_linear_cuda_core.launches += 1
+    mpo_linear_cuda_core.stacked_launches += n_stack > 1
     return y
 
 
 mpo_linear_cuda_core.launches = 0
+mpo_linear_cuda_core.stacked_launches = 0
 
 
 def mpo_linear_mma(cores: list, shapes: tuple, j_dim: int, m: int,
-                   x: torch.Tensor) -> torch.Tensor:
+                   x: torch.Tensor, n_stack: int = 1) -> torch.Tensor:
     """Launches ``csrc/mpo_linear_mma.cu`` on the inputs ``mpo_linear``
-    checked, in their dtype (``mpo_linear_mma.launches`` counts its launches;
-    ``mpo_linear_mma.workspace_bytes`` is the last call's scratch: R, P and
-    the split-I partials, never W)."""
+    checked, in their dtype, ``n_stack`` matrices of ``shapes`` at ``m`` rows
+    each (``mpo_linear_mma.launches`` counts its launches,
+    ``.stacked_launches`` those over a stack of more than one matrix;
+    ``mpo_linear_mma.workspace_bytes`` is the last call's scratch: each
+    matrix's R, P and split-I partials, never W)."""
     dtype = "float32" if x.dtype == torch.float32 else "bfloat16"
     plan = _mma_plan(shapes, m, dtype)
     if plan is None:
         raise ValueError(f"mpo_linear: the tensor-core kernel does not take {dtype} "
                          f"core shapes {shapes}")
-    if m > 65535 * plan.bm:
-        raise ValueError(f"mpo_linear: {m} rows exceed the launch grid")
+    if n_stack * -(-m // plan.bm) > 65535:
+        raise ValueError(f"mpo_linear: {n_stack} x {m} rows exceed the launch grid")
     y = torch.empty(*x.shape[:-1], j_dim, dtype=x.dtype, device=x.device)
     if m == 0:
         return y
     if x.data_ptr() % 16:
         x = x.clone()                  # cp.async copies x in 16-byte chunks
-    ws = torch.empty(plan.workspace // 4, dtype=torch.float32, device=x.device)
+    ws = torch.empty(n_stack * plan.workspace // 4, dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
     _build.launch("mpo_linear_mma_fwd", x, lambda stream: _mma_lib().mpo_linear_mma_fwd(
         ptrs, _dims(shapes), len(cores), plan.split, plan.bm, plan.tc, plan.splits,
-        x.data_ptr(), y.data_ptr(), m, ws.data_ptr(), DTYPES[x.dtype], stream))
+        x.data_ptr(), y.data_ptr(), m, n_stack, ws.data_ptr(), DTYPES[x.dtype], stream))
     mpo_linear_mma.launches += 1
-    mpo_linear_mma.workspace_bytes = plan.workspace
+    mpo_linear_mma.stacked_launches += n_stack > 1
+    mpo_linear_mma.workspace_bytes = n_stack * plan.workspace
     return y
 
 
 mpo_linear_mma.launches = 0
+mpo_linear_mma.stacked_launches = 0
 mpo_linear_mma.workspace_bytes = 0
 
 

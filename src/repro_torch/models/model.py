@@ -1,6 +1,6 @@
 """``Model``: a model family as an ``nn.Module`` — the port of
-``repro.models.model``.  ``build`` dispatches by family, ``dense`` to
-``models.transformer`` and ``ssm`` to ``models.mamba``.
+``repro.models.model``.  ``build`` dispatches by family: ``dense``,
+``moe`` and ``vlm`` to ``models.transformer``, ``ssm`` to ``models.mamba``.
 
 Parameters are registered under the reference's key paths
 (``embed.cores.c0``, ``layers.attn.wq.cores.central``, ``layers.ln1.scale``,
@@ -24,9 +24,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import engine_for
 from repro_torch.models import mamba, transformer
 
-# family -> module of its init / forward / serving functions; the other
-# families come with ROADMAP.md, Queue 1 item 7
-FAMILIES = {"dense": transformer, "ssm": mamba}
+# family -> module of its init / forward / serving functions; hybrid and
+# encdec come with ROADMAP.md, Queue 1 item 7b
+FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer, "ssm": mamba}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -106,8 +106,10 @@ class Model(_Tree):
         self.device = dev
         self.mod = mod
 
-    def forward(self, batch: dict, phase: str = "train") -> torch.Tensor:
-        return self.mod.forward(self.tree(), batch, self.cfg, phase=phase)
+    def forward(self, batch: dict, phase: str = "train", **kw) -> torch.Tensor:
+        """Logits; the transformer families take ``with_aux=True`` for
+        ``(logits, MoE load-balance loss)``."""
+        return self.mod.forward(self.tree(), batch, self.cfg, phase=phase, **kw)
 
     def forward_hidden(self, batch: dict, phase: str = "train") -> torch.Tensor:
         return self.mod.forward_hidden(self.tree(), batch, self.cfg, phase=phase)
@@ -117,8 +119,9 @@ class Model(_Tree):
 
     def init_cache(self, batch: int, max_len: int, **kw):
         """The serving cache: the KV cache (a dict; ``paged=True`` pages it)
-        for ``dense``, the ``(L, B, H, N, P)`` f32 state tensor for ``ssm``,
-        which has no KV sequence to page (``paged=True`` raises)."""
+        for the transformer families, the ``(L, B, H, N, P)`` f32 state
+        tensor for ``ssm``, which has no KV sequence to page (``paged=True``
+        raises)."""
         return self.mod.init_cache(self.cfg, batch, max_len, device=self.device, **kw)
 
     def reset_cache(self, cache):
@@ -198,11 +201,11 @@ def family_module(cfg: ModelConfig):
     mod = FAMILIES.get(cfg.family)
     if mod is None:
         raise NotImplementedError(
-            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7")
+            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7b")
     return mod
 
 
 def build(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
-    """The model for ``cfg``: the ``dense`` and ``ssm`` families (the others
-    raise, ROADMAP.md Queue 1 item 7)."""
+    """The model for ``cfg``: the ``dense``, ``moe``, ``vlm`` and ``ssm``
+    families (``hybrid`` and ``encdec`` raise, ROADMAP.md Queue 1 item 7b)."""
     return Model(cfg, seed=seed, device=device)

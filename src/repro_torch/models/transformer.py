@@ -1,12 +1,15 @@
-"""Decoder-only transformer LM (and the encoder classifier), dense family —
-the port of ``repro.models.transformer``.
+"""Decoder-only transformer LM (and the encoder classifier) — the port of
+``repro.models.transformer``, for the dense, MoE and VLM families.
 
 The reference scans the stacked layer params with ``lax.scan``; here the
 stack is a Python loop over the leading layer dim (``share_layers``
 broadcasts the one stored layer).  ``cfg.remat`` recomputes each layer in
 the backward (``torch.utils.checkpoint``, as the reference's
-``jax.checkpoint`` of the scan body) when gradients are being taken.  The
-MoE and VLM branches come with their families (ROADMAP.md, Queue 1 item 7).
+``jax.checkpoint`` of the scan body) when gradients are being taken.  MoE
+layers (``cfg.num_experts``) replace the MLP with ``models.moe`` and sum
+its load-balance loss over the layers; VLM configs put the projected patch
+embeddings (``batch["patches"]``, the modality frontend itself a stub, as
+in the reference) ahead of the text.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as L
 from repro_torch.models import nn
+from repro_torch.models.moe import apply_moe, init_moe
 
 
 def attn_cfg(cfg: ModelConfig) -> nn.AttnCfg:
@@ -35,24 +39,28 @@ def attn_cfg(cfg: ModelConfig) -> nn.AttnCfg:
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    return {"ln1": nn.init_rmsnorm(cfg.d_model),
-            "ln2": nn.init_rmsnorm(cfg.d_model),
-            "attn": nn.init_attention(gen, attn_cfg(cfg), cfg.mpo),
-            "mlp": nn.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, cfg.mpo)}
+    p = {"ln1": nn.init_rmsnorm(cfg.d_model),
+         "ln2": nn.init_rmsnorm(cfg.d_model),
+         "attn": nn.init_attention(gen, attn_cfg(cfg), cfg.mpo)}
+    if cfg.num_experts:
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.mlp_act, cfg.mpo)
+    else:
+        p["mlp"] = nn.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, cfg.mpo)
+    return p
 
 
 def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Parameters under the reference's key paths, the layer params stacked
-    along a leading layer dim (one layer when ``share_layers``)."""
-    if cfg.family != "dense" or cfg.num_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7")
+    along a leading layer dim (one layer when ``share_layers``); a VLM's
+    dense f32 ``projector`` (``frontend_dim -> d_model``)."""
     n_stored = 1 if cfg.share_layers else cfg.num_layers
     params = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, cfg=cfg.mpo),
         "layers": nn.stack_layers(lambda g: init_layer(g, cfg), gen, n_stored),
         "final_norm": nn.init_rmsnorm(cfg.d_model),
     }
+    if cfg.family == "vlm":
+        params["projector"] = L.init_linear(gen, cfg.frontend_dim, cfg.d_model, cfg=L.DENSE)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_linear(gen, cfg.d_model, cfg.vocab_size,
                                           cfg=cfg.mpo, kind="embed", sharded_out=True)
@@ -69,32 +77,40 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _layer_fwd(cfg: ModelConfig, x, layer, *, positions, mask, cache=None,
                phase="train", chunk=False):
+    """One layer -> (x, its MoE load-balance loss: 0 without experts)."""
     h = nn.apply_rmsnorm(layer["ln1"], x)
     a, _ = nn.apply_attention(layer["attn"], h, attn_cfg(cfg), cfg.mpo,
                               positions=positions, mask=mask, cache=cache,
                               phase=phase, chunk=chunk)
     x = x + a
     h = nn.apply_rmsnorm(layer["ln2"], x)
-    return x + nn.apply_mlp(layer["mlp"], h, cfg.mlp_act, cfg.mpo, phase=phase)
+    if cfg.num_experts:
+        f, aux = apply_moe(layer["moe"], h, act=cfg.mlp_act, mpo=cfg.mpo, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor, phase=phase)
+        return x + f, aux
+    return x + nn.apply_mlp(layer["mlp"], h, cfg.mlp_act, cfg.mpo, phase=phase), 0.0
 
 
 def _run_stack(cfg: ModelConfig, params, x, *, positions, mask, mask_local,
                caches=None, phase="train", chunk=False):
-    """The layer stack; ``caches`` (leading layer dim) is updated in place."""
+    """The layer stack -> (x, the load-balance loss summed over the layers,
+    f32); ``caches`` (leading layer dim) is updated in place."""
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         layer = nn.index_layer(params["layers"], 0 if cfg.share_layers else i)
         # alternating local/global attention: even layers local
         m = mask_local if cfg.local_window is not None and i % 2 == 0 else mask
         cache = None if caches is None else nn.index_layer(caches, i)
         if cfg.remat and cache is None and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 lambda x, layer, m: _layer_fwd(cfg, x, layer, positions=positions,
                                                mask=m, phase=phase),
                 x, layer, m, use_reentrant=False)
         else:
-            x = _layer_fwd(cfg, x, layer, positions=positions, mask=m, cache=cache,
-                           phase=phase, chunk=chunk)
-    return x
+            x, aux = _layer_fwd(cfg, x, layer, positions=positions, mask=m, cache=cache,
+                                phase=phase, chunk=chunk)
+        aux_sum = aux_sum + aux
+    return x, aux_sum
 
 
 def _logits(cfg: ModelConfig, params, x, phase="train"):
@@ -108,18 +124,25 @@ def _logits(cfg: ModelConfig, params, x, phase="train"):
     return logits
 
 
-def _embed_inputs(cfg: ModelConfig, params, tokens, phase="train"):
-    """Token embeddings -> (B, S, D) in the config's dtype."""
-    x = L.apply_embedding(params["embed"], tokens, cfg=cfg.mpo,
+def _embed_inputs(cfg: ModelConfig, params, batch: dict, phase="train"):
+    """Token embeddings (B, S, D) in the config's dtype; a VLM batch's
+    ``patches`` (B, P, frontend_dim) projected in f32 and put ahead of the
+    text -> (B, P + S, D)."""
+    x = L.apply_embedding(params["embed"], batch["tokens"], cfg=cfg.mpo,
                           dtype=cfg.torch_dtype, phase=phase)
     if cfg.name.startswith("gemma"):
         x = x * (cfg.d_model ** 0.5)
+    if cfg.family == "vlm" and "patches" in batch:
+        p = batch["patches"].float() @ params["projector"]["w"].float()
+        x = torch.cat([p.to(x.dtype), x], dim=1)
     return x.to(cfg.torch_dtype)
 
 
-def forward_hidden(params, batch, cfg: ModelConfig, *, phase="train"):
-    """Teacher-forced forward up to the final norm -> hidden (B, S, D)."""
-    x = _embed_inputs(cfg, params, batch["tokens"], phase)
+def forward_hidden(params, batch, cfg: ModelConfig, *, phase="train", with_aux=False):
+    """Teacher-forced forward up to the final norm -> hidden (B, S, D), or
+    ``(hidden, aux)`` with the MoE load-balance loss summed over the layers
+    (0 without experts) when ``with_aux``."""
+    x = _embed_inputs(cfg, params, batch, phase)
     s, dev = x.shape[1], x.device
     positions = torch.arange(s, device=dev)[None, :]
     if cfg.causal:
@@ -127,18 +150,22 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, phase="train"):
     else:  # encoder (BERT/ALBERT analog): full bidirectional attention
         mask = torch.ones((1, 1, s, s), dtype=torch.bool, device=dev)
     mask_local = nn.causal_mask(s, s, window=cfg.local_window, device=dev)
-    x = _run_stack(cfg, params, x, positions=positions, mask=mask,
-                   mask_local=mask_local, phase=phase)
-    return nn.apply_rmsnorm(params["final_norm"], x)
+    x, aux = _run_stack(cfg, params, x, positions=positions, mask=mask,
+                        mask_local=mask_local, phase=phase)
+    hidden = nn.apply_rmsnorm(params["final_norm"], x)
+    return (hidden, aux) if with_aux else hidden
 
 
 def logits_head(params, hidden, cfg: ModelConfig, *, phase="train"):
     return _logits(cfg, params, hidden, phase)
 
 
-def forward(params, batch, cfg: ModelConfig, *, phase="train"):
-    """Teacher-forced forward -> logits (B, S, V)."""
-    return _logits(cfg, params, forward_hidden(params, batch, cfg, phase=phase), phase)
+def forward(params, batch, cfg: ModelConfig, *, phase="train", with_aux=False):
+    """Teacher-forced forward -> logits (B, S, V), or ``(logits, aux)`` when
+    ``with_aux`` (the reference's return)."""
+    hidden, aux = forward_hidden(params, batch, cfg, phase=phase, with_aux=True)
+    logits = _logits(cfg, params, hidden, phase)
+    return (logits, aux) if with_aux else logits
 
 
 def forward_cls(params, batch, cfg: ModelConfig):
@@ -229,14 +256,14 @@ def cache_kv_len(cache) -> int:
 def prefill(params, batch, cache, cfg: ModelConfig, *, phase="prefill"):
     """Fill the KV caches (in place) with the prompt; returns
     (last-position logits (B, 1, V), cache)."""
-    x = _embed_inputs(cfg, params, batch["tokens"], phase)
+    x = _embed_inputs(cfg, params, batch, phase)
     s, dev = x.shape[1], x.device
     max_len = cache_kv_len(cache)
     positions = torch.arange(s, device=dev)[None, :]
     mask = nn.causal_mask(s, max_len, device=dev)
     mask_local = nn.causal_mask(s, max_len, window=cfg.local_window, device=dev)
-    x = _run_stack(cfg, params, x, positions=positions, mask=mask,
-                   mask_local=mask_local, caches=cache, phase=phase)
+    x, _ = _run_stack(cfg, params, x, positions=positions, mask=mask,
+                      mask_local=mask_local, caches=cache, phase=phase)
     x = nn.apply_rmsnorm(params["final_norm"], x)
     return _logits(cfg, params, x[:, -1:], phase), cache
 
@@ -252,7 +279,7 @@ def prefill_chunk(params, batch, cache, cfg: ModelConfig, *, phase="prefill"):
     takes the real last prompt token's row (under length-bucketed padding
     generally not the last row).  Rows must share one offset (admission is
     batch 1; the dense write starts at row 0's position)."""
-    x = _embed_inputs(cfg, params, batch["tokens"], phase)
+    x = _embed_inputs(cfg, params, batch, phase)
     s, dev = x.shape[1], x.device
     max_len = cache_kv_len(cache)
     start = cache["pos"][0].clone()                # the layers advance the cache's
@@ -264,8 +291,8 @@ def prefill_chunk(params, batch, cache, cfg: ModelConfig, *, phase="prefill"):
         mask_local = mask & (kj > qi - cfg.local_window)[:, None]
     else:
         mask_local = mask
-    x = _run_stack(cfg, params, x, positions=positions, mask=mask,
-                   mask_local=mask_local, caches=cache, phase=phase, chunk=True)
+    x, _ = _run_stack(cfg, params, x, positions=positions, mask=mask,
+                      mask_local=mask_local, caches=cache, phase=phase, chunk=True)
     x = nn.apply_rmsnorm(params["final_norm"], x)
     return _logits(cfg, params, x, phase), cache
 
@@ -274,7 +301,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, *, phase="decode"):
     """One-token decode against a filled cache (updated in place).
     tokens: (B, 1).  Each slot applies RoPE at its own position and masks
     keys beyond it."""
-    x = _embed_inputs(cfg, params, tokens, phase)
+    x = _embed_inputs(cfg, params, {"tokens": tokens}, phase)
     max_len = cache_kv_len(cache)
     pos = cache["pos"][0].clone()                  # the layers advance the cache's
     positions = pos[:, None]                       # (B, 1) for rope
@@ -284,7 +311,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, *, phase="decode"):
         mask_local = mask & (kj > pos[:, None] - cfg.local_window)[:, None, None, :]
     else:
         mask_local = mask
-    x = _run_stack(cfg, params, x, positions=positions, mask=mask,
-                   mask_local=mask_local, caches=cache, phase=phase)
+    x, _ = _run_stack(cfg, params, x, positions=positions, mask=mask,
+                      mask_local=mask_local, caches=cache, phase=phase)
     x = nn.apply_rmsnorm(params["final_norm"], x)
     return _logits(cfg, params, x, phase), cache

@@ -98,8 +98,9 @@ from repro_torch.train.steps import make_serve_steps
 
 # families whose decode step tolerates per-slot state: transformers carry
 # per-slot positions in the KV cache; SSM states are position-free.  The
-# reference also pools ``moe``, which comes with its family.
-SUPPORTED_FAMILIES = ("dense", "ssm")
+# vlm frontend needs more than a token prompt at admission (the reference's
+# refusal, kept).
+SUPPORTED_FAMILIES = ("dense", "moe", "ssm")
 
 # recent-failure ring size (aggregate counters stay exact past the cap)
 FAILURE_LOG_CAP = 512
@@ -172,9 +173,6 @@ class ServePool:
                  guard_logits: bool = True, prefill_chunk: int | None = None,
                  bucket_prompts: bool = False, bucket_min: int = 8, clock=None):
         family = model.cfg.family
-        if family == "moe":
-            raise NotImplementedError(
-                "ServePool over the moe family comes with ROADMAP.md, Queue 1 item 7b")
         if family not in SUPPORTED_FAMILIES:
             raise NotImplementedError(
                 f"ServePool supports families {SUPPORTED_FAMILIES}; "

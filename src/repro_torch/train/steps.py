@@ -46,9 +46,16 @@ def lm_loss(model: Model, params, batch):
     ``jax.checkpoint``-ed scan body)."""
     cfg = model.cfg
     chunk = cfg.loss_chunk
-    hidden = model.mod.forward_hidden(params, batch, cfg, phase="train")
+    if model.mod is transformer:
+        hidden, aux = model.mod.forward_hidden(params, batch, cfg, phase="train",
+                                               with_aux=True)
+    else:                                             # ssm: no aux loss
+        hidden = model.mod.forward_hidden(params, batch, cfg, phase="train")
+        aux = torch.zeros((), device=hidden.device)
     labels = batch["labels"]
     s = hidden.shape[1]
+    if labels.shape[1] != s:          # vlm: labels cover the patches and the text
+        labels = labels[:, -s:]
     # global next-token shift (boundary-safe under chunking)
     shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], IGNORE)], dim=1)
 
@@ -69,7 +76,6 @@ def lm_loss(model: Model, params, batch):
     else:
         ce, n = head_ce(hidden, shifted)
     loss = ce / torch.clamp(n.float(), min=1.0)
-    aux = torch.zeros((), device=hidden.device)      # dense and ssm families: no aux loss
     return loss + 0.01 * aux, {"loss": loss, "aux": aux, "tokens": n}
 
 
@@ -158,6 +164,10 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
     serving the weights it was built from; at most one copy of the tree a
     handle.  Re-run ``init_serve`` to serve weights changed since.
 
+    ``prefill(params, batch, cache)`` takes the batch dict: ``tokens``, and
+    for the ``vlm`` family ``patches`` (put ahead of the text).  The weight
+    cache covers expert stacks: a MoE layer's expert matrices are contracted
+    into ``(L, E, I, J)`` W like any stacked matrix.
     ``decode(params, tokens, cache)`` returns ``(next_tokens (B, 1) int32,
     logits, cache)`` with greedy argmax; ``prefill_chunk(params, batch,
     cache)`` continues a prefill at the cache's current offsets and returns

@@ -20,14 +20,17 @@ import torch
 from repro import configs as jconfigs
 from repro.core import engine as JE
 from repro.core import layers as JL
+from repro.kernels import mpo_linear as JMK
 from repro.models import model as JModel
 from repro_torch import configs as tconfigs
 from repro_torch.core import engine as TE
 from repro_torch.core import layers as TL
 from repro_torch.core.carry import load_jax_params
+from repro_torch.kernels import mpo_linear as TMK
 from repro_torch.models import model as TModel
 
 ARCHS = ("bert-base", "qwen3-14b")
+MOE_VLM = ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b", "llava-next-34b")
 
 
 def _matrix_shapes(cfg_mod, arch, smoke):
@@ -41,9 +44,13 @@ def _matrix_shapes(cfg_mod, arch, smoke):
     if "lm_head" in params:
         out["lm_head"] = [c.shape for c in JL.cores_to_list(params["lm_head"]["cores"])]
     for grp in ("attn", "mlp"):
-        for name, lin in params["layers"][grp].items():
+        for name, lin in params["layers"].get(grp, {}).items():
             if "cores" in lin:
                 out[name] = [c.shape[1:] for c in JL.cores_to_list(lin["cores"])]
+    # a MoE layer's expert matrices, one expert's shapes (as the reference's
+    # vmap over the experts shows them to its engine)
+    for name, lin in params["layers"].get("moe", {}).get("experts", {}).items():
+        out[f"experts/{name}"] = [c.shape[2:] for c in JL.cores_to_list(lin["cores"])]
     return out
 
 
@@ -51,7 +58,7 @@ def _jcfg(tcfg):
     return JL.MPOConfig(**dataclasses.asdict(tcfg))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_VLM)
 @pytest.mark.parametrize("smoke", [True, False])
 def test_cpu_plans_equal_reference_interpret(arch, smoke):
     tcfg = (tconfigs.smoke_config(arch) if smoke else tconfigs.get_config(arch)).mpo
@@ -107,6 +114,63 @@ def test_cuda_kernel_decisions_equal_reference_compiled_for_bert_base():
         assert seen[(name, 2048, "train")] == "kernel", name
     assert seen[("embed_T", 8, "prefill")] == "factorized"
     assert seen[("embed_T", 8, "decode")] == "factorized"
+
+
+# where the port's bf16 kernel takes a matrix the reference's kernel refuses:
+# the reference's gate (``repro.kernels.mpo_linear.kernel_eligible``) wants
+# the TPU's 128-lane alignment of J / j_1, which phi3.5-moe's expert w_up and
+# w_gate (4096 -> 6400: 400 columns) and llama4-maverick's lm_head (5120 ->
+# 202240: 40448) miss, and Hopper's kernel does not need (ROADMAP.md,
+# Queue 3 H).  The reference rebuilds W there (``reconstruct``), the port
+# fuses it (``kernel``): the same function within the kernels' tolerance.
+QUEUE3_H = {("phi3.5-moe-42b-a6.6b", "experts/w_up"), ("phi3.5-moe-42b-a6.6b", "experts/w_gate"),
+            ("llama4-maverick-400b-a17b", "lm_head")}
+
+
+@pytest.mark.parametrize("arch", MOE_VLM)
+def test_cuda_kernel_decisions_equal_reference_compiled_for_moe_and_vlm(arch):
+    """bf16 plans for the card against the reference's compiled ones: each
+    expert matrix at 32, 40 and 640 rows an expert (llama4-maverick's decode
+    and prefill capacity at batch 8, phi3.5-moe's prefill), the others at a
+    decode's 8 rows and a prefill's 8 x 512 (llava-next-34b: 8 x 1536,
+    patches included).  Only the pinned Queue 3 H matrices differ, and only
+    as ``reconstruct`` against ``kernel``."""
+    tcfg = tconfigs.get_config(arch).mpo
+    jcfg = _jcfg(tcfg)
+    prefill = 8 * (1536 if arch == "llava-next-34b" else 512)
+    kernels = 0
+    for name, shapes in _matrix_shapes(jconfigs, arch, False).items():
+        rows = (32, 40, 640) if name.startswith("experts/") else (8, prefill)
+        for tokens in rows:
+            for phase in ("prefill", "decode"):
+                jm = _effective(JE.choose_mode, jcfg, shapes, tokens, phase,
+                                interpret=False, dtype="bfloat16")
+                tm = _effective(TE.choose_mode, tcfg, shapes, tokens, phase,
+                                device="cuda", dtype="bfloat16")
+                if (arch, name) in QUEUE3_H and jm != tm:
+                    assert (jm, tm) == ("reconstruct", "kernel"), (name, tokens, phase)
+                else:
+                    assert tm == jm, (name, tokens, phase)
+                kernels += tm == "kernel"
+    assert kernels                      # the card's path reaches the kernel
+
+
+def test_queue3_h_matrices_are_the_pinned_exception():
+    """Each pinned matrix is where the packages' gates disagree: the
+    reference's kernel is not eligible, the port's bf16 forward takes it
+    (``csrc/mpo_linear_mma.cu``), so at a prefill of 640 rows an expert (the
+    head: 4096) the reference plans ``reconstruct`` and the port
+    ``kernel``."""
+    for arch, name in sorted(QUEUE3_H):
+        sh = _matrix_shapes(jconfigs, arch, False)[name]
+        tcfg = tconfigs.get_config(arch).mpo
+        tokens = 640 if name.startswith("experts/") else 4096
+        assert not JMK.kernel_eligible(sh, JE.DEFAULT_BLOCK_M)
+        assert TMK.forward_kernel(sh, "bfloat16") == "mma"
+        assert JE.choose_mode(_jcfg(tcfg), sh, tokens, "prefill", interpret=False,
+                              dtype="bfloat16")[0] == "reconstruct"
+        assert TE.choose_mode(tcfg, sh, tokens, "prefill", device="cuda",
+                              dtype="bfloat16")[0] == "kernel"
 
 
 def test_forced_mode_and_phase_validation():

@@ -275,10 +275,11 @@ def test_report_and_later_stages(pair):
 
 
 def test_other_families_raise():
-    # dense and ssm are ported (ssm: tests/test_torch_mamba.py); the rest raise
-    for family in ("hybrid", "moe", "encdec", "vlm"):
+    # dense, ssm, moe and vlm are ported (tests/test_torch_mamba.py,
+    # test_torch_moe.py, test_torch_vlm.py); hybrid and encdec raise
+    for family in ("hybrid", "encdec"):
         cfg = dataclasses.replace(tconfigs.smoke_config("bert-base"), family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7b"):
             TModel.build(cfg, device="cpu")
     with pytest.raises(KeyError, match="not yet ported"):
         tconfigs.get_config("zamba2-7b")

@@ -14,6 +14,7 @@ float32 at 1e-4 of it (``chip_smoke.py``'s ``TOL``): the three-term split
 carries x and W to ~2^-24 relative, and the f32 sums over up to 3072 terms
 in another order differ by ~1e-6 relative."""
 
+import ctypes
 import math
 
 import numpy as np
@@ -313,3 +314,58 @@ def test_cuda_f32_falls_back_to_64_row_tiles(cuda):
     assert torch.equal(y, again)
     ref = TMK.mpo_linear_plain(cores, x)
     assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", ["attn", "w_down", "smoke wq"])
+def test_cuda_stacked_forward_matches_plain(cuda, name, dtype):
+    """A stack of 5 matrices (a MoE layer's experts) in one launch: within
+    the tolerance of the plain version over the stack, each matrix's rows
+    bit-identical to that matrix run alone (the same plan, the same
+    arithmetic), two launches bit-identical; one launch a call, counted as a
+    stacked launch (a matrix run alone is not).  bert-base's
+    attn and w_down take the tensor-core kernel (both dtypes; the split of I
+    at few rows, 16-, 64- and 128-row tiles), smoke bert-base's wq in
+    float32 the CUDA-core one.  The plan's workspace for the stack is the
+    CUDA source's."""
+    if name == "smoke wq":
+        if dtype == "bfloat16":
+            pytest.skip("no bf16 kernel takes smoke bert-base's wq (forward_kernel is None)")
+        with torch.device("meta"):
+            smoke = TModel.transformer.init(torch.Generator(), configs.smoke_config("bert-base"))
+        shapes = [tuple(c.shape[1:]) for c in cores_to_list(smoke["layers"]["attn"]["wq"]["cores"])]
+    else:
+        shapes = _matrices()[name]
+    route = TMK.forward_kernel(shapes, dtype)
+    counter = TMK.mpo_linear_mma if route == "mma" else TMK.mpo_linear_cuda_core
+    e, tdt = 5, getattr(torch, dtype)
+    tol = 2.0 ** -7 if dtype == "bfloat16" else 1e-4
+    rng = np.random.default_rng(3)
+    i_dim = math.prod(c[1] for c in shapes)
+    j_dim = math.prod(c[2] for c in shapes)
+    sigma = (1.0 / i_dim / math.prod(c[3] for c in shapes[:-1])) ** (1 / (2 * len(shapes)))
+    cores = [torch.from_numpy((rng.standard_normal((e,) + s) * sigma).astype(np.float32))
+             .to(cuda, tdt) for s in shapes]
+    for m in (1, 40, 100, 300):
+        x = torch.from_numpy(rng.standard_normal((e, m, i_dim)).astype(np.float32)).to(cuda, tdt)
+        launches, stacked = counter.launches, counter.stacked_launches
+        y = TMK.mpo_linear(cores, x)
+        again = TMK.mpo_linear(cores, x)
+        torch.cuda.synchronize()
+        assert counter.launches == launches + 2 and y.shape == (e, m, j_dim)
+        assert counter.stacked_launches == stacked + 2
+        assert torch.equal(y, again), (name, m)
+        for k in (0, e - 1):
+            alone = TMK.mpo_linear([c[k].contiguous() for c in cores], x[k].contiguous())
+            assert torch.equal(y[k], alone), (name, m, k)
+        assert counter.stacked_launches == stacked + 2
+        ref = TMK.mpo_linear_plain(cores, x).float()
+        err = (y.float() - ref).abs().max().item()
+        assert err <= tol * ref.abs().max().item(), (name, m, err)
+        if route == "mma":
+            plan = TMK._mma_plan(tuple(shapes), m, dtype)
+            dims = (ctypes.c_int * (4 * len(shapes)))(*[d for s in shapes for d in s])
+            ws = TMK._mma_lib().mpo_linear_mma_workspace(dims, len(shapes), plan.split, m,
+                                                         plan.splits, e, TMK.DTYPES[tdt])
+            assert 4 * ws == e * plan.workspace

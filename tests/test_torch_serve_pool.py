@@ -302,8 +302,8 @@ def test_pool_submit_and_knob_validation(pair):
         kw = dict(dict(slots=2), **kw)
         with pytest.raises(ValueError, match=match):
             ts.serve_pool(kw.pop("slots"), MAX_LEN, **kw)
-    # families: moe waits for its family, the others cannot pool
-    for family, match in (("moe", "ROADMAP.md, Queue 1 item 7b"), ("hybrid", "ServePool supports")):
+    # families: vlm, hybrid and encdec cannot pool (the reference's refusal)
+    for family, match in (("vlm", "ServePool supports"), ("hybrid", "ServePool supports")):
         stub = types.SimpleNamespace(cfg=types.SimpleNamespace(family=family))
         with pytest.raises(NotImplementedError, match=match):
             ServePool(stub, {}, 2, MAX_LEN)
@@ -553,3 +553,51 @@ def test_report_holds_pools_weakly(pair, draw):
         assert len(ts.report().get("serve_pools", [])) == n_live - 1
     finally:
         gc.enable()
+
+
+# --------------------------------------------------------------------------
+# the moe family in a pool
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_MODES = {"whole": {}, "chunk": dict(prefill_chunk=3),
+             "chunk+bucket": dict(prefill_chunk=4, bucket_prompts=True)}
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    """(reference Session, port Session) over the same smoke phi3.5-moe
+    weights (2 layers, 4 experts, top-2)."""
+    src = TModel.build(tconfigs.smoke_config(MOE_ARCH), seed=7, device="cpu")
+    tree = jax.tree.map(np.array, src.tree())
+    js = JSession(jconfigs.smoke_config(MOE_ARCH), jax.tree.map(jnp.asarray, tree))
+    ts = TSession.init(MOE_ARCH, device="cpu")
+    load_jax_params(ts.model, tree)
+    return js, ts
+
+
+@pytest.mark.parametrize("mode", list(MOE_MODES))
+def test_moe_pool_matches_the_reference_pool(moe_pair, mode):
+    """MoE pools of 2 slots, paged, in both packages on one trace: the same
+    tokens for every request.  The expert capacity depends on the admitted
+    sequence's length, and chunked and bucketed admission route the padding
+    too, as the reference does; whole-prompt admission (batch 1, the
+    prompt's length) routes as serial generation, so there the tokens also
+    equal batch-1 ``generate`` (each serial token leading its runner-up by
+    more than ``GAP``)."""
+    js, ts = moe_pair
+    kw = dict(MOE_MODES[mode], **PAGED)
+    handle = ts.serve(1, MAX_LEN, **PAGED)
+    prompts = _draw(handle, (8, 5, 11, 6), seed=4)
+    budgets = [6, 4, 7, 5]
+    pools = {"ref": js.serve_pool(2, MAX_LEN, **kw), "port": ts.serve_pool(2, MAX_LEN, **kw)}
+    rids = {k: [pool.submit(p, n) for p, n in zip(prompts, budgets)]
+            for k, pool in pools.items()}
+    outs = {k: pool.run() for k, pool in pools.items()}
+    for i in range(len(prompts)):
+        ref = np.asarray(outs["ref"][rids["ref"][i]])
+        np.testing.assert_array_equal(outs["port"][rids["port"][i]], ref, f"request {i}")
+        if mode == "whole":
+            np.testing.assert_array_equal(ref, _generate(handle, prompts[i], budgets[i]),
+                                          f"request {i} against serial generation")
+    assert pools["port"].stats()["completed"] == len(prompts)
