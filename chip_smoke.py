@@ -229,10 +229,38 @@ Phases, each printing JSON lines; any failure exits non-zero:
    at the depth its reckoned peak allows (``LLAVA_LAYERS``) and factorized
    at ``MOE_FACT_LAYERS``; float32 at 2 layers from one prompt, three runs'
    tokens identical.
-13. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
-   squeezed shapes' times are phase 6's records), the stacked forward and
-   flash at llava's geometry beside them.
-14. last line: ``{"ok": true, "device": {...}}``.
+13. moe_vlm_train — the moe and vlm families fine-tuned: (a) the MPO-linear
+   cores backward over an expert stack in one call (one launch set, or one a
+   group of experts where the stack's scratch would pass
+   ``BWD_STACK_SCRATCH``), against its plain version at phi3.5-moe's w_up
+   and w_down (4096 <-> 6400, 16 experts) and llama4-maverick's w_up (5120
+   -> 8192, 128 experts) at a 4 x 512 batch's capacity rows (320 and 20 an
+   expert), both dtypes: within ``TOL``, two calls bit-identical, each
+   expert bit-equal to its matrix run alone, one counted call a call in the
+   planned launch sets, the central core skipped, an all-zero expert exactly
+   zero, the plan's shared memory and the stack's scratch equal to the CUDA
+   source's; kernel, plain, library and bound; (b) the smoke phi3.5-moe,
+   llama4-maverick and llava-next-34b in float32, every matmul in the kernel
+   mode: one train step's gradients of every leaf and a 3-step loss
+   trajectory on the card against the CPU within ``TRAIN_TOL``, the stacked
+   backward launched (the moe models), no plain version; (c) full-width
+   phi3.5-moe, bf16, ``PHI35_TRAIN_LAYERS`` layers, ``finetune(mode="lfa",
+   seq_len=512, batch_size=4, steps=8)``: finite losses and aux, central
+   cores unchanged, the reference's trainable count, the stacked forward and
+   backward launched exactly as the plans name them, no plain call, ms a
+   step, peak memory, the stacked backward's scratch against E float32 dWs;
+   then a run preempted at step 4 and resumed, bit-identical to one run
+   straight through; (d) full-width llava-next-34b, bf16,
+   ``LLAVA_TRAIN_LAYERS`` layers: ``from_dense`` of an exact tree made on the
+   card (every matrix's error), 4 LFA steps of 1024 patches + 128 tokens (the
+   projector trains, central cores unchanged, the reference's count), one
+   ``squeeze`` iteration with a 2-step re-tune (its event against the
+   float64 recount, rho falling), the result served both ways under phase
+   12 (e)'s gates.
+14. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+   squeezed shapes' times are phase 6's records), the stacked forward, the
+   stacked cores backward and flash at llava's geometry beside them.
+15. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -343,6 +371,19 @@ MOE_FACT_LAYERS, PHI35_LAYERS, LLAVA_LAYERS, LLAMA4_F32_NEW = 4, 24, (60, 48), 8
 MOE_PEAK_LIMIT, LLAVA_MAX_LEN, STACK_REPS = 78e9, 1568, 3
 MOE_POOL_SLOTS, MOE_POOL_MAX_LEN, MOE_POOL_REQUESTS, MOE_POOL_RPS = 8, 544, 32, 2.0
 MOE_POOL_VOCAB, MOE_F32_REQUESTS = 32064, 8        # phi3.5-moe's vocabulary before padding
+# the moe and vlm families' fine-tuning (phase 13): the stacked cores backward
+# at a 4 x 512 batch's capacity rows (phi3.5-moe 320 an expert, llama4 20);
+# full-width phi3.5-moe LFA at 2 layers (~52 M MPO parameters a layer, 50 M of
+# them experts; ~0.84 s a step at 1 layer on an H100, PERF.md), 8 steps, then
+# preempted at step 4 and resumed; full-width llava-next-34b at 2 layers (one
+# 7168 x 20480 matrix ~2.7 s through Algorithm 1 on the card, the two 64000 x
+# 7168 vocabulary matrices ~3x that each): from_dense, 4 LFA steps of 1024
+# patches + 128 tokens, 4 a batch, one squeeze iteration, served both ways
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 512, 8
+PHI35_TRAIN_LAYERS, LLAVA_TRAIN_LAYERS = 2, 2
+LLAVA_TRAIN_TEXT, LLAVA_TRAIN_BATCH = 128, 4
+PHI35_LFA_COUNTS = (71_466_048, 105_217_088)     # trainable, total (reference's count)
+LLAVA_LFA_COUNTS = (15_320_900, 28_559_172)      # trainable, total (reference's count)
 # the SSM family's fine-tuning (phase 11): full-width mamba2-130m LFA at 4 x
 # 512 tokens (4 chunks of 128 a sequence) and its squeeze at the same size
 SSM_BATCH, SSM_SEQ, SSM_STEPS = 4, 512, 8
@@ -1344,7 +1385,7 @@ def main() -> int:
         plan = MK._bwd_plan(shapes, dtype, sms)
         dims = (ctypes.c_int * (4 * len(cores)))(*[d for sh in shapes for d in sh])
         ws_c = 4 * bwd_lib.mpo_linear_bwd_workspace(dims, len(cores), plan.split,
-                                                    plan.blocks // plan.cluster)
+                                                    plan.blocks // plan.cluster, 1)
         smem_c = bwd_lib.mpo_linear_bwd_smem(dims, len(cores), plan.split, plan.tr, plan.tc,
                                              MK.DTYPES[tdt])
         if (smem_c, ws_c) != (plan.smem, plan.workspace):
@@ -3213,7 +3254,399 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(phase="moe_vlm", s=time.perf_counter() - v_t0)
 
-    # ---- 13. the kernels line: one entry per kernel and dtype ----
+    # ---- 13. moe_vlm_train: the cores backward over expert stacks; phi3.5 LFA, llava's lifecycle ----
+    t_t0 = time.perf_counter()
+    bwd_counters = train_counters + ((MK.mpo_linear_bwd_cores, "stacked_launches"),)
+
+    def train_zero():
+        for fn, attr in bwd_counters:
+            setattr(fn, attr, 0)
+
+    def train_counts():
+        return dict(read_counts(), mpo_linear_bwd_cores=MK.mpo_linear_bwd_cores.launches,
+                    mpo_linear_bwd_cores_stacked=MK.mpo_linear_bwd_cores.stacked_launches,
+                    mpo_linear_bwd_cores_plain=MK.mpo_linear_bwd_cores_plain.calls)
+
+    def train_gate(path, counts, need):
+        """Fail unless every kernel of ``need`` launched and no plain version
+        (nor, in bf16, the CUDA-core forward) ran; add the bf16 launches to
+        the kernels line."""
+        other = (sum(counts[k] for k in plains) + counts["mpo_linear_bwd_cores_plain"]
+                 + counts["mpo_linear_fwd"])
+        if any(counts[k] == 0 for k in need) or other:
+            fail(f"{path}: launches {counts}, plain-version or CUDA-core calls {other}")
+        for k in ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores", "mpo_linear_bwd_cores_stacked",
+                  "flash_decode_attention"):
+            if counts[k]:
+                path_launches[k] = path_launches.get(k, 0) + counts[k]
+                by_path.setdefault(k, {})[path] = counts[k]
+
+    def stacked_bwd_case(arch, name, stack32, m, dtype, reps):
+        """The cores backward over a stack of E experts (5-D cores, x (E, m,
+        I), dy (E, m, J)) against its plain version: within ``TOL``, two calls
+        bit-identical, each call counted once (and as stacked) and run in the
+        launch sets ``_bwd_group`` names, each expert bit-equal to its matrix
+        run alone through the 4-D call, the central core skipped leaving the
+        other cores' bits, an expert whose rows are all zero (capacity
+        padding) exactly zero; the plan's shared memory and the stack's
+        scratch equal to the CUDA source's.  Kernel, plain and library
+        (``torch.autograd.grad`` of ``torch.bmm(x, W)`` with W the experts'
+        ``mpo.reconstruct`` stacked, null where it does not fit the card)
+        times, the bound over all E."""
+        tdt = getattr(torch, dtype)
+        cores = [c.to(tdt).contiguous() for c in stack32]
+        e = cores[0].shape[0]
+        shapes = tuple(tuple(c.shape[1:]) for c in cores)
+        i_dim = math.prod(s[1] for s in shapes)
+        j_dim = math.prod(s[2] for s in shapes)
+        x = torch.randn(e, m, i_dim, generator=gen).to(dev, tdt)
+        dy = torch.randn(e, m, j_dim, generator=gen).to(dev, tdt)
+        zero = e // 2
+        x[zero], dy[zero] = 0, 0
+        what = f"mpo_linear_bwd_cores {arch} {name} ({e} experts) M={m} {dtype}"
+        before = (MK.mpo_linear_bwd_cores.launches, MK.mpo_linear_bwd_cores.stacked_launches)
+        got = MK.mpo_linear_bwd_cores(cores, x, dy)
+        sets, ws_bytes = MK.mpo_linear_bwd_cores.launch_sets, MK.mpo_linear_bwd_cores.workspace_bytes
+        again = MK.mpo_linear_bwd_cores(cores, x, dy)
+        central = len(cores) // 2
+        some = MK.mpo_linear_bwd_cores(cores, x, dy, [k != central for k in range(len(cores))])
+        torch.cuda.synchronize()
+        plan = MK._bwd_plan(shapes, dtype, sms)
+        group = MK._bwd_group(plan.workspace, e)
+        if (MK.mpo_linear_bwd_cores.launches, MK.mpo_linear_bwd_cores.stacked_launches) != (
+                before[0] + 3, before[1] + 3):
+            fail(f"{what}: not one counted (stacked) call a call")
+        if (sets, ws_bytes) != (-(-e // group), group * plan.workspace):
+            fail(f"{what}: {sets} launch sets and {ws_bytes} B of scratch, the plan's "
+                 f"{-(-e // group)} and {group * plan.workspace}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{what}: two calls differ")
+        if some[central] is not None or not all(
+                torch.equal(a, b) for k, (a, b) in enumerate(zip(some, got)) if k != central):
+            fail(f"{what}: the call without core {central} differs from the full call")
+        for k in range(e):
+            alone = MK.mpo_linear_bwd_cores([c[k] for c in cores], x[k], dy[k])
+            if not all(torch.equal(g[k], a) for g, a in zip(got, alone)):
+                fail(f"{what}: expert {k} differs from its matrix run alone")
+        if any(bool(g[zero].any()) for g in got):
+            fail(f"{what}: the all-zero expert {zero} has a nonzero gradient")
+        del again, some, alone
+        ref = MK.mpo_linear_bwd_cores_plain(cores, x, dy)
+        err = max(check("mpo_linear_bwd_cores", g, r, dtype, f"{what} core {k}")
+                  for k, (g, r) in enumerate(zip(got, ref)))
+        rel = max(((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                  for g, r in zip(got, ref))
+        del got, ref
+        dims = (ctypes.c_int * (4 * len(cores)))(*[d for sh in shapes for d in sh])
+        ws_c = 4 * bwd_lib.mpo_linear_bwd_workspace(dims, len(cores), plan.split,
+                                                    plan.blocks // plan.cluster, group)
+        smem_c = bwd_lib.mpo_linear_bwd_smem(dims, len(cores), plan.split, plan.tr, plan.tc,
+                                             MK.DTYPES[tdt])
+        if (smem_c, ws_c) != (plan.smem, group * plan.workspace):
+            fail(f"{what}: the plan's shared memory / scratch {plan.smem} / "
+                 f"{group * plan.workspace} differ from the CUDA source's {smem_c} / {ws_c}")
+
+        def library():
+            cs = [c.detach().requires_grad_() for c in cores]
+            w = torch.stack([mpo.reconstruct([c[k] for c in cs]) for k in range(e)])
+            return torch.autograd.grad(torch.bmm(x, w), cs, dy)
+
+        torch.cuda.empty_cache()
+        try:
+            library_ms = timed(library, reps)
+        except torch.cuda.OutOfMemoryError:
+            library_ms = None
+        torch.cuda.empty_cache()
+        ds = shapes[plan.split][0]
+        nbytes = x.element_size() * (x.numel() + dy.numel() + 2 * sum(c.numel() for c in cores))
+        ops = e * (2 * m * i_dim * j_dim + 4 * ds * i_dim * j_dim)
+        rec = dict(kernel="mpo_linear_bwd_cores", matrix=f"{arch} {name}", experts=e,
+                   shapes=[list(c.shape) for c in cores], M=m, dtype=dtype, split=plan.split,
+                   tile=[plan.tr, plan.tc], tiles=plan.tiles, blocks=plan.blocks,
+                   cluster=plan.cluster, smem_bytes=plan.smem, group=group, launch_sets=sets,
+                   launches_per_call=MK.BWD_KERNELS * sets, workspace_bytes=group * plan.workspace,
+                   workspace_per_expert=plan.workspace,
+                   dense_dw_f32_bytes_all_experts=4 * e * i_dim * j_dim, zero_expert=zero,
+                   max_abs_err=err, max_rel_err=rel, tol=TOL[dtype], deterministic=True,
+                   kernel_ms=timed(lambda: MK.mpo_linear_bwd_cores(cores, x, dy), reps),
+                   plain_ms=timed(lambda: MK.mpo_linear_bwd_cores_plain(cores, x, dy), reps),
+                   library_ms=library_ms, library_fits=library_ms is not None,
+                   bound_ms=1e3 * max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]),
+                   bound_by="bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_OPS_S[dtype]
+                   else "operations")
+        emit(phase="moe_vlm_train", **rec)
+        torch.cuda.empty_cache()
+        return rec
+
+    # (a) the stacked cores backward at the full-width expert shapes, at a
+    # training batch's capacity rows (MOE_TRAIN_BATCH x MOE_TRAIN_SEQ): phi3.5's
+    # w_up and w_down (16 experts, 320 rows an expert), llama4's w_up (128
+    # experts, 20 rows an expert), both dtypes
+    train_rows = lambda cfg: moe_rows(cfg, MOE_TRAIN_SEQ, MOE_TRAIN_BATCH)
+    for arch, cfg, names, reps in ((PHI35, pcfg_full, ("w_up", "w_down"), STACK_REPS),
+                                   (LLAMA4, l4cfg, ("w_up",), 1)):
+        for name in names:
+            stack = expert_cores(cfg, name)
+            for dtype in ("bfloat16", "float32"):
+                results[("stacked_bwd", arch, name, dtype)] = stacked_bwd_case(
+                    arch, name, stack, train_rows(cfg), dtype, reps)
+            del stack
+            torch.cuda.empty_cache()
+
+    # (b) the smoke models in float32, every MPO matmul in the kernel mode:
+    # one train step's gradients of every leaf and a 3-step loss trajectory,
+    # card against CPU
+    f32_stacked_bwd = {}
+
+    def smoke_grads_and_losses(arch, device):
+        ss = Session.init(kernel_mode(configs.smoke_config(arch)), seed=SEED, device=device)
+        train_zero()
+        seen = []
+        rec_opt = OPT.Optimizer(init=lambda p: OPT.OptState(0, None),
+                                update=lambda g, st, p: seen.append(g) or st)
+        step = TS.make_train_step(ss.model, rec_opt, ss._default_loss_fn())
+        batch = {k: torch.as_tensor(v).to(device)
+                 for k, v in ss._default_batch_fn(16, 4, SEED)(0).items()}
+        step(TS.TrainState(ss.params, rec_opt.init(ss.params)), batch)
+        grads = [g.detach().cpu() for g in lightweight.leaves(seen[0])]
+        hist = ss.finetune(steps=3, seq_len=16, batch_size=4, log_every=1)["history"]
+        if device == "cuda":
+            counts = train_counts()
+            got = gate_routes(f"the float32 smoke {arch} train steps on the card", counts,
+                              ss.params, train=True)
+            moe = ss.cfg.family == "moe"
+            if (not counts["mpo_linear_bwd_cores"] or counts["mpo_linear_bwd_cores_plain"]
+                    or bool(counts["mpo_linear_bwd_cores_stacked"]) != moe):
+                fail(f"the float32 smoke {arch} train steps on the card: {counts}")
+            where = f"smoke {arch} train (4 steps)"
+            cuda_core[where] = got["mpo_linear_fwd"]
+            f32_mma[where] = got["mpo_linear_fwd_mma"]
+            f32_bwd[where] = counts["mpo_linear_bwd_cores"]
+            for k, d in (("mpo_linear_fwd_mma_stacked", f32_stacked),
+                         ("mpo_linear_fwd_stacked", f32_moe_core),
+                         ("mpo_linear_bwd_cores_stacked", f32_stacked_bwd)):
+                if counts[k]:
+                    d[where] = counts[k]
+        return grads, [h["loss"] for h in hist], [h["aux"] for h in hist]
+
+    for arch in MOE_ARCHS:
+        card, cpu = smoke_grads_and_losses(arch, "cuda"), smoke_grads_and_losses(arch, "cpu")
+        gdiff = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                    for a, b in zip(card[0], cpu[0]))
+        ldiff = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+        emit(phase="moe_vlm_train", smoke=arch, mode="kernel", dtype="float32",
+             leaves=len(card[0]), card_vs_cpu_grad_rel_diff=gdiff,
+             card_vs_cpu_loss_rel_diff=ldiff, losses_card=card[1], losses_cpu=cpu[1],
+             aux_card=card[2], aux_cpu=cpu[2], tol=TRAIN_TOL)
+        if not gdiff <= TRAIN_TOL or not ldiff <= TRAIN_TOL:
+            fail(f"smoke {arch} train step on the card differs from the CPU: grads {gdiff}, "
+                 f"losses {card[1]} vs {cpu[1]}")
+
+    # (c) full-width phi3.5-moe, bf16, LFA at PHI35_TRAIN_LAYERS layers
+    pt_cfg = dataclasses.replace(pcfg_full, num_layers=PHI35_TRAIN_LAYERS)
+    ft = dict(mode="lfa", seq_len=MOE_TRAIN_SEQ, batch_size=MOE_TRAIN_BATCH, log_every=1)
+    sess = Session.init(pt_cfg, seed=SEED)
+    rows = {}
+    for path, cd in SQ.find_mpo_layers(sess.params).items():
+        cores = cores_to_list(cd)
+        shapes = tuple(tuple(c.shape[-4:]) for c in cores)
+        m = (train_rows(pt_cfg) if "experts" in path
+             else MOE_TRAIN_BATCH * MOE_TRAIN_SEQ)
+        rows["/".join(path[:-1])] = (sess.engine.plan(shapes, m, "train", "bfloat16",
+                                                      "cuda").mode, m, shapes)
+    experts = [k for k, (mode, _, _) in rows.items() if "/experts/" in k and mode == "kernel"]
+    if len(experts) != 3:
+        fail(f"{PHI35}: the expert matrices plan {rows} in training, not the kernel")
+    # each expert matrix: the stacked forward, its recomputation (remat) and
+    # dL/dx over W^T's cores, and one stacked cores-backward call, a layer a step
+    fwd_per_step = (3 if pt_cfg.remat else 2) * len(experts) * PHI35_TRAIN_LAYERS
+    bwd_per_step = len(experts) * PHI35_TRAIN_LAYERS
+    central = {k: v.clone() for k, v in sess.model.state_dict().items() if k.endswith(".central")}
+    sess.finetune(steps=1, seed=SEED + 1, **ft)            # warm-up, not counted
+    train_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync_clock()
+    rep = sess.finetune(steps=MOE_TRAIN_STEPS, seed=SEED, **ft)
+    pt_s = sync_clock() - t0
+    counts = train_counts()
+    losses = [h["loss"] for h in rep["history"]]
+    auxes = [h["aux"] for h in rep["history"]]
+    unchanged = all(torch.equal(v, sess.model.state_dict()[k]) for k, v in central.items())
+    e = pt_cfg.num_experts
+    scratch = {}
+    for k in experts:
+        shapes = rows[k][2]
+        plan = MK._bwd_plan(shapes, "bfloat16", sms)
+        group = MK._bwd_group(plan.workspace, e)
+        scratch[k] = {"group": group, "launch_sets": -(-e // group),
+                      "workspace_bytes": group * plan.workspace,
+                      "dense_dw_f32_bytes_all_experts": 4 * e * math.prod(s[1] for s in shapes)
+                      * math.prod(s[2] for s in shapes)}
+    emit(phase="moe_vlm_train", step="finetune lfa", arch=PHI35, dtype=pt_cfg.dtype,
+         layers=PHI35_TRAIN_LAYERS, remat=pt_cfg.remat, batch=MOE_TRAIN_BATCH,
+         seq_len=MOE_TRAIN_SEQ, steps=MOE_TRAIN_STEPS, expert_rows=train_rows(pt_cfg),
+         ms_per_step=1e3 * pt_s / MOE_TRAIN_STEPS,
+         tokens_per_s=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ * MOE_TRAIN_STEPS / pt_s,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), losses=losses, aux=auxes,
+         trainable=rep["trainable"], total=rep["total"], reduction=rep["reduction"],
+         train_modes={k: v[:2] for k, v in rows.items()}, launches=counts,
+         launches_per_step={k: v / MOE_TRAIN_STEPS for k, v in counts.items()},
+         planned_per_step={"mpo_linear_fwd_mma_stacked": fwd_per_step,
+                           "mpo_linear_bwd_cores_stacked": bwd_per_step},
+         central_cores=len(central), central_unchanged=unchanged, stacked_bwd_scratch=scratch)
+    if len(losses) != MOE_TRAIN_STEPS or not all(math.isfinite(v) for v in losses + auxes) \
+            or not all(a > 0 for a in auxes):
+        fail(f"{PHI35} fine-tuning: losses {losses}, aux {auxes}")
+    if not central or not unchanged:
+        fail(f"{PHI35} fine-tuning: a central core changed under LFA")
+    if (rep["trainable"], rep["total"]) != PHI35_LFA_COUNTS:
+        fail(f"{PHI35} fine-tuning: {rep['trainable']} of {rep['total']} trainable, expected "
+             f"{PHI35_LFA_COUNTS}")
+    if (counts["mpo_linear_bwd_cores_stacked"], counts["mpo_linear_fwd_mma_stacked"]) != (
+            bwd_per_step * MOE_TRAIN_STEPS, fwd_per_step * MOE_TRAIN_STEPS):
+        fail(f"{PHI35} fine-tuning: stacked launches {counts}, planned {bwd_per_step} "
+             f"backward and {fwd_per_step} forward a step")
+    train_gate(f"{PHI35} finetune lfa ({PHI35_TRAIN_LAYERS} layers)", counts,
+               ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores", "mpo_linear_bwd_cores_stacked"))
+    del sess, central
+    torch.cuda.empty_cache()
+
+    # a run preempted at step 4 and resumed, against one run straight through
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_"))
+    try:
+        a = Session.init(pt_cfg, seed=SEED)
+        train_zero()
+        a.finetune(steps=MOE_TRAIN_STEPS, ckpt_dir=str(tmp / "a"), seed=SEED, **ft)
+        train_gate(f"{PHI35} finetune straight through", train_counts(),
+                   ("mpo_linear_bwd_cores_stacked",))
+        b = Session.init(pt_cfg, seed=SEED)
+        with FLT.fault_scope(FLT.FaultPlan(preempt_finetune_step=4)):
+            expect_raise(FLT.Preemption, lambda: b.finetune(
+                steps=MOE_TRAIN_STEPS, ckpt_dir=str(tmp / "b"), seed=SEED, **ft),
+                f"{PHI35} preempted finetune")
+        drained = CKM.CheckpointManager(str(tmp / "b")).latest_step()
+        train_zero()
+        t0 = sync_clock()
+        b.finetune(steps=MOE_TRAIN_STEPS, ckpt_dir=str(tmp / "b"), seed=SEED, **ft)
+        resume_s = sync_clock() - t0
+        counts = train_counts()
+        with np.load(tmp / "a" / f"step_{MOE_TRAIN_STEPS}" / "arrays.npz") as za, \
+                np.load(tmp / "b" / f"step_{MOE_TRAIN_STEPS}" / "arrays.npz") as zb:
+            keys = sorted(za.files)
+            differ = [k for k in keys if not np.array_equal(za[k], zb[k])]
+            same_keys = keys == sorted(zb.files)
+            expert_arrays = sum(za[k].ndim == 6 for k in keys)
+        params_equal = same(params_of(a), params_of(b))
+        emit(phase="moe_vlm_train", step="finetune resume", arch=PHI35, preempted_at=4,
+             latest_step_after_preemption=drained, resumed_s=resume_s, launches_resumed=counts,
+             arrays=len(keys), expert_arrays_6d=expert_arrays, arrays_differing=differ,
+             params_bit_identical=params_equal)
+        if drained != 4:
+            fail(f"{PHI35} preempted finetune: latest step {drained}, expected 4")
+        if not same_keys or differ or not params_equal or not expert_arrays:
+            fail(f"{PHI35} finetune resume: arrays differing {differ}, same keys {same_keys}, "
+                 f"params bit-identical {params_equal}, 6-D expert arrays {expert_arrays}")
+        if counts["mpo_linear_bwd_cores_stacked"] != bwd_per_step * (MOE_TRAIN_STEPS - 4):
+            fail(f"{PHI35} finetune resume: {counts['mpo_linear_bwd_cores_stacked']} stacked "
+                 "cores-backward calls")
+        train_gate(f"{PHI35} finetune resumed", counts, ("mpo_linear_bwd_cores_stacked",))
+        del a, b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (d) full-width llava-next-34b, bf16, LLAVA_TRAIN_LAYERS layers: from_dense
+    # of an exact tree made on the card -> LFA with 1024 patches + text ->
+    # one squeeze iteration -> served both ways under (e) of phase 12's gates
+    lt_cfg = dataclasses.replace(vcfg, num_layers=LLAVA_TRAIN_LAYERS)
+    src = Session.init(lt_cfg, seed=SEED)
+    vdense = exact_dense(src.params)
+    del src
+    t0 = sync_clock()
+    vs = Session.from_dense(vdense, lt_cfg)
+    conv_s = sync_clock() - t0
+    del vdense
+    torch.cuda.empty_cache()
+    rep = vs.report()
+    emit(phase="moe_vlm_train", step="from_dense exact", arch=LLAVA, layers=LLAVA_TRAIN_LAYERS,
+         matrices=rep["stages"][-1]["matrices"], from_dense_s=conv_s,
+         conversion_rel_err=vs.conversion_report,
+         conversion_max_rel_err=rep["conversion_max_rel_err"], tol=EXACT_TOL)
+    if not rep["conversion_max_rel_err"] <= EXACT_TOL:
+        fail(f"{LLAVA} from_dense of an exact tree: error {rep['conversion_max_rel_err']}")
+    vft = dict(mode="lfa", seq_len=vcfg.frontend_len + LLAVA_TRAIN_TEXT,
+               batch_size=LLAVA_TRAIN_BATCH, log_every=1)
+    central = {k: v.clone() for k, v in vs.model.state_dict().items() if k.endswith(".central")}
+    projector = vs.model.state_dict()["projector.w"].clone()
+    train_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync_clock()
+    rep = vs.finetune(steps=LIFE_STEPS, seed=SEED, **vft)
+    vt_s = sync_clock() - t0
+    counts = train_counts()
+    losses = [h["loss"] for h in rep["history"]]
+    unchanged = all(torch.equal(v, vs.model.state_dict()[k]) for k, v in central.items())
+    moved = not torch.equal(projector, vs.model.state_dict()["projector.w"])
+    emit(phase="moe_vlm_train", step="finetune lfa", arch=LLAVA, layers=LLAVA_TRAIN_LAYERS,
+         dtype=lt_cfg.dtype, batch=LLAVA_TRAIN_BATCH, patches=vcfg.frontend_len,
+         text=LLAVA_TRAIN_TEXT, steps=LIFE_STEPS, ms_per_step=1e3 * vt_s / LIFE_STEPS,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), losses=losses,
+         trainable=rep["trainable"], total=rep["total"], launches=counts,
+         central_unchanged=unchanged, projector_trained=moved)
+    if len(losses) != LIFE_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"{LLAVA} fine-tuning: losses {losses}")
+    if not central or not unchanged or not moved:
+        fail(f"{LLAVA} fine-tuning: central cores unchanged {unchanged}, projector trained "
+             f"{moved}")
+    if (rep["trainable"], rep["total"]) != LLAVA_LFA_COUNTS:
+        fail(f"{LLAVA} fine-tuning: {rep['trainable']} of {rep['total']} trainable, expected "
+             f"{LLAVA_LFA_COUNTS}")
+    if counts["mpo_linear_bwd_cores_stacked"] or counts["mpo_linear_fwd_mma_stacked"]:
+        fail(f"{LLAVA} fine-tuning: stacked launches {counts} (it has no expert stack)")
+    train_gate(f"{LLAVA} finetune lfa ({LLAVA_TRAIN_LAYERS} layers)", counts,
+               ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"))
+    # one squeeze iteration (delta = 1.0 accepts it), its re-tune at the same batch
+    pre = lightweight.tree_map(lambda t: t.detach().clone(), vs.params)
+    rho0 = SQ.model_compression_ratio(vs.params)
+    train_zero()
+    t0 = sync_clock()
+    evs = vs.squeeze(step=1, max_iters=1, finetune_steps=2, seq_len=vft["seq_len"],
+                     batch_size=LLAVA_TRAIN_BATCH, delta=1.0)
+    sq_s = sync_clock() - t0
+    counts = train_counts()
+    rho1 = SQ.model_compression_ratio(vs.params)
+    for ev in evs:
+        rc = check_event(ev, pre)
+        emit(phase="moe_vlm_train", step="squeeze iteration", arch=LLAVA,
+             layer="/".join(ev.layer[:-1]), bond=ev.bond, new_dim=ev.new_dim,
+             predicted_error=ev.predicted_error, metric=ev.metric, seconds=ev.seconds, **rc)
+    del pre
+    emit(phase="moe_vlm_train", step="squeeze", arch=LLAVA, s=sq_s, events=len(evs),
+         rho_before=rho0, rho_after=rho1, launches=counts)
+    if len(evs) != 1 or not rho1 < rho0:
+        fail(f"{LLAVA} squeeze: {len(evs)} events, rho {rho0} -> {rho1}")
+    train_gate(f"{LLAVA} squeeze (re-tune and evaluations)", counts,
+               ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"))
+    for wc in (True, False):
+        handle, per_prefill, per_decode, _ = serve_run(
+            vs, f"{LLAVA} lifecycle ({LLAVA_TRAIN_LAYERS} layers)", vp, LLAVA_MAX_LEN,
+            ("mpo_linear_fwd_mma", "flash_decode_attention"), new_tokens=LLM_NEW,
+            extra={"patches": patches}, paged=True, weight_cache=wc)
+        exact_launches(f"{LLAVA} lifecycle weight_cache={wc}",
+                       {k: per_prefill[k] + per_decode[k] for k in per_decode}, vs, LLM_BATCH,
+                       vprompt, "bfloat16", [(wc, LLM_NEW - 1)])
+        if per_decode["flash_decode_attention"] != LLAVA_TRAIN_LAYERS * (LLM_NEW - 1):
+            fail(f"{LLAVA} lifecycle weight_cache={wc}: {per_decode['flash_decode_attention']} "
+                 "flash launches in decode; once a layer a step")
+        del handle
+    vs._serve.clear()
+    del vs
+    torch.cuda.empty_cache()
+    emit(phase="moe_vlm_train", s=time.perf_counter() - t_t0)
+
+    # ---- 14. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,
@@ -3316,6 +3749,25 @@ def main() -> int:
               "src/repro/kernels/decode_attention.py:166", results[("flash", LLAVA, "bfloat16")],
               f"{LLAVA} geometry KV=8 G=7 Dh=128 ps=16, ragged, bfloat16",
               sum(vlm_flash.values()), launches_by_path=vlm_flash),
+    ]
+    sb16 = results[("stacked_bwd", PHI35, "w_up", "bfloat16")]
+    sb32 = results[("stacked_bwd", PHI35, "w_up", "float32")]
+    line += [
+        entry("mpo_linear_bwd_cores", "cuda", *bwd, sb16,
+              f"{PHI35} w_up (4096 -> 6400), {sb16['experts']} experts stacked in one call "
+              f"({sb16['launch_sets']} launch sets of 3: groups of {sb16['group']} experts), "
+              f"M={sb16['M']} an expert (a 4 x 512 fine-tuning batch's capacity), bfloat16",
+              path_launches["mpo_linear_bwd_cores_stacked"],
+              launches_by_path=by_path["mpo_linear_bwd_cores_stacked"], stacked=True,
+              planned=bwd_per_step * (3 * MOE_TRAIN_STEPS - 4), launch_sets=sb16["launch_sets"],
+              note="launches: the stacked calls of phase 13's bf16 fine-tuning runs (timed, "
+                   "straight through, resumed), counted where they launch; planned: one a "
+                   "MoE layer's expert matrix a step"),
+        entry("mpo_linear_bwd_cores", "cuda", *bwd, sb32,
+              f"{PHI35} w_up, {sb32['experts']} experts stacked, M={sb32['M']} an expert, "
+              "float32 (launches: the stacked calls of the smoke float32 train steps)",
+              sum(f32_stacked_bwd.values()), launches_by_path=f32_stacked_bwd, stacked=True,
+              launch_sets=sb32["launch_sets"]),
     ]
     if any(e["launches"] == 0 for e in line):
         fail(f"a kernel of the paths never launched: {[(e['name'], e['dtype'], e['launches']) for e in line]}")

@@ -6,7 +6,8 @@ then the model is lightweight-fine-tuned.  ``convert_dense_to_mpo`` walks a
 dense param tree and an MPO model's tree (the template), decomposing each
 ``w`` into the template's core layout (bond-truncated per the config);
 scalars, norms and biases pass through, and stacked ``(L, in, out)`` layers
-are decomposed as one batch on their device.
+are decomposed as one batch on their device.  A MoE layer's ``(L, E, in,
+out)`` experts are refused, as the reference refuses them.
 
 At full rank the converted model is numerically the dense one (Eq. 1); with
 truncation, Eq. 4 bounds each matrix's error.
@@ -46,6 +47,14 @@ def _core_order(cores_dict: dict):
     return lambda name: order[name]
 
 
+# Algorithm 1 over stacks of more than one leading dim is refused, as the
+# reference refuses it
+EXPERT_STACKS = ("Algorithm 1 over a MoE layer's (L, E) expert stacks is not ported: the "
+                 "reference's convert_dense_to_mpo takes only (L, I, J) stacks "
+                 "(repro/core/convert.py:56) and fails on (L, E, I, J) ones (ROADMAP.md, "
+                 "Queue 3 I)")
+
+
 def convert_dense_to_mpo(dense_params: dict, template: dict) -> dict:
     """Map a dense param tree onto an MPO model's structure.
 
@@ -54,13 +63,17 @@ def convert_dense_to_mpo(dense_params: dict, template: dict) -> dict:
     ``template``: the MPO model's tree (``Model.tree()``); its core shapes
     give each matrix's factorization and bonds, and its cores' dtypes the
     result's.  Non-matrix leaves come from the dense tree; a key the dense
-    tree lacks keeps the template's leaf, as the reference does."""
+    tree lacks keeps the template's leaf, as the reference does.  A matrix
+    stacked on more than one leading dim (a MoE layer's experts) raises
+    ``NotImplementedError``, as the reference fails there."""
 
     def walk(dense, tmpl):
         if isinstance(tmpl, dict) and "cores" in tmpl and "w" in dense:
             w = dense["w"]
             names = sorted(tmpl["cores"], key=_core_order(tmpl["cores"]))
             cts = [tmpl["cores"][n] for n in names]
+            if cts[0].dim() > 5:
+                raise NotImplementedError(EXPERT_STACKS)
             if tuple(w.shape[:-2]) != tuple(cts[0].shape[:-4]):
                 raise ValueError(f"dense matrix {tuple(w.shape)} does not stack as the "
                                  f"template's cores {tuple(cts[0].shape)}")

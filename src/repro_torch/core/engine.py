@@ -213,9 +213,8 @@ class MPOEngine:
         ``(E, d0, i, j, d1)``, x ``(E, N, I)``) is planned per matrix at N
         tokens, as the reference's ``jax.vmap`` over the experts shows its
         engine one matrix at a time, and all E run in one call of the planned
-        mode (one kernel launch on the card).  The kernel mode has no backward
-        over a stack yet (ROADMAP.md, Queue 1 item 7b): it raises where a
-        gradient is asked for."""
+        mode: on the card one forward launch, and in training one call of the
+        cores backward (``MPOLinearFn`` over the stack)."""
         if "w" in params:
             w = params["w"].to(x.dtype)
             return x @ (w.T if transpose else w)
@@ -231,18 +230,11 @@ class MPOEngine:
             # the caller passed raw cores: re-decide as a one-shot forward
             plan = self.plan(shapes, tokens, "prefill", x.dtype, x.device)
         if plan.mode == "kernel":
-            if lead and torch.is_grad_enabled() and (
-                    x.requires_grad or any(c.requires_grad for c in cores)):
-                raise NotImplementedError("the kernels' backward over an expert stack comes "
-                                          "with ROADMAP.md, Queue 1 item 7b")
             from repro_torch.kernels.mpo_linear import MPOLinearFn
             return MPOLinearFn.apply(x.contiguous(), *[c.contiguous() for c in cores])
         if plan.mode == "factorized":
             return torch.vmap(mpo.apply_mpo)(cores, x) if lead else mpo.apply_mpo(cores, x)
         # "reconstruct" (or a forced "cached" over raw cores: contract now)
-        if lead:
-            w = mpo.reconstruct_stacked(cores)                      # (E, I, J)
-            return (x.reshape(w.shape[0], -1, w.shape[1]) @ w).reshape(*x.shape[:-1], w.shape[2])
         return mpo.matmul_reconstruct(x, cores)
 
     def logits(self, params: dict, h: torch.Tensor, *,

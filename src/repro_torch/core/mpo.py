@@ -262,6 +262,14 @@ def embed_lookup(cores: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Tens
 # to converge (PERF.md; ``tools/torch_lifecycle_profile.py``).  The CPU has
 # one driver (LAPACK).
 SVD_DRIVER = "gesvd"
+# cuSOLVER's gesvd refuses the first unfolding of llava-next-34b's 64000 x
+# 7168 vocabulary matrices (70 x 6553600 and 112 x 4096000:
+# CUSOLVER_STATUS_INVALID_VALUE from the buffer-size query) and takes their
+# second (5120 x 81920; PERF.md, Findings, from
+# ``tools/torch_moe_train_profile.py``).  An unfolding of at least this many
+# entries is reduced by a QR of its long side first, the small triangle then
+# through gesvd (``_svd_qr``).
+SVD_QR_ENTRIES = 2 ** 28
 
 
 def _work(t: torch.Tensor) -> torch.Tensor:
@@ -269,8 +277,24 @@ def _work(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+def _svd_qr(m: torch.Tensor, driver=None):
+    """Reduced SVD of ``m`` (leading batch dims allowed) by a QR of its long
+    side: ``a = q r`` with ``a`` = m or m^T (whichever is tall), then the SVD
+    of the square ``r``; ``a = (q u) s vt``."""
+    wide = m.shape[-2] < m.shape[-1]
+    q, r = torch.linalg.qr(m.transpose(-2, -1) if wide else m)
+    u, s, vt = torch.linalg.svd(r, full_matrices=False, driver=driver)
+    u = q @ u
+    if wide:
+        return vt.transpose(-2, -1), s, u.transpose(-2, -1)
+    return u, s, vt
+
+
 def _svd(m: torch.Tensor):
-    """Reduced SVD over leading batch dims, on ``m``'s device."""
+    """Reduced SVD over leading batch dims, on ``m``'s device (on the card,
+    through ``_svd_qr`` from ``SVD_QR_ENTRIES`` entries a matrix)."""
+    if m.is_cuda and m.shape[-2] * m.shape[-1] >= SVD_QR_ENTRIES:
+        return _svd_qr(m, SVD_DRIVER)
     return torch.linalg.svd(m, full_matrices=False,
                             driver=SVD_DRIVER if m.is_cuda else None)
 
@@ -423,29 +447,49 @@ def _project_dw(cores: Sequence[torch.Tensor], x: torch.Tensor,
         return list(torch.autograd.grad(reconstruct_merged(cs), cs, dw.to(cores[0].dtype)))
 
 
+def _stacked_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for one matrix, or each of a stack's ``(E, I, J)`` matrices
+    on its own rows of x ``(E, ..., I)``."""
+    if w.dim() == 2:
+        return x @ w
+    return (x.reshape(w.shape[0], -1, w.shape[1]) @ w).reshape(*x.shape[:-1], w.shape[2])
+
+
 class _MatmulReconstruct(torch.autograd.Function):
     """The reference's ``matmul_reconstruct`` custom VJP: dense forward,
     backward that recomputes W for ``dx = dy @ W^T`` and projects the
-    bf16-cast ``dW`` into core space (``_mm_recon_bwd``)."""
+    bf16-cast ``dW`` into core space (``_mm_recon_bwd``).  Over a stack
+    (5-D cores, x ``(E, ..., I)``: a MoE layer's experts, which the
+    reference runs under ``jax.vmap``) each matrix's dW comes from its own
+    rows."""
 
     @staticmethod
     def forward(ctx, x, *cores):
         ctx.save_for_backward(x, *cores)
-        return x @ reconstruct(list(cores))
+        return _stacked_product(x, reconstruct_stacked(cores))
 
     @staticmethod
     def backward(ctx, dy):
         x, *cores = ctx.saved_tensors
-        dx = dy @ reconstruct(cores).T if ctx.needs_input_grad[0] else None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _stacked_product(dy, reconstruct_stacked(cores).transpose(-1, -2))
         dcores = [None] * len(cores)
         if any(ctx.needs_input_grad[1:]):
-            dcores = _project_dw(cores, x.to(torch.bfloat16), dy.to(torch.bfloat16))
+            xb, dyb = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+            if cores[0].dim() == 4:
+                dcores = _project_dw(cores, xb, dyb)
+            else:
+                per = [_project_dw([c[e] for c in cores], xb[e], dyb[e])
+                       for e in range(cores[0].shape[0])]
+                dcores = [torch.stack(g) for g in zip(*per)]
         return (dx, *dcores)
 
 
 def matmul_reconstruct(x: torch.Tensor, cores: Sequence[torch.Tensor]) -> torch.Tensor:
     """``x @ reconstruct(cores)`` — dense forward, core-space backward (the
-    reference's ``matmul_reconstruct``)."""
+    reference's ``matmul_reconstruct``); 5-D cores are a stack of matrices,
+    each applied to its own rows of x ``(E, ..., I)``."""
     return _MatmulReconstruct.apply(x, *cores)
 
 

@@ -6,7 +6,8 @@ whose next truncation predicts the least added reconstruction error (from
 the bond spectra, Eq. 3); (2) truncate that bond by ``step`` (TT-rounding);
 (3) lightweight-fine-tune the auxiliary tensors; (4) stop when the metric gap
 exceeds ``delta`` or ``max_iters`` is reached.  Stacked ``(L, ...)`` cores are
-handled as one batch a bond, on their device.  ``faults.step_tick`` at the
+handled as one batch a bond, on their device; a MoE layer's ``(L, E, ...)``
+experts are refused, as the reference refuses them.  ``faults.step_tick`` at the
 top of every iteration is the chaos harness's preemption hook; a preempted
 run resumes from its journal (``resilience.journal.SqueezeJournal``).
 """
@@ -80,14 +81,24 @@ def _eps_for(spectra_k: torch.Tensor, keep: int) -> torch.Tensor:
     return per if per.dim() == 0 else torch.sqrt((per * per).sum())
 
 
+# Algorithm 2 over cores of more than one stacked dim is refused, as the
+# reference refuses it
+EXPERT_STACKS = ("Algorithm 2 over a MoE layer's (L, E) expert stacks is not ported: the "
+                 "reference's squeeze takes at most one stacked dim (5-D cores, "
+                 "repro/core/squeeze.py:69-77) and fails on 6-D ones (ROADMAP.md, Queue 3 I)")
+
+
 def candidates(layers: dict, *, step: int = 1, min_bond: int = 1) -> list[tuple]:
     """Every squeeze move, in the reference's order of visit:
     ``[(path, bond_index, new_bonds, predicted_eps), ...]``.  A stack's
     spectra come from one batched sweep (``(L, svals)`` a bond); the errors
-    are read back to the host in one transfer."""
+    are read back to the host in one transfer.  Cores of more than one
+    stacked dim (a MoE layer's experts) raise ``NotImplementedError``."""
     found, eps = [], []
     for path, cores_dict in layers.items():
         cores = cores_to_list(cores_dict)
+        if cores[0].dim() > 5:
+            raise NotImplementedError(EXPERT_STACKS)
         bonds = [c.shape[-1] for c in cores[:-1]]
         for k, s in enumerate(mpo.bond_spectra(cores)):
             new = min(bonds[k], s.shape[-1]) - step

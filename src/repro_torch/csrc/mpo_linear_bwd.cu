@@ -57,6 +57,18 @@
 //   (ip, jp) and (is, js) to rows are built in Python (_bwd_jobs, _bwd_maps)
 //   and passed in one int32 device array; the CPU tests replay the same jobs.
 //
+// A stack of matrices of one shape (a MoE layer's experts: cores, x, dy and
+// the gradients back to back, expert after expert) runs in the same three
+// launches.  The plan, jobs and maps are the one matrix's; each expert has
+// its own scratch, one matrix's workspace at a stride.  The job runner walks
+// every job tile of a step for each expert in turn (the expert's cores,
+// gradients and scratch offset by its stride); the tile pass runs the one
+// matrix's grid once an expert (blocks e * nb .. e * nb + nb - 1, whole
+// clusters), so every expert's tiles, cluster sums and epilogue are those of
+// its matrix run alone: the same bits.  Where the stack's scratch would pass
+// the caller's budget, the experts run in groups, one launch set a group,
+// each reusing the scratch (kernels/mpo_linear.py:_bwd_group).
+//
 // What bounds it.  The work it must do is x^T dy, 2 * M * I * J operations on
 // the tensor cores (six products in float32), and the pullback, 4 * d_s * I *
 // J on the CUDA cores.  Measured on an H100 (PERF.md): at bert-base's matrices
@@ -121,7 +133,21 @@ static_assert(sizeof(Job) == JOB_INTS * sizeof(int), "Job is 23 ints");
 struct Cores {
   const void* in[MAXN];
   void* out[MAXN];
+  long size[MAXN];  // elements of one matrix's core k: the stride between experts
 };
+
+// the cores and gradients of expert e of a stack
+template <typename T>
+__device__ __forceinline__ Cores expert_cores(const Cores& cs, int e) {
+  Cores ce;
+#pragma unroll
+  for (int k = 0; k < MAXN; ++k) {
+    ce.in[k] = cs.in[k] ? static_cast<const T*>(cs.in[k]) + e * cs.size[k] : nullptr;
+    ce.out[k] = cs.out[k] ? static_cast<T*>(cs.out[k]) + e * cs.size[k] : nullptr;
+    ce.size[k] = cs.size[k];
+  }
+  return ce;
+}
 
 // Output tiles: a job of one column (N = 1: a sum of slices or of the
 // cluster partials) takes THREADS rows a tile, one a thread; a job of at
@@ -303,11 +329,13 @@ __device__ __forceinline__ void job_tile(const Job j, int t, const Cores& cs, fl
 }
 
 // Steps 0..nsteps-1 of the jobs, a grid barrier between steps (a cooperative
-// launch); within a step, the tiles of its jobs in job order, block b taking
-// tiles b, b + gridDim.x, ...
+// launch); within a step, the tiles of its jobs in job order for each of the
+// stack's experts in turn (expert e's cores, gradients and scratch at e
+// strides), block b taking tiles b, b + gridDim.x, ...
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-run_jobs(const Job* __restrict__ jobs_g, int njobs, int nsteps, Cores cs, float* ws) {
+run_jobs(const Job* __restrict__ jobs_g, int njobs, int nsteps, Cores cs, float* ws,
+         int experts, long wstride) {
   __shared__ __align__(16) float sm[JOB_SMEM];
   __shared__ Job jobs[MAXJOBS];
   cg::grid_group grid = cg::this_grid();
@@ -316,21 +344,24 @@ run_jobs(const Job* __restrict__ jobs_g, int njobs, int nsteps, Cores cs, float*
     reinterpret_cast<int*>(jobs)[e] = reinterpret_cast<const int*>(jobs_g)[e];
   __syncthreads();
   for (int step = 0; step < nsteps; ++step) {
-    int total = 0;
+    int per = 0;
     for (int q = 0; q < njobs; ++q)
-      if (jobs[q].step == step) total += job_tiles(jobs[q]);
-    for (int g = blockIdx.x; g < total; g += gridDim.x) {
+      if (jobs[q].step == step) per += job_tiles(jobs[q]);
+    for (int g = blockIdx.x; g < per * experts; g += gridDim.x) {
+      const int e = g / per, r = g % per;
       int q = 0, base = 0;
       for (;; ++q) {
         if (jobs[q].step != step) continue;
         const int nt = job_tiles(jobs[q]);
-        if (g < base + nt) break;
+        if (r < base + nt) break;
         base += nt;
       }
       const Job jb = jobs[q];
-      if (jb.N == 1) job_column<T>(jb, g - base, cs, ws);
-      else if (job_edge(jb) == 64) job_tile<T, 64>(jb, g - base, cs, ws, sm);
-      else job_tile<T, 32>(jb, g - base, cs, ws, sm);
+      const Cores ce = expert_cores<T>(cs, e);
+      float* we = ws + e * wstride;
+      if (jb.N == 1) job_column<T>(jb, r - base, ce, we);
+      else if (job_edge(jb) == 64) job_tile<T, 64>(jb, r - base, ce, we, sm);
+      else job_tile<T, 32>(jb, r - base, ce, we, sm);
     }
     if (step + 1 < nsteps) grid.sync();
   }
@@ -343,6 +374,8 @@ run_jobs(const Job* __restrict__ jobs_g, int njobs, int nsteps, Cores cs, float*
 struct TileArgs {
   int I, J, M, Is, Js, Ip, Jp, ds, Q;
   int PI, PJ, npair, tiles_j, ntiles;
+  int nb;          // blocks an expert: block b of the grid works for expert b / nb
+  long wstride;    // floats of scratch an expert (L, R, dL and the partials below)
   int need_dl, need_dr;
   int vec;         // x and dy rows in whole 16-byte chunks: cp.async, else element loads
   const int* pmi;  // L / dL row of (ip, jp): pmi[ip] + pmj[jp]
@@ -389,6 +422,15 @@ tile_kernel(TileArgs a, const T* __restrict__ x, const T* __restrict__ dy) {
   static_assert(NT % 2 == 0, "dy fragments are loaded two n-tiles at a time");
 
   extern __shared__ __align__(16) unsigned char smem[];
+  // a stack of experts: this block's expert, its place among the expert's
+  // blocks, and the expert's operands and scratch
+  const int ex = blockIdx.x / a.nb, bx = blockIdx.x % a.nb;
+  x += (long)ex * a.M * a.I;
+  dy += (long)ex * a.M * a.J;
+  a.L += ex * a.wstride;
+  a.R += ex * a.wstride;
+  a.dL += ex * a.wstride;
+  a.part += ex * a.wstride;
   const int Q = a.Q, ds = a.ds, npair = a.npair, QP = Q + 4, dq = ds / 4;
   float* Rs = reinterpret_cast<float*>(smem);
   float* Ls = Rs + Q * ds;
@@ -417,7 +459,7 @@ tile_kernel(TileArgs a, const T* __restrict__ x, const T* __restrict__ dy) {
       for (int w = 0; w < 4; ++w) racc[j][u][w] = 0.f;
   const int nst = (a.M + BK - 1) / BK;
 
-  for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
+  for (int t = bx; t < a.ntiles; t += a.nb) {
     const int ip0 = t / a.tiles_j * a.PI, jp0 = t % a.tiles_j * a.PJ;
     const int r0 = ip0 * a.Is, c0 = jp0 * a.Js;
     if (a.need_dr) {  // L rows of the tile's pairs, zero past the matrix's edge
@@ -636,7 +678,7 @@ tile_kernel(TileArgs a, const T* __restrict__ x, const T* __restrict__ dy) {
     const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
     const int E = Q * ds, per = (E + C - 1) / C;
     const int e1 = min(E, (rank + 1) * per);
-    float* out = a.part + (long)(blockIdx.x / C) * E;
+    float* out = a.part + (long)(bx / C) * E;
     for (int e = rank * per + tid; e < e1; e += THREADS) {
       float v = 0.f;
       for (int r = 0; r < C; ++r) v += cl.map_shared_rank(Rp, r)[e];
@@ -708,7 +750,7 @@ long workspace(const Shape& c, int clusters) {
 
 template <typename T, int TR, int TC>
 int launch_tiles(const TileArgs& ta, int nblocks, int cluster, const void* x, const void* dy,
-                 cudaStream_t st) {
+                 cudaStream_t st) {  // nblocks: the whole grid, ta.nb an expert
   const size_t smem = tile_smem<T>(ta.Q, ta.ds, ta.Is, ta.Js, TR, TC);
   cudaError_t err = repro::allow_smem(tile_kernel<T, TR, TC>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -730,18 +772,22 @@ int launch_tiles(const TileArgs& ta, int nblocks, int cluster, const void* x, co
 }
 
 template <typename T>
-int launch_jobs(const Job* jobs, int njobs, int nsteps, const Cores& cs, float* ws, int blocks,
-                cudaStream_t st) {
-  void* args[] = {(void*)&jobs, (void*)&njobs, (void*)&nsteps, (void*)&cs, (void*)&ws};
+int launch_jobs(const Job* jobs, int njobs, int nsteps, const Cores& cs, float* ws, int experts,
+                long wstride, int blocks, cudaStream_t st) {
+  void* args[] = {(void*)&jobs,    (void*)&njobs,   (void*)&nsteps, (void*)&cs,
+                  (void*)&ws,      (void*)&experts, (void*)&wstride};
   if (njobs > MAXJOBS) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaLaunchCooperativeKernel((const void*)run_jobs<T>, dim3(blocks),
                                                 dim3(THREADS), args, 0, st);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// one launch set (chains, tiles, epilogue) for `experts` matrices of one
+// shape: expert e's cores, gradients, x and dy at e strides, its scratch at
+// e * wstride floats of ws
 template <typename T>
 int run(const Shape& c, const Cores& cs, const int* args, const int* meta, const void* x,
-        const void* dy, int M, float* ws, cudaStream_t st) {
+        const void* dy, int M, int experts, long wstride, float* ws, cudaStream_t st) {
   const int tr = args[1], tc = args[2], cluster = args[3], nblocks = args[4];
   const int jblocks = args[5], nchain = args[6], csteps = args[7], nepi = args[8];
   const int esteps = args[9];
@@ -762,6 +808,8 @@ int run(const Shape& c, const Cores& cs, const int* args, const int* meta, const
   ta.npair = ta.PI * ta.PJ;
   ta.tiles_j = (c.Jp + ta.PJ - 1) / ta.PJ;
   ta.ntiles = (c.Ip + ta.PI - 1) / ta.PI * ta.tiles_j;
+  ta.nb = nblocks;
+  ta.wstride = wstride;
   ta.need_dl = args[10];
   ta.need_dr = args[11];
   ta.vec = c.I % (16 / sizeof(T)) == 0 && c.J % (16 / sizeof(T)) == 0 &&
@@ -775,24 +823,27 @@ int run(const Shape& c, const Cores& cs, const int* args, const int* meta, const
   ta.dL = ws + args[14];
   ta.part = ws + args[15];
 
-  int rc = launch_jobs<T>(jobs, nchain, csteps, cs, ws, jblocks, st);
+  const int grid = experts * nblocks;
+  int rc = launch_jobs<T>(jobs, nchain, csteps, cs, ws, experts, wstride, jblocks, st);
   if (rc) return rc;
-  if (tr == 128 && tc == 128) rc = launch_tiles<T, 128, 128>(ta, nblocks, cluster, x, dy, st);
-  else if (tr == 128) rc = launch_tiles<T, 128, 64>(ta, nblocks, cluster, x, dy, st);
-  else if (tc == 128) rc = launch_tiles<T, 64, 128>(ta, nblocks, cluster, x, dy, st);
-  else rc = launch_tiles<T, 64, 64>(ta, nblocks, cluster, x, dy, st);
+  if (tr == 128 && tc == 128) rc = launch_tiles<T, 128, 128>(ta, grid, cluster, x, dy, st);
+  else if (tr == 128) rc = launch_tiles<T, 128, 64>(ta, grid, cluster, x, dy, st);
+  else if (tc == 128) rc = launch_tiles<T, 64, 128>(ta, grid, cluster, x, dy, st);
+  else rc = launch_tiles<T, 64, 64>(ta, grid, cluster, x, dy, st);
   if (rc) return rc;
-  return launch_jobs<T>(jobs + nchain, nepi, esteps, cs, ws, jblocks, st);
+  return launch_jobs<T>(jobs + nchain, nepi, esteps, cs, ws, experts, wstride, jblocks, st);
 }
 
 }  // namespace
 
 // Floats of scratch mpo_linear_bwd_cores needs for these core shapes, split and
-// cluster count; -1 if the kernel cannot take the shapes at this split.
-extern "C" long mpo_linear_bwd_workspace(const int* shapes, int n, int split, int clusters) {
+// cluster count, run `experts` matrices of a stack at a time (1 for one
+// matrix); -1 if the kernel cannot take the shapes at this split.
+extern "C" long mpo_linear_bwd_workspace(const int* shapes, int n, int split, int clusters,
+                                         int experts) {
   Shape c;
-  if (!make_shape(c, shapes, n, split) || clusters < 1) return -1;
-  return workspace(c, clusters);
+  if (!make_shape(c, shapes, n, split) || clusters < 1 || experts < 1) return -1;
+  return experts * workspace(c, clusters);
 }
 
 // Dynamic shared memory (bytes) of the tile pass at this split and tile;
@@ -807,29 +858,45 @@ extern "C" long mpo_linear_bwd_smem(const int* shapes, int n, int split, int tr,
 }
 
 // cores / dcores: n device pointers (a null dcores[k] gets no gradient; its
-// job is absent from the epilogue); shapes: n * 4 ints (d0, i, j, d1) a core;
+// job is absent from the epilogue), each to `experts` matrices' cores of one
+// shape back to back (a MoE layer's expert stack; 1 for one matrix);
+// shapes: n * 4 ints (d0, i, j, d1), one matrix's core;
 // args (host): split, tile rows, tile columns, cluster, tile blocks, job-runner
 // blocks, chain jobs, chain steps, epilogue jobs, epilogue steps, need dL,
 // need dR, then the float offsets of L, R, dL and the partials in ws; meta
 // (device): the chain jobs, the epilogue jobs, then the maps pmi [Ip], pmj [Jp],
-// qmi [Is], qmj [Js]; x [M, I], dy [M, J] (16-byte aligned); dtype 0 =
-// float32, 1 = bfloat16 (cores, x, dy and the gradients alike); ws: the
-// workspace.  Returns the first launch error (0 = all three launched).
+// qmi [Is], qmj [Js]; x [experts][M, I], dy [experts][M, J] (16-byte
+// aligned); dtype 0 = float32, 1 = bfloat16 (cores, x, dy and the gradients
+// alike); ws: the workspace of `group` matrices.  The experts run `group` at
+// a time, one launch set a group, each group reusing the scratch (stream
+// order keeps them apart).  Returns the first launch error (0 = all
+// launched).
 extern "C" int mpo_linear_bwd_cores(const void* const* cores, void* const* dcores,
                                     const int* shapes, int n, const int* args, const int* meta,
-                                    const void* x, const void* dy, int M, int dtype, float* ws,
-                                    void* stream) {
+                                    const void* x, const void* dy, int M, int experts, int group,
+                                    int dtype, float* ws, void* stream) {
   Shape c;
   if (!make_shape(c, shapes, n, args[0]) || !tile_ok(c, args[1], args[2]) || M < 0 ||
-      args[3] < 1 || args[3] > MAXCLUSTER || args[4] < 1 || args[4] % args[3] || args[5] < 1)
+      args[3] < 1 || args[3] > MAXCLUSTER || args[4] < 1 || args[4] % args[3] || args[5] < 1 ||
+      experts < 1 || group < 1 || (long)group * args[4] > 0x7fffffffL || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
-  Cores cs;
-  for (int k = 0; k < MAXN; ++k) {
-    cs.in[k] = k < n ? cores[k] : nullptr;
-    cs.out[k] = k < n ? dcores[k] : nullptr;
-  }
+  const size_t isz = dtype == 0 ? 4 : 2;
+  const long wstride = workspace(c, args[4] / args[3]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(c, cs, args, meta, x, dy, M, ws, st);
-  if (dtype == 1) return run<bf16>(c, cs, args, meta, x, dy, M, ws, st);
-  return (int)cudaErrorInvalidValue;
+  for (int g0 = 0; g0 < experts; g0 += group) {
+    Cores cs;
+    for (int k = 0; k < MAXN; ++k) {
+      cs.size[k] = k < n ? (long)c.bond[k] * c.fin[k] * c.fout[k] * c.bond[k + 1] : 0;
+      cs.in[k] = k < n ? static_cast<const char*>(cores[k]) + g0 * cs.size[k] * isz : nullptr;
+      cs.out[k] = k < n && dcores[k] ? static_cast<char*>(dcores[k]) + g0 * cs.size[k] * isz
+                                      : nullptr;
+    }
+    const void* xg = static_cast<const char*>(x) + (size_t)g0 * M * c.I * isz;
+    const void* dyg = static_cast<const char*>(dy) + (size_t)g0 * M * c.J * isz;
+    const int ge = experts - g0 < group ? experts - g0 : group;
+    const int rc = dtype == 0 ? run<float>(c, cs, args, meta, xg, dyg, M, ge, wstride, ws, st)
+                              : run<bf16>(c, cs, args, meta, xg, dyg, M, ge, wstride, ws, st);
+    if (rc) return rc;
+  }
+  return 0;
 }

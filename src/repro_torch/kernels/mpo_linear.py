@@ -32,9 +32,12 @@ Three CUDA kernels replace the Pallas TPU kernels of
   are built here, so the CPU tests replay them.  No atomics: two runs give
   the same bits.
 
-Both forwards also take a stack of E matrices of one shape, the experts of a
-MoE layer (cores ``(E, d0, i, j, d1)``, x ``(E, M, I)``), in one launch: the
-grid gains the expert, the plan is the one matrix's at M rows.
+All three also take a stack of E matrices of one shape, the experts of a
+MoE layer (cores ``(E, d0, i, j, d1)``, x ``(E, M, I)``): the grid gains the
+expert and the plan is the one matrix's at M rows, so each expert's results
+are its matrix's run alone.  A forward over a stack is one launch; the
+cores backward one launch set, or one a group of experts where the stack's
+scratch would pass ``BWD_STACK_SCRATCH``.
 
 ``MPOLinearFn`` is the autograd function around them (the reference's
 ``_mpo_linear`` custom VJP): ``dL/dx`` is the forward over i/j-swapped
@@ -270,7 +273,11 @@ def kernel_eligible(shapes: Sequence[tuple], *, dtype: str = "float32",
     or its is group is not whole 4-row patches), and full-width qwen3-14b's
     ``lm_head`` (no bond's js group divides the 128-column tile).
     ``train`` also needs the forward over the i/j-swapped cores (``dL/dx``)
-    and the cores-backward kernel (``_bwd_plan``)."""
+    and the cores-backward kernel (``_bwd_plan``).  Over an expert stack the
+    backward's grid is a group of experts times the plan's blocks along x
+    (up to 2^31 - 1: any stack fits); the forwards' grid puts the experts
+    with the row tiles in z (at most 65535), which ``mpo_linear_mma`` and
+    ``mpo_linear_cuda_core`` check at the call, where the rows are known."""
     if dtype not in ("float32", "bfloat16"):
         return False
     shapes = tuple(tuple(int(d) for d in s) for s in shapes)
@@ -476,7 +483,12 @@ JOB_FIELDS = ("step", "M", "N", "K1", "K2", "Z",
               "a_src", "a_off", "a_sz", "a_sm", "a_s1", "a_s2",
               "b_src", "b_off", "b_sz", "b_s1", "b_s2", "b_sn",
               "c_dst", "c_off", "c_sz", "c_sm", "c_sn")
-BWD_KERNELS = 3                      # launches a call: chains, tiles, epilogue
+BWD_KERNELS = 3                      # launches a set: chains, tiles, epilogue
+# the scratch one call over an expert stack may take (5% of the H100's 80
+# GB): at the full-width expert shapes one matrix's scratch is 320 MB
+# (phi3.5-moe) to 509 MB (llama4-maverick), so a stack runs in groups of
+# experts, one launch set a group, each reusing the scratch (``_bwd_group``)
+BWD_STACK_SCRATCH = 4 * 2 ** 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -609,6 +621,16 @@ def _bwd_plan(shapes: tuple, dtype: str = "bfloat16", sms: int = MMA_SMS) -> Bwd
                 best = (key, BwdPlan(s, tr, tc, pi * pj, tiles, cluster, blocks, smem, ws,
                                      phi, mu, rho, lam, part))
     return None if best is None else best[1]
+
+
+def _bwd_group(workspace: int, n_stack: int) -> int:
+    """Experts a launch set of the cores backward takes over a stack of
+    ``n_stack`` matrices whose scratch is ``workspace`` bytes each: all of
+    them when their scratch fits ``BWD_STACK_SCRATCH``, else the fewest
+    groups of equal size (the last smaller) that fit, at least one expert
+    a group."""
+    most = max(1, min(n_stack, BWD_STACK_SCRATCH // max(workspace, 1)))
+    return -(-n_stack // -(-n_stack // most))
 
 
 def _bwd_maps(shapes: Sequence[tuple], s: int) -> list[torch.Tensor]:
@@ -768,16 +790,8 @@ def _bwd_jobs(shapes: Sequence[tuple], plan: BwdPlan, needs: Sequence[bool]
     return chain, csteps, epi, steps
 
 
-def mpo_linear_bwd_cores_plain(cores: Sequence[torch.Tensor], x: torch.Tensor,
-                               dy: torch.Tensor, needs: Sequence[bool] | None = None
-                               ) -> list[torch.Tensor | None]:
-    """The plain version: ``dW = x^T dy`` in f32, pulled back through
-    ``mpo.reconstruct`` in f32 by autograd, one rounding to the cores' dtype
-    — the arithmetic the kernel does, in another order.  ``needs[k]`` False
-    gives None for core k."""
-    mpo_linear_bwd_cores_plain.calls += 1
-    cores = list(cores)
-    needs = [True] * len(cores) if needs is None else list(needs)
+def _bwd_cores_one(cores: list, x: torch.Tensor, dy: torch.Tensor, needs: list) -> list:
+    """One matrix's plain cores backward (``mpo_linear_bwd_cores_plain``)."""
     i_dim = math.prod(c.shape[1] for c in cores)
     j_dim = math.prod(c.shape[2] for c in cores)
     acc = _acc_dtype(x.dtype)
@@ -790,6 +804,26 @@ def mpo_linear_bwd_cores_plain(cores: Sequence[torch.Tensor], x: torch.Tensor,
     return [next(got).to(c.dtype) if k else None for c, k in zip(cores, needs)]
 
 
+def mpo_linear_bwd_cores_plain(cores: Sequence[torch.Tensor], x: torch.Tensor,
+                               dy: torch.Tensor, needs: Sequence[bool] | None = None
+                               ) -> list[torch.Tensor | None]:
+    """The plain version: ``dW = x^T dy`` in f32, pulled back through
+    ``mpo.reconstruct`` in f32 by autograd, one rounding to the cores' dtype
+    — the arithmetic the kernel does, in another order.  ``needs[k]`` False
+    gives None for core k.  Over a stack (5-D cores, x ``(E, ..., I)``, dy
+    ``(E, ..., J)``) each matrix's gradients come from its own rows, one
+    matrix at a time (no ``(E, I, J)`` dW at once)."""
+    mpo_linear_bwd_cores_plain.calls += 1
+    cores = list(cores)
+    needs = [True] * len(cores) if needs is None else list(needs)
+    if cores[0].dim() == 4:
+        return _bwd_cores_one(cores, x, dy, needs)
+    n = cores[0].shape[0]
+    per = [_bwd_cores_one([c[e] for c in cores], x[e], dy[e], needs) for e in range(n)]
+    return [torch.stack([p[k] for p in per]) if k_need else None
+            for k, k_need in enumerate(needs)]
+
+
 mpo_linear_bwd_cores_plain.calls = 0
 
 
@@ -797,13 +831,13 @@ mpo_linear_bwd_cores_plain.calls = 0
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("mpo_linear_bwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mpo_linear_bwd_workspace.argtypes = [ctypes.POINTER(i32), i32, i32, i32]
+    lib.mpo_linear_bwd_workspace.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32]
     lib.mpo_linear_bwd_workspace.restype = ctypes.c_long
     lib.mpo_linear_bwd_smem.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32, i32]
     lib.mpo_linear_bwd_smem.restype = ctypes.c_long
     lib.mpo_linear_bwd_cores.argtypes = [
         ctypes.POINTER(ptr), ctypes.POINTER(ptr), ctypes.POINTER(i32), i32,
-        ctypes.POINTER(i32), ptr, ptr, ptr, i32, i32, ptr, ptr]
+        ctypes.POINTER(i32), ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
     lib.mpo_linear_bwd_cores.restype = i32
     return lib
 
@@ -834,12 +868,17 @@ def mpo_linear_bwd_cores(cores: Sequence[torch.Tensor], x: torch.Tensor,
                          ) -> list[torch.Tensor | None]:
     """Per-core gradients of ``sum(dy * (x @ W(cores)))`` without dW or W in
     device memory; ``needs[k]`` False skips core k (None in its place, and
-    no work for it).
+    no work for it).  A stack of E matrices of one shape — 5-D cores ``(E,
+    d0, i, j, d1)``, x ``(E, ..., I)``, dy ``(E, ..., J)`` — gives each
+    matrix's gradients from its own rows, planned as the one matrix.
 
     CUDA tensors launch the kernel, ``csrc/mpo_linear_bwd.cu``: three
-    launches a call (``BWD_KERNELS``), counted once in
-    ``mpo_linear_bwd_cores.launches``; ``mpo_linear_bwd_cores.workspace_bytes``
-    is the last call's scratch.  CPU tensors take
+    launches (``BWD_KERNELS``) a set, one set a call, and over a stack one
+    set for every group of ``_bwd_group`` experts (all of them where their
+    scratch fits ``BWD_STACK_SCRATCH``); a call counts once in
+    ``mpo_linear_bwd_cores.launches``, a call over a stack of more than one
+    matrix also in ``.stacked_launches``; ``.workspace_bytes`` is the last
+    call's scratch and ``.launch_sets`` its launch sets.  CPU tensors take
     ``mpo_linear_bwd_cores_plain``.  Raises on anything the kernel does not
     take."""
     cores = list(cores)
@@ -848,9 +887,17 @@ def mpo_linear_bwd_cores(cores: Sequence[torch.Tensor], x: torch.Tensor,
         return mpo_linear_bwd_cores_plain(cores, x, dy, needs)
     if x.device.type != "cuda":
         raise ValueError(f"mpo_linear_bwd_cores: unsupported device {x.device}")
-    shapes = tuple(tuple(c.shape) for c in cores)
-    if any(len(s) != 4 for s in shapes):
-        raise ValueError(f"mpo_linear_bwd_cores: cores must be 4-D, got {shapes}")
+    rank = cores[0].dim()
+    if rank not in (4, 5) or any(c.dim() != rank for c in cores):
+        raise ValueError(f"mpo_linear_bwd_cores: cores must be 4-D, or 5-D for a stack, got "
+                         f"{[tuple(c.shape) for c in cores]}")
+    n_stack = cores[0].shape[0] if rank == 5 else 1
+    if rank == 5 and (any(c.shape[0] != n_stack for c in cores) or x.dim() < 2 or dy.dim() < 2
+                      or x.shape[0] != n_stack or dy.shape[0] != n_stack):
+        raise ValueError(f"mpo_linear_bwd_cores: a stack of {n_stack} matrices needs every "
+                         f"core's, x's and dy's leading dim {n_stack}, got x {tuple(x.shape)}, "
+                         f"dy {tuple(dy.shape)}")
+    shapes = tuple(tuple(c.shape[-4:]) for c in cores)
     for t in (*cores, dy):
         if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
             raise ValueError("mpo_linear_bwd_cores: cores and dy must be contiguous, "
@@ -860,8 +907,8 @@ def mpo_linear_bwd_cores(cores: Sequence[torch.Tensor], x: torch.Tensor,
                          f"got {x.dtype}")
     i_dim = math.prod(s[1] for s in shapes)
     j_dim = math.prod(s[2] for s in shapes)
-    m = x.numel() // max(i_dim, 1)
-    if x.shape[-1] != i_dim or dy.shape[-1] != j_dim or dy.numel() != m * j_dim:
+    m = x.numel() // max(n_stack * i_dim, 1)
+    if x.shape[-1] != i_dim or dy.shape[-1] != j_dim or dy.numel() != n_stack * m * j_dim:
         raise ValueError(f"mpo_linear_bwd_cores: x {tuple(x.shape)} and dy "
                          f"{tuple(dy.shape)} do not fit W of {i_dim} x {j_dim}")
     dtype = "float32" if x.dtype == torch.float32 else "bfloat16"
@@ -878,21 +925,26 @@ def mpo_linear_bwd_cores(cores: Sequence[torch.Tensor], x: torch.Tensor,
     if dy.data_ptr() % 16:
         dy = dy.clone()
     plan, meta, args = _bwd_meta(shapes, dtype, tuple(needs), sms, x.device)
-    ws = torch.empty(plan.workspace // 4, dtype=torch.float32, device=x.device)
+    group = _bwd_group(plan.workspace, n_stack)
+    ws = torch.empty(group * plan.workspace // 4, dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
     optrs = (ctypes.c_void_p * len(cores))(*[o.data_ptr() if o is not None else None
                                              for o in outs])
     lib = _bwd_lib()
     _build.launch("mpo_linear_bwd_cores", x, lambda stream: lib.mpo_linear_bwd_cores(
         ptrs, optrs, _dims(shapes), len(cores), args, meta.data_ptr(), x.data_ptr(),
-        dy.data_ptr(), m, DTYPES[x.dtype], ws.data_ptr(), stream))
+        dy.data_ptr(), m, n_stack, group, DTYPES[x.dtype], ws.data_ptr(), stream))
     mpo_linear_bwd_cores.launches += 1
-    mpo_linear_bwd_cores.workspace_bytes = plan.workspace
+    mpo_linear_bwd_cores.stacked_launches += n_stack > 1
+    mpo_linear_bwd_cores.workspace_bytes = group * plan.workspace
+    mpo_linear_bwd_cores.launch_sets = -(-n_stack // group)
     return outs
 
 
 mpo_linear_bwd_cores.launches = 0
+mpo_linear_bwd_cores.stacked_launches = 0
 mpo_linear_bwd_cores.workspace_bytes = 0
+mpo_linear_bwd_cores.launch_sets = 0
 
 
 class MPOLinearFn(torch.autograd.Function):

@@ -21,13 +21,14 @@
 
 A densified weight-cache snapshot is only valid for the cores it was taken
 from: ``finetune`` and ``squeeze`` bump the weights version, so a later
-``serve`` re-densifies from the current cores.  The ``dense`` and ``ssm``
-families (mamba2-130m, whose SSD scan trains through the backward kernel
-``kernels.ssd_scan.ssd_scan_bwd``) run every stage here; ``moe`` and
-``vlm`` are served (``serve``, and for ``moe`` ``serve_pool`` and
-``serve_fleet``), and their conversion, fine-tuning and squeezing raise:
-they need the cores backward over an expert stack (ROADMAP.md, Queue 1
-item 7b).
+``serve`` re-densifies from the current cores.  The ``dense``, ``ssm``
+(mamba2-130m, whose SSD scan trains through the backward kernel
+``kernels.ssd_scan.ssd_scan_bwd``) and ``vlm`` families run every stage
+here.  The ``moe`` family fine-tunes (its expert matrices through the cores
+backward over the expert stack) and serves (also ``serve_pool`` and
+``serve_fleet``); its conversion and squeezing raise, as the reference's
+Algorithm 1 and 2 fail on (L, E) expert stacks (``core.convert`` and
+``core.squeeze``: ``EXPERT_STACKS``).
 ``save`` / ``restore`` persist the whole session (``resilience.state``), and
 ``ckpt_dir`` makes ``finetune`` (checkpoint/resume) and ``squeeze`` (the
 iteration journal) resumable after a preemption.  ``serve_pool`` serves
@@ -141,13 +142,11 @@ def _not_yet(what: str, item: str):
     raise NotImplementedError(f"{what} comes with ROADMAP.md, Queue 1 {item}")
 
 
-# families that serve but do not yet convert, fine-tune or squeeze
-SERVE_ONLY = ("moe", "vlm")
-
-
-def _serve_only(cfg: ModelConfig, what: str):
-    if cfg.family in SERVE_ONLY:
-        _not_yet(f"{what} for the {cfg.family} family", "item 7b")
+def _refuse_expert_stacks(cfg: ModelConfig, what: str, why: str):
+    """The moe family's experts are (L, E) stacks, which the reference's
+    Algorithm 1 and 2 cannot take: raise ``why`` before any work."""
+    if cfg.family == "moe":
+        raise NotImplementedError(f"{what} for the moe family: {why}")
 
 
 class Session:
@@ -217,7 +216,7 @@ class Session:
         ``MPOConfig(enabled=False)``, as tensors or numpy arrays; the MPO
         model built here gives the core shapes, and its drawn values are
         replaced."""
-        _serve_only(cfg, "Session.from_dense")
+        _refuse_expert_stacks(cfg, "Session.from_dense", convert.EXPERT_STACKS)
         t0 = time.perf_counter()
         model = M.build(cfg, device=device)
         dense = lightweight.tree_map(lambda t: carry.to_tensor(t).to(model.device),
@@ -406,8 +405,10 @@ class Session:
         a rerun with the same ``ckpt_dir`` resumes at its latest step).
         Returns a stage report with the loss history.  In the ``ssm``
         family the SSD scan runs through ``SSDScanFn``: its forward and
-        backward kernels on the card."""
-        _serve_only(self.cfg, "Session.finetune")
+        backward kernels on the card; in the ``moe`` family each expert
+        matrix's stack runs one forward and one cores-backward call a
+        layer (the history reports the load-balance ``aux``); ``vlm``
+        batches carry patches (``seq_len`` counts them)."""
         t0 = time.perf_counter()
         loss_fn = loss_fn or self._default_loss_fn()
         batch_fn = batch_fn or self._default_batch_fn(seq_len, batch_size, seed)
@@ -479,7 +480,7 @@ class Session:
         last completed iteration, reproducing the uninterrupted run's
         history and tree bit for bit.  The ``ssm`` family's re-tunes run
         the SSD scan's backward kernel as ``finetune`` does."""
-        _serve_only(self.cfg, "Session.squeeze")
+        _refuse_expert_stacks(self.cfg, "Session.squeeze", squeeze_mod.EXPERT_STACKS)
         t0 = time.perf_counter()
         loss_fn = loss_fn or self._default_loss_fn()
         batch_fn = batch_fn or self._default_batch_fn(seq_len, batch_size, seed)

@@ -158,12 +158,23 @@ def test_stacked_helpers_equal_the_per_matrix_ones():
 
 
 def test_stacked_kernel_mode_refuses_a_backward():
+    """The kernel mode over a stack no longer refuses a gradient: it runs
+    ``MPOLinearFn`` over the stack (its plain versions on the CPU, one
+    cores-backward call for the stack), and its gradients are the
+    factorized mode's."""
+    gen = torch.Generator().manual_seed(0)
     cfg = TL.MPOConfig(n=4, bond_ffn=8, mode="kernel")
-    lin = TL.init_linear(torch.Generator().manual_seed(0), 48, 96, cfg=cfg)
-    lin = {"cores": {k: v[None].expand(2, *v.shape).clone().requires_grad_()
-                     for k, v in lin["cores"].items()}}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7b"):
-        TE.engine_for(cfg).linear(lin, torch.randn(2, 3, 48), phase="train")
+    base = TL.init_linear(gen, 48, 96, cfg=cfg)["cores"]
+    grads = {}
+    for mode in ("kernel", "factorized"):
+        lin = {"cores": {k: torch.stack([v, 0.5 * v]).requires_grad_() for k, v in base.items()}}
+        x = torch.randn(2, 3, 48, generator=torch.Generator().manual_seed(1)).requires_grad_()
+        calls = TMK.mpo_linear_bwd_cores_plain.calls
+        y = TE.engine_for(dataclasses.replace(cfg, mode=mode)).linear(lin, x, phase="train")
+        grads[mode] = torch.autograd.grad(y.square().sum(), [x, *lin["cores"].values()])
+        assert TMK.mpo_linear_bwd_cores_plain.calls == calls + (mode == "kernel")
+    for a, b in zip(grads["kernel"], grads["factorized"]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
 
 
 # --------------------------------------------------------------------------
@@ -255,8 +266,13 @@ def test_cache_weights_over_layer_and_expert_stacks(pair):
 
 
 def test_training_stages_raise_for_moe(pair):
+    """Conversion and squeezing still raise for the moe family, naming the
+    reference's limits (its Algorithm 1 and 2 fail on (L, E) expert stacks:
+    ``tests/test_torch_moe_train.py`` shows both); fine-tuning runs
+    (``tests/test_torch_moe_train.py`` holds it against the reference)."""
     _, ts = pair
-    for call in (lambda: ts.finetune(steps=1), lambda: ts.squeeze(max_iters=1),
-                 lambda: TSession.from_dense({}, ts.cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7b"):
+    for call, where in ((lambda: ts.squeeze(max_iters=1), "repro/core/squeeze.py:69-77"),
+                        (lambda: TSession.from_dense({}, ts.cfg, device="cpu"),
+                         "repro/core/convert.py:56")):
+        with pytest.raises(NotImplementedError, match=where):
             call()

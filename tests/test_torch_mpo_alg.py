@@ -102,6 +102,31 @@ def test_decompose_matches_reference(dims, n, bond, kind):
             assert np.linalg.norm(rec - ws[i]) <= TOL * np.linalg.norm(ws[i])
 
 
+def test_decompose_through_the_qr_route_matches_reference(monkeypatch):
+    """Algorithm 1 with every SVD through ``_svd_qr`` (the card's route for
+    unfoldings of ``SVD_QR_ENTRIES`` entries or more, here forced on the
+    CPU), unstacked and stacked, on a full-rank Gaussian and an exact
+    matrix: the reference's reconstructions and spectra, within the
+    tolerances of the LAPACK route above."""
+    monkeypatch.setattr(TM, "_svd", TM._svd_qr)
+    dims, n, bond = (128, 48), 4, 6
+    spec_j = JM.MPOSpec.make(*dims, n=n, bond_dim=bond)
+    spec_t = TM.MPOSpec.make(*dims, n=n, bond_dim=bond)
+    rng = np.random.default_rng(4)
+    cs = _cores(spec_j.core_shapes(), seed=5)
+    exact = np.asarray(JM.reconstruct([jnp.asarray(c) for c in cs]))
+    for w, tol in ((rng.standard_normal(dims).astype(np.float32), TRUNC_TOL), (exact, TOL)):
+        j_cores, j_spec = JM.decompose(jnp.asarray(w), spec_j)
+        w_norm = float(np.linalg.norm(w))
+        for lead in ((), (2,)):
+            t_cores, t_spec = TM.decompose(torch.from_numpy(np.broadcast_to(w, lead + dims)
+                                                            .copy()), spec_t)
+            if lead:
+                t_cores, t_spec = _layer(t_cores, 1), [s[1] for s in t_spec]
+            _rec_close(t_cores, j_cores, w_norm, tol)
+            _spectra_close(t_spec, j_spec, tol)
+
+
 def test_decompose_rejects_a_wrong_shape():
     with pytest.raises(ValueError, match="spec"):
         TM.decompose(torch.zeros(3, 24, 35), TM.MPOSpec.make(24, 36, n=3))

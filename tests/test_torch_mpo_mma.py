@@ -12,7 +12,12 @@ once, in another order, and the hi/lo pair carries W to ~2^-16 relative,
 so one bf16 step (2^-8) of the largest output, doubled, bounds the gap.
 float32 at 1e-4 of it (``chip_smoke.py``'s ``TOL``): the three-term split
 carries x and W to ~2^-24 relative, and the f32 sums over up to 3072 terms
-in another order differ by ~1e-6 relative."""
+in another order differ by ~1e-6 relative.
+
+The cores backward over an expert stack: how a stack's scratch is grouped
+(``_bwd_group``) at the full-width expert shapes, and on the card the
+stacked call against its plain version (``chip_smoke.py``'s ``TOL``) and,
+bit for bit, against each matrix run alone."""
 
 import ctypes
 import math
@@ -22,6 +27,7 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.core import mpo as TM
 from repro_torch.core.layers import cores_to_list
 from repro_torch.models import transformer as TT
 from repro_torch.kernels import mpo_linear as TMK
@@ -369,3 +375,104 @@ def test_cuda_stacked_forward_matches_plain(cuda, name, dtype):
             ws = TMK._mma_lib().mpo_linear_mma_workspace(dims, len(shapes), plan.split, m,
                                                          plan.splits, e, TMK.DTYPES[tdt])
             assert 4 * ws == e * plan.workspace
+
+
+# --------------------------------------------------------------------------
+# the cores backward over an expert stack
+# --------------------------------------------------------------------------
+
+
+def test_bwd_group_fits_the_budget():
+    """A stack runs in groups of experts whose scratch fits
+    ``BWD_STACK_SCRATCH``: all of them when they fit, else the fewest
+    groups of equal size.  At the full-width expert shapes one matrix's
+    scratch is above an f32 dW (L and dL are W-sized at the only bond whose R
+    fits), so phi3.5-moe's 16 experts run as 2 groups of 8 and
+    llama4-maverick's 128 as 16 groups of 8."""
+    budget = TMK.BWD_STACK_SCRATCH
+    assert TMK._bwd_group(1000, 5) == 5
+    assert TMK._bwd_group(budget + 1, 4) == 1
+    for ws, n, want in ((budget // 3 + 1, 7, 2), (budget // 5, 16, 4), (budget // 8, 16, 8)):
+        g = TMK._bwd_group(ws, n)
+        groups = -(-n // g)
+        # fits, the fewest groups that fit, and no group larger than the first
+        assert g * ws <= budget and -(-n // (groups - 1)) * ws > budget and g == want, (ws, n)
+    from repro_torch.models import nn as TNN
+    for arch, groups in (("phi3.5-moe-42b-a6.6b", 2), ("llama4-maverick-400b-a17b", 16)):
+        cfg = configs.get_config(arch)
+        with torch.device("meta"):           # one expert's matrices
+            expert = TNN.init_mlp(torch.Generator(), cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                                  cfg.mpo)
+        for name in ("w_up", "w_down"):
+            shapes = tuple(tuple(c.shape) for c in cores_to_list(expert[name]["cores"]))
+            plan = TMK._bwd_plan(shapes, "bfloat16")
+            assert plan is not None and TMK.kernel_eligible(shapes, dtype="bfloat16", train=True)
+            i_dim = math.prod(s[1] for s in shapes)
+            j_dim = math.prod(s[2] for s in shapes)
+            assert plan.workspace > 4 * i_dim * j_dim
+            g = TMK._bwd_group(plan.workspace, cfg.num_experts)
+            assert (g, -(-cfg.num_experts // g)) == (8, groups), (arch, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_stacked_bwd_cores_matches_plain(cuda, dtype, monkeypatch):
+    """The cores backward over a stack of 3 matrices (bert-base's attention
+    and w_down shapes, and ``tests/test_kernel_vjp.py``'s (24, 36): element
+    loads, a cluster of one) on the card: within ``chip_smoke.py``'s ``TOL``
+    of the plain version, two calls bit-identical, each expert bit-equal to
+    its matrix run alone, an all-zero expert exactly zero, the central core
+    skipped leaving the others' bits; one call counted once and as stacked;
+    the stack's scratch the CUDA source's.  Then the experts in groups (a
+    budget of two experts' scratch: a group of 2, then 1) give the same
+    bits."""
+    mats = _matrices()
+    cases = [mats["attn"], mats["w_down"],
+             [tuple(c) for c in TM.MPOSpec.make(24, 36, n=3).core_shapes()]]
+    tdt, e = getattr(torch, dtype), 3
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    rng = np.random.default_rng(0)
+    for shapes in cases:
+        i_dim = math.prod(c[1] for c in shapes)
+        j_dim = math.prod(c[2] for c in shapes)
+        cs = [torch.from_numpy((rng.standard_normal((e,) + c) * 0.35).astype(np.float32))
+              .to(cuda, tdt) for c in shapes]
+        plan = TMK._bwd_plan(tuple(shapes), dtype, TMK._sm_count(cuda.index or 0))
+        for m in (37, 160):
+            x = torch.from_numpy(rng.standard_normal((e, m, i_dim)).astype(np.float32))
+            dy = torch.from_numpy(rng.standard_normal((e, m, j_dim)).astype(np.float32))
+            x[1], dy[1] = 0.0, 0.0
+            x, dy = x.to(cuda, tdt), dy.to(cuda, tdt)
+            launches, stacked = TMK.mpo_linear_bwd_cores.launches, \
+                TMK.mpo_linear_bwd_cores.stacked_launches
+            got = TMK.mpo_linear_bwd_cores(cs, x, dy)
+            again = TMK.mpo_linear_bwd_cores(cs, x, dy)
+            torch.cuda.synchronize()
+            assert TMK.mpo_linear_bwd_cores.launches == launches + 2
+            assert TMK.mpo_linear_bwd_cores.stacked_launches == stacked + 2
+            assert TMK.mpo_linear_bwd_cores.launch_sets == 1
+            assert TMK.mpo_linear_bwd_cores.workspace_bytes == e * plan.workspace
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (shapes, m)
+            for k in range(e):
+                alone = TMK.mpo_linear_bwd_cores([c[k].contiguous() for c in cs],
+                                                 x[k].contiguous(), dy[k].contiguous())
+                assert all(torch.equal(g[k], a) for g, a in zip(got, alone)), (shapes, m, k)
+            assert all(not g[1].any() for g in got)
+            for g, r in zip(got, TMK.mpo_linear_bwd_cores_plain(cs, x, dy)):
+                r = r.float()
+                assert (g.float() - r).abs().max() <= tol * r.abs().max(), (shapes, m)
+            central = len(cs) // 2
+            some = TMK.mpo_linear_bwd_cores(cs, x, dy, [k != central for k in range(len(cs))])
+            assert some[central] is None
+            assert all(torch.equal(a, b) for k, (a, b) in enumerate(zip(some, got))
+                       if k != central)
+            monkeypatch.setattr(TMK, "BWD_STACK_SCRATCH", 2 * plan.workspace)
+            grouped = TMK.mpo_linear_bwd_cores(cs, x, dy)
+            monkeypatch.undo()
+            assert TMK.mpo_linear_bwd_cores.launch_sets == 2
+            assert TMK.mpo_linear_bwd_cores.workspace_bytes == 2 * plan.workspace
+            assert all(torch.equal(a, b) for a, b in zip(grouped, got)), (shapes, m)
+        dims = (ctypes.c_int * (4 * len(shapes)))(*[d for s in shapes for d in s])
+        ws = TMK._bwd_lib().mpo_linear_bwd_workspace(dims, len(shapes), plan.split,
+                                                     plan.blocks // plan.cluster, e)
+        assert 4 * ws == e * plan.workspace

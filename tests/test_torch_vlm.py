@@ -124,12 +124,9 @@ def test_prefill_decode_and_greedy_tokens_match(pair, paged):
 
 def test_vlm_refusals(pair):
     """A vlm pool keeps the reference's refusal (its frontend needs more than
-    a token prompt at admission); conversion, fine-tuning and squeezing
-    come with the cores backward over stacks (item 7b)."""
+    a token prompt at admission).  Conversion, fine-tuning and squeezing
+    run (``tests/test_torch_vlm_lifecycle.py`` holds them against the
+    reference)."""
     _, ts = pair
     with pytest.raises(NotImplementedError, match="ServePool supports"):
         ts.serve_pool(2, 32)
-    for call in (lambda: ts.finetune(steps=1), lambda: ts.squeeze(max_iters=1),
-                 lambda: TSession.from_dense({}, ts.cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7b"):
-            call()
