@@ -166,8 +166,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    kernel); (a') the same model factorized, the tensor-core forward launched
    exactly as the engine's plans name it, matrix by matrix (mistral-nemo-12b
    and qwen3-14b at 4 layers); (b) float32 at
-   full width and 2 layers (gemma2-27b: one 4352-token prompt, past its
-   4096-token window; the others 2 x 128), 16 new tokens: greedy tokens
+   full width and 2 layers (gemma2-27b at 1, ``LLM_F32_DEPTH``: one
+   4352-token prompt, past its 4096-token window; the others 2 x 128), 16
+   new tokens: greedy tokens
    identical across the three runs of phase 4, every step's logits within
    ``f32_tol`` of the teacher-forced forward's on the same tokens, the
    forward kernels the float32 plans name (``csrc/mpo_linear.cu`` at
@@ -213,7 +214,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and bound; flash at llava-next-34b's geometry (KV 8, G 7, Dh 128), ragged,
    both dtypes; (b) the three smoke models in float32, every matmul in the
    kernel mode, on the card against the CPU; (c) llama4-maverick, bf16,
-   ``MOE_FACT_LAYERS`` layers, factorized, ``serve(8, 640, paged=True)``
+   ``LLAMA4_FACT_LAYERS`` layers, factorized, ``serve(8, 640, paged=True)``
    from 8 x 512 + 16: the forward launched exactly as the plans name it
    (three stacked launches a MoE layer a call), no plain call; float32 at 1
    layer, every decode step's logits against the teacher-forced forward's
@@ -227,8 +228,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``VirtualClock`` against serial generation; (e) llava-next-34b, bf16,
    8 x (1024 patches + 512 tokens) in ``serve(8, 1568, paged=True)``, cached
    at the depth its reckoned peak allows (``LLAVA_LAYERS``) and factorized
-   at ``MOE_FACT_LAYERS``; float32 at 2 layers from one prompt, three runs'
-   tokens identical.
+   at ``MOE_FACT_LAYERS``; float32 at 1 layer (``LLM_F32_DEPTH``) from one
+   prompt, three runs' tokens identical.
 13. moe_vlm_train — the moe and vlm families fine-tuned: (a) the MPO-linear
    cores backward over an expert stack in one call (one launch set, or one a
    group of experts where the stack's scratch would pass
@@ -257,10 +258,36 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``squeeze`` iteration with a 2-step re-tune (its event against the
    float64 recount, rho falling), the result served both ways under phase
    12 (e)'s gates.
-14. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+14. hybrid — zamba2-7b (81 Mamba2 blocks in 9 segments, each led by one of
+   2 shared attention blocks; weights drawn on the card): (a) its kernels
+   against their plain versions at its shapes: the MPO-linear forward at
+   in_proj (3584 -> 14576 = 16 x 911, M = 8 and 4096), out_proj and the
+   shared w_up (M = 4096), both dtypes, ``csrc/mpo_linear.cu`` at the
+   shared wq in float32 (M = 128; the bf16 plan refuses the attention
+   matrices), the cores backward at out_proj, w_up and w_down (M = 1024),
+   the SSD scan at 8 x 512 and its backward at 2 x 512 (112 heads of 64,
+   state 64), both dtypes, each plan's shared memory and scratch against the
+   CUDA source's; (b) the smoke model at 6 layers (shared block 0 used
+   twice) in float32, every matmul in the kernel mode, card against CPU:
+   prefill and decode logits, one train step's gradients, a 3-step loss
+   trajectory; (c) bf16 ``serve(8, 544)`` from 8 x 512, 16 new: all 81
+   layers with the weight cache (81 SSD-scan launches a prefill), then
+   factorized at ``HYB_FACT_LAYERS``, the forward launched exactly as the
+   plans name it, no plain call; float32 at ``HYB_F32_LAYERS`` from one
+   prompt: the cached and factorized runs' tokens identical, decode logits
+   against the teacher-forced forward; (d) ``finetune(mode="lfa",
+   seq_len=512, batch_size=2, steps=4)`` at ``HYB_TRAIN_LAYERS``: finite
+   losses, central cores unchanged, the reference's count, the cores
+   backward at out_proj, w_up and w_down once a use, the SSD backward once
+   a layer a step; a run preempted at step 2 and resumed bit for bit at
+   ``HYB_LIFE_LAYERS``; (e) at ``HYB_LIFE_LAYERS``: ``from_dense`` of an
+   exact tree made on the card, 2 LFA steps, one squeeze iteration against
+   its float64 recount, served both ways under (c)'s gates.
+15. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
    squeezed shapes' times are phase 6's records), the stacked forward, the
-   stacked cores backward and flash at llava's geometry beside them.
-15. last line: ``{"ok": true, "device": {...}}``.
+   stacked cores backward and flash at llava's geometry beside them, the
+   hybrid's cases with their launches on the hybrid paths.
+16. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -353,10 +380,14 @@ LLM_ARCHS = ("gemma2-27b", "mistral-nemo-12b", "nemotron-4-15b", "qwen3-14b")
 LLM_BATCH, LLM_PROMPT, LLM_MAX_LEN, LLM_NEW = 8, 512, 640, 16
 LLM_FACT_LAYERS = {"mistral-nemo-12b": 4, "qwen3-14b": 4}
 LLM_F32_LAYERS, LLM_F32_NEW, LLM_F32_CASE_M = 2, 16, 64
+# depth cuts of the float32 runs whose factorized prefill sends an FFN to the
+# CUDA-core forward: gemma2-27b's 4352 rows took 84.5 s at 2 layers, llava's
+# 1152 rows 39.1 s (phase 14's time came from these)
+LLM_F32_DEPTH = {"gemma2-27b": 1, "llava-next-34b": 1}
 LLM_F32_PROMPT, LLM_F32_SHORT = {"gemma2-27b": (1, 4352)}, (2, 128)
 # the moe and vlm families (phase 12), weights random from the seed at full
 # width, depth cut to fit the card (PERF.md section 4): llama4-maverick-400b-a17b
-# factorized at 4 of 48 layers (one layer's 3 x 128 expert matrices are 32.3
+# factorized at 2 of 48 layers (one layer's 3 x 128 expert matrices are 32.3
 # GB of bf16 W, 1.89 GB of f32 cores), float32 at 1 layer; phi3.5-moe-42b-a6.6b
 # from the weight cache at 24 of 32 layers (2.60 GB of bf16 W a layer) and
 # factorized at 4, a pool
@@ -368,6 +399,7 @@ LLM_F32_PROMPT, LLM_F32_SHORT = {"gemma2-27b": (1, 4352)}, (2, 128)
 MOE_ARCHS = ("llama4-maverick-400b-a17b", "phi3.5-moe-42b-a6.6b", "llava-next-34b")
 LLAMA4, PHI35, LLAVA = MOE_ARCHS
 MOE_FACT_LAYERS, PHI35_LAYERS, LLAVA_LAYERS, LLAMA4_F32_NEW = 4, 24, (60, 48), 8
+LLAMA4_FACT_LAYERS = 2       # its factorized decode takes ~0.8 s a layer a step
 MOE_PEAK_LIMIT, LLAVA_MAX_LEN, STACK_REPS = 78e9, 1568, 3
 MOE_POOL_SLOTS, MOE_POOL_MAX_LEN, MOE_POOL_REQUESTS, MOE_POOL_RPS = 8, 544, 32, 2.0
 MOE_POOL_VOCAB, MOE_F32_REQUESTS = 32064, 8        # phi3.5-moe's vocabulary before padding
@@ -396,6 +428,23 @@ MAMBA_LFA_COUNTS = (4_015_888, 6_018_832)        # trainable, total (reference's
 # sum, which the other order can move across a boundary -> one bf16 step at
 # the largest value, doubled
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# the hybrid family (phase 14): zamba2-7b at full width (81 layers in 9
+# segments of 9 Mamba2 blocks, 2 shared attention blocks), weights drawn on the
+# card from the seed.  bf16 serving from 8 prompts of 512 tokens, 16 new, at
+# all 81 layers with the weight cache (~13.5 GB of bf16 W beside ~17.3 GB of
+# f32 cores) and factorized at HYB_FACT_LAYERS (3 segments; the forward at
+# its in_proj and out_proj makes a full-depth factorized run several times
+# longer); float32 at HYB_F32_LAYERS (one segment) from one prompt of
+# HYB_F32_PROMPT tokens (its attention matrices take csrc/mpo_linear.cu);
+# LFA at HYB_TRAIN_LAYERS (3 segments: shared block 0 takes two uses) at 2 x
+# 512, preempted and resumed at HYB_LIFE_LAYERS (every save writes the f32
+# master weights and AdamW state: ~6 GB a save there, ~17 GB at 27 layers);
+# the lifecycle at HYB_LIFE_LAYERS
+HYBRID = "zamba2-7b"
+HYB_BATCH, HYB_PROMPT, HYB_MAX_LEN, HYB_NEW = 8, 512, 544, 16
+HYB_FACT_LAYERS, HYB_F32_LAYERS, HYB_F32_PROMPT, HYB_LIFE_LAYERS = 27, 9, 64, 9
+HYB_TRAIN_LAYERS, HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB_TRAIN_STEPS = 27, 2, 512, 4
+HYB_LFA_COUNTS = (1_444_506_784, 1_455_971_488)  # at 27 layers: trainable, total (reference's)
 PEAK_BYTES_S = 3.35e12                           # H100 SXM HBM3
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 non-tensor
 
@@ -546,7 +595,8 @@ def serve_plan(engine, params: dict, cfg, batch: int, prompt: int,
     step]})`` with the kernel ``mpo_linear`` routes each ``kernel`` plan to,
     an expert stack's launches counted again under ``kernel + "_stacked"``;
     a layer matrix runs once a layer (``num_layers`` times for the one
-    stored layer of ``share_layers``).  With ``weight_cache`` the matrices
+    stored layer of ``share_layers``), a hybrid's shared block once a
+    segment.  With ``weight_cache`` the matrices
     ``cache_weights`` contracts (decode plan ``cached`` at one token) run
     their dense W and are left out."""
     from repro_torch.core import squeeze as SQ
@@ -575,10 +625,13 @@ def serve_plan(engine, params: dict, cfg, batch: int, prompt: int,
         modes["/".join(path[:-1])] = use
         route = {"mma": "mpo_linear_fwd_mma", "cuda_core": "mpo_linear_fwd"}.get(
             MK.forward_kernel(shapes, dtype))
+        # a hybrid's shared blocks run once a segment that takes them
+        uses = (1 if head else cfg.num_layers // cfg.attn_every if path[0] == "shared_attn"
+                else cfg.num_layers)
         for k, ph in enumerate(("prefill", "decode")):
             if use[ph] == "kernel":
                 for key in (route, route + "_stacked") if "experts" in path else (route,):
-                    launches.setdefault(key, [0, 0])[k] += 1 if head else cfg.num_layers
+                    launches.setdefault(key, [0, 0])[k] += uses
     return modes, launches
 
 
@@ -653,7 +706,7 @@ def main() -> int:
     mma_lib = MK._mma_lib()
     kname = {"mma": "mpo_linear_fwd_mma", "cuda_core": "mpo_linear_fwd"}
 
-    def fwd_case(mname, cores32, m, dtype, phase="kernels", reps=10, tol=None):
+    def fwd_case(mname, cores32, m, dtype, phase="kernels", reps=10, tol=None, prev=True):
         """The MPO-linear forward through ``MK.mpo_linear`` against its plain
         version: the kernel ``MK.forward_kernel`` names for the shapes (the
         tensor-core kernel in both dtypes, ``csrc/mpo_linear.cu`` for narrow
@@ -666,7 +719,8 @@ def main() -> int:
         workspace E times a matrix's (the quarter-of-W gate per matrix),
         the library yardstick ``torch.matmul(x, reconstruct_stacked(cores))``.
         ``tol`` replaces ``TOL`` where more terms are summed than it was set
-        for; ``reps`` shortens the timing of a slow case."""
+        for; ``reps`` shortens the timing of a slow case; ``prev=False``
+        leaves out the CUDA-core yardstick where it would take seconds."""
         tdt = getattr(torch, dtype)
         cores = [c.to(tdt).contiguous() for c in cores32]
         stack = cores[0].shape[:-4]                  # (E,) for an expert stack, else ()
@@ -705,7 +759,7 @@ def main() -> int:
             extra.update(split=plan.split, bm=plan.bm, tc=plan.tc, splits=plan.splits,
                          smem_bytes=plan.smem, workspace_bytes=n * plan.workspace,
                          w_bf16_bytes=2 * n * i_dim * j_dim)
-            if dtype == "float32" and not stack and MK._launch_plan(shapes) is not None:
+            if prev and dtype == "float32" and not stack and MK._launch_plan(shapes) is not None:
                 # the CUDA-core kernel the float32 path ran before, as the yardstick
                 extra["prev_ms"] = timed(lambda: MK.mpo_linear_cuda_core(cores, shapes, j_dim,
                                                                           m, x), reps)
@@ -844,9 +898,12 @@ def main() -> int:
     msess = Session.init("mamba2-130m", smoke=False, seed=SEED)
     mcfg = msess.cfg
 
-    def ssd_case(bs, s, dtype):
+    def ssd_case(bs, s, dtype, geom=None, phase="kernels"):
+        """The SSD scan against its plain version at ``geom``'s heads, head
+        width, state and chunk (mamba2-130m's when None)."""
+        geom = geom or mcfg
         tdt = getattr(torch, dtype)
-        h, p, n = mcfg.ssm_heads, mcfg.ssm_head_dim, mcfg.ssm_state
+        h, p, n = geom.ssm_heads, geom.ssm_head_dim, geom.ssm_state
         x = torch.randn(bs, s, h, p, generator=gen).to(dev, tdt)
         # steps of ~0.02 (softplus(z - 4)): the state decays by ~e^-2.5 over
         # a chunk of 128, so the carry across chunks weighs in y
@@ -855,7 +912,7 @@ def main() -> int:
         b = (0.3 * torch.randn(bs, s, n, generator=gen)).to(dev, tdt)
         c = (0.3 * torch.randn(bs, s, n, generator=gen)).to(dev, tdt)
         d_skip = (1 + 0.1 * torch.randn(h, generator=gen)).to(dev)
-        args, chunk = (x, dt, a_log, b, c, d_skip), mcfg.ssm_chunk
+        args, chunk = (x, dt, a_log, b, c, d_skip), geom.ssm_chunk
         y, state = SSD.ssd_scan(*args, chunk)
         again, state_again = SSD.ssd_scan(*args, chunk)
         torch.cuda.synchronize()
@@ -923,7 +980,7 @@ def main() -> int:
                    bound_ms=1e3 * max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]),
                    bound_by="bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_OPS_S[dtype]
                    else "operations")
-        emit(phase="kernels", **rec)
+        emit(phase=phase, **rec)
         return rec
 
     ssd_lib = SSD._lib()
@@ -1034,11 +1091,10 @@ def main() -> int:
         per_decode = read_counts()
         n_dec = new_tokens - 1
         decode_step_ms[(arch, serve_kw.get("weight_cache", True))] = 1e3 * (t2 - t1) / n_dec
-        cache = handle.cache if isinstance(handle.cache, dict) else {"state": handle.cache}
+        cache = list(lightweight.leaves(handle.cache))     # a dict (nested: hybrid), a tensor
         finite = (bool(torch.isfinite(logits).all())
                   and all(bool(torch.isfinite(s).all()) for s in steps)
-                  and all(bool(torch.isfinite(t).all()) for t in cache.values()
-                          if t.is_floating_point()))
+                  and all(bool(torch.isfinite(t).all()) for t in cache if t.is_floating_point()))
         tokens = torch.cat(out, 1)
         wc = serve_kw.get("weight_cache", True)
         emit(phase="path", arch=arch, dtype=sess.cfg.dtype, **serve_kw, batch=batch,
@@ -1046,7 +1102,7 @@ def main() -> int:
              prefill_ms=1e3 * (t1 - t0), decode_ms_per_step=1e3 * (t2 - t1) / n_dec,
              tokens_per_s=batch * new_tokens / (t2 - t0),
              peak_mem_bytes=torch.cuda.max_memory_allocated(), mem_before_bytes=mem_before,
-             cache_bytes=sum(t.numel() * t.element_size() for t in cache.values()),
+             cache_bytes=sum(t.numel() * t.element_size() for t in cache),
              launches_per_prefill={k: per_prefill[k] for k in kernels},
              launches_per_decode_step={k: per_decode[k] / n_dec for k in kernels},
              plain_calls=sum(per_prefill[k] + per_decode[k] for k in plains),
@@ -1348,12 +1404,13 @@ def main() -> int:
     bwd_lib = MK._bwd_lib()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def bwd_case(mname, cores32, m, dtype, phase="train"):
+    def bwd_case(mname, cores32, m, dtype, phase="train", dw_gate=True):
         """The cores backward against its plain version: within ``TOL``, two
         launches bit-identical, a call with the central core skipped (what
         ``freeze_central_grads`` asks) giving the other cores the same bits;
         the plan's shared memory and workspace equal to the CUDA source's,
-        and the workspace below an f32 dW (these are bert-base matrices)."""
+        and (``dw_gate``: bert-base's matrices) the workspace below an f32
+        dW, which at bond 128 it passes (PERF.md, row 2E)."""
         tdt = getattr(torch, dtype)
         cores = [c.to(tdt).contiguous() for c in cores32]
         i_dim = math.prod(c.shape[1] for c in cores)
@@ -1391,7 +1448,7 @@ def main() -> int:
         if (smem_c, ws_c) != (plan.smem, plan.workspace):
             fail(f"mpo_linear_bwd_cores {mname} {dtype}: the plan's shared memory / workspace "
                  f"{plan.smem} / {plan.workspace} differ from the CUDA source's {smem_c} / {ws_c}")
-        if plan.workspace >= 4 * i_dim * j_dim:
+        if dw_gate and plan.workspace >= 4 * i_dim * j_dim:
             fail(f"mpo_linear_bwd_cores {mname} {dtype}: workspace {plan.workspace} B is not "
                  f"below an f32 dW's {4 * i_dim * j_dim} B")
         ds = cores[plan.split].shape[0]
@@ -2517,9 +2574,10 @@ def main() -> int:
         sess._serve.clear()
         del handle, sess
         torch.cuda.empty_cache()
-        # (b) float32, full width, LLM_F32_LAYERS layers: tokens of three runs,
-        # decode logits against the teacher-forced forward
-        c32 = dataclasses.replace(cfg, dtype="float32", num_layers=LLM_F32_LAYERS)
+        # (b) float32, full width, LLM_F32_LAYERS layers (LLM_F32_DEPTH's cut):
+        # tokens of three runs, decode logits against the teacher-forced forward
+        f32_layers = LLM_F32_DEPTH.get(arch, LLM_F32_LAYERS)
+        c32 = dataclasses.replace(cfg, dtype="float32", num_layers=f32_layers)
         s32 = Session.init(c32, seed=SEED)
         fb, fp = LLM_F32_PROMPT.get(arch, LLM_F32_SHORT)
         fprompts = lrng.integers(0, cfg.vocab_size, (fb, fp)).astype(np.int32)
@@ -2531,7 +2589,7 @@ def main() -> int:
         _, want = serve_plan(s32.engine, s32.params, c32, fb, fp, "float32")
         llm_gate(f"{arch} float32 runs", counts,
                  {k: v[0] + v[1] * (LLM_F32_NEW - 1) for k, v in want.items()})
-        if counts["flash_decode_attention"] != 2 * LLM_F32_LAYERS * (LLM_F32_NEW - 1):
+        if counts["flash_decode_attention"] != 2 * f32_layers * (LLM_F32_NEW - 1):
             fail(f"{arch} float32: {counts['flash_decode_attention']} flash launches in the two "
                  "paged runs")
         tree = s32.model.cache_weights(s32.params)
@@ -2541,10 +2599,10 @@ def main() -> int:
             tf = TR.logits_head(tree, hidden[:, fp - 1:], c32, phase="prefill").float().cpu()
         del tree, hidden
         terms = max(c32.d_ff, c32.d_model, c32.num_heads * c32.head_dim, fp + LLM_F32_NEW)
-        tol = f32_tol(terms, LLM_F32_LAYERS)
+        tol = f32_tol(terms, f32_layers)
         tscale = tf.abs().max().item()
         tdiff = {name: (lg - tf).abs().max().item() for name, (_, lg) in runs.items()}
-        emit(phase="llm", arch=arch, step="float32 parity", layers=LLM_F32_LAYERS, batch=fb,
+        emit(phase="llm", arch=arch, step="float32 parity", layers=f32_layers, batch=fb,
              prompt=fp, window=c32.local_window, new_tokens=LLM_F32_NEW, identical=True,
              min_top2_margin=margin, wall_s=wall,
              launches={k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd",
@@ -2556,7 +2614,7 @@ def main() -> int:
         for k, d in (("mpo_linear_fwd_mma", f32_mma), ("mpo_linear_fwd", cuda_core),
                      ("flash_decode_attention", f32_flash)):
             if counts[k]:
-                d[f"{arch} float32 {LLM_F32_LAYERS} layers (three runs)"] = counts[k]
+                d[f"{arch} float32 {f32_layers} layers (three runs)"] = counts[k]
         if arch == "gemma2-27b":
             # the CUDA-core forward at gemma2's FFN, where the float32 prefill
             # sends it: w_down sums d_ff = 36864 terms an output
@@ -2573,15 +2631,17 @@ def main() -> int:
     ssd_bwd_lib = SSD._bwd_lib()
     grad_names = ("dx", "ddt", "da_log", "db", "dc", "dd_skip")
 
-    def ssd_bwd_case(bs, s, dtype, with_final, time_it):
+    def ssd_bwd_case(bs, s, dtype, with_final, time_it, geom=None, phase="ssm_train"):
         """The backward kernel against its plain version from the same
         forward scratch: every gradient within ``SSD_BWD_TOL`` of its
         largest magnitude (by the gradient's dtype), two calls bit-identical,
         the plan's shared memory and scratch equal to the CUDA source's; when
         ``time_it``, the call, each of its four launches alone and the plain
-        version timed, with the bound."""
+        version timed, with the bound; at ``geom``'s geometry (mamba2-130m's
+        when None)."""
+        geom = geom or mcfg
         tdt = getattr(torch, dtype)
-        h, p, n = mcfg.ssm_heads, mcfg.ssm_head_dim, mcfg.ssm_state
+        h, p, n = geom.ssm_heads, geom.ssm_head_dim, geom.ssm_state
         x = torch.randn(bs, s, h, p, generator=gen).to(dev, tdt)
         dt = torch.nn.functional.softplus(torch.randn(bs, s, h, generator=gen) - 4).to(dev)
         a_log = (0.5 * torch.randn(h, generator=gen)).to(dev)
@@ -2590,7 +2650,7 @@ def main() -> int:
         d_skip = (1 + 0.1 * torch.randn(h, generator=gen)).to(dev)
         dy = torch.randn(bs, s, h, p, generator=gen).to(dev, tdt)
         d_final = torch.randn(bs, h, n, p, generator=gen).to(dev) if with_final else None
-        args, chunk = (x, dt, a_log, b, c, d_skip), mcfg.ssm_chunk
+        args, chunk = (x, dt, a_log, b, c, d_skip), geom.ssm_chunk
         q = min(chunk, s)
         what = f"ssd_scan_bwd B={bs} S={s} {dtype} d_final={'random' if with_final else 'zero'}"
         fws = SSD._forward(*args, chunk)[2]
@@ -2652,7 +2712,7 @@ def main() -> int:
                        tc_bound_ms=(1e3 * max(nbytes / PEAK_BYTES_S,
                                               6 * ops / PEAK_OPS_S["bfloat16"])
                                     if dtype == "float32" else None))
-        emit(phase="ssm_train", **rec)
+        emit(phase=phase, **rec)
         return rec
 
     # (a) the kernel at the training shape (4 x 512), phase 2's cases
@@ -3004,11 +3064,11 @@ def main() -> int:
         rk["prefill_attention_bytes"] = 14 * batch * cfg.num_heads * prompt * prompt
         return rk, sum(rk.values())
 
-    # (c) llama4-maverick, bf16, full width, MOE_FACT_LAYERS layers, factorized:
+    # (c) llama4-maverick, bf16, full width, LLAMA4_FACT_LAYERS layers, factorized:
     # the stacked forward three launches a MoE layer a call
-    cfg4 = dataclasses.replace(l4cfg, num_layers=MOE_FACT_LAYERS)
+    cfg4 = dataclasses.replace(l4cfg, num_layers=LLAMA4_FACT_LAYERS)
     rk, total = moe_memory(cfg4, LLM_BATCH, LLM_MAX_LEN, LLM_PROMPT)
-    emit(phase="moe_vlm", arch=LLAMA4, step="memory", layers=MOE_FACT_LAYERS,
+    emit(phase="moe_vlm", arch=LLAMA4, step="memory", layers=LLAMA4_FACT_LAYERS,
          card_bytes=card_bytes, **rk, sum_bytes=total)
     lp = lrng.integers(0, l4cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)
     t0 = sync_clock()
@@ -3021,13 +3081,13 @@ def main() -> int:
         fail(f"{LLAMA4}: the expert matrices plan {experts}, not the kernel in prefill and "
              "decode")
     handle, per_prefill, per_decode, _ = serve_run(
-        sess, f"{LLAMA4} ({MOE_FACT_LAYERS} layers)", lp, LLM_MAX_LEN,
+        sess, f"{LLAMA4} ({LLAMA4_FACT_LAYERS} layers)", lp, LLM_MAX_LEN,
         ("mpo_linear_fwd_mma", "flash_decode_attention"), new_tokens=LLM_NEW, paged=True,
         weight_cache=False)
-    emit(phase="moe_vlm", arch=LLAMA4, step="factorized plans", layers=MOE_FACT_LAYERS,
+    emit(phase="moe_vlm", arch=LLAMA4, step="factorized plans", layers=LLAMA4_FACT_LAYERS,
          init_s=init_s, modes=modes,
          expert_rows={"prefill": moe_rows(l4cfg, LLM_PROMPT), "decode": moe_rows(l4cfg, 1)},
-         stacked_launches_per_call=len(experts) * MOE_FACT_LAYERS,
+         stacked_launches_per_call=len(experts) * LLAMA4_FACT_LAYERS,
          launches_planned={k: {"prefill": v[0], "decode_step": v[1]} for k, v in want.items()},
          workspace_bytes_last_call=MK.mpo_linear_mma.workspace_bytes)
     llm_gate(f"{LLAMA4} factorized prefill", per_prefill, {k: v[0] for k, v in want.items()})
@@ -3037,7 +3097,8 @@ def main() -> int:
     # the plans) and planned: 3 a MoE layer a call
     st = "mpo_linear_fwd_mma_stacked"
     moe_paths = {f"{LLAMA4} serve weight_cache=False":
-                 (per_prefill[st] + per_decode[st], len(experts) * MOE_FACT_LAYERS * LLM_NEW)}
+                 (per_prefill[st] + per_decode[st],
+                  len(experts) * LLAMA4_FACT_LAYERS * LLM_NEW)}
     sess._serve.clear()
     del handle, sess
     torch.cuda.empty_cache()
@@ -3229,7 +3290,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     # one prompt: the float32 prefill sends the FFN (7168 <-> 20480) to the
     # CUDA-core forward, ~6 s a launch at its 1152 rows
-    c32 = dataclasses.replace(vcfg, dtype="float32", num_layers=LLM_F32_LAYERS)
+    c32 = dataclasses.replace(vcfg, dtype="float32", num_layers=LLM_F32_DEPTH[LLAVA])
     s32 = Session.init(c32, seed=SEED)
     fb = 1
     fprompts = lrng.integers(0, c32.vocab_size, (fb, fp)).astype(np.int32)
@@ -3241,7 +3302,8 @@ def main() -> int:
     counts = read_counts()
     exact_launches(f"{LLAVA} float32 runs", counts, s32, fb, vcfg.frontend_len + fp, "float32",
                    [(False, LLM_F32_NEW - 1), (True, LLM_F32_NEW - 1), (True, LLM_F32_NEW - 1)])
-    emit(phase="moe_vlm", arch=LLAVA, step="float32 parity", layers=LLM_F32_LAYERS, batch=fb,
+    emit(phase="moe_vlm", arch=LLAVA, step="float32 parity", layers=LLM_F32_DEPTH[LLAVA],
+         batch=fb,
          prompt=fp, patches=vcfg.frontend_len, new_tokens=LLM_F32_NEW, runs=sorted(runs),
          identical=True, min_top2_margin=margin, wall_s=wall,
          launches={k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd",
@@ -3249,7 +3311,7 @@ def main() -> int:
     for k, d in (("mpo_linear_fwd_mma", f32_mma), ("mpo_linear_fwd", cuda_core),
                  ("flash_decode_attention", f32_flash)):
         if counts[k]:
-            d[f"{LLAVA} float32 {LLM_F32_LAYERS} layers (three runs)"] = counts[k]
+            d[f"{LLAVA} float32 {LLM_F32_DEPTH[LLAVA]} layers (three runs)"] = counts[k]
     del s32, runs
     torch.cuda.empty_cache()
     emit(phase="moe_vlm", s=time.perf_counter() - v_t0)
@@ -3646,7 +3708,410 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(phase="moe_vlm_train", s=time.perf_counter() - t_t0)
 
-    # ---- 14. the kernels line: one entry per kernel and dtype ----
+    # ---- 14. hybrid: zamba2-7b's Mamba2 segments and shared attention blocks ----
+    from repro_torch.models import zamba as ZB
+    z_t0 = time.perf_counter()
+    zcfg = configs.get_config(HYBRID)
+    hyb = {}                 # kernel -> {hybrid path: launches}, for the kernels line
+
+    def hyb_gate(path, counts, need):
+        """``ssm_gate``'s rule (each kernel of ``need`` launched, no plain
+        version, no CUDA-core forward), the launches kept apart too."""
+        ssm_gate(path, counts, need)
+        for k in ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores", "ssd_scan", "ssd_scan_bwd"):
+            if counts[k]:
+                hyb.setdefault(k, {})[path] = counts[k]
+
+    def hyb_counts():
+        """``ssm_counts`` with the stacked forward's counts (``llm_gate``
+        reads them)."""
+        return dict(read_counts(), **ssm_counts())
+
+    def hyb_train_bwd(sess, rows):
+        """{matrix: cores-backward calls a step} of the layer matrices the
+        bf16 train plan sends to the kernel: a Mamba2 layer's once, a shared
+        block's once a segment that takes it."""
+        cfg, out = sess.cfg, {}
+        for path, cd in SQ.find_mpo_layers(sess.params).items():
+            shapes = tuple(tuple(c.shape[-4:]) for c in cores_to_list(cd))
+            if path[0] == "embed":
+                continue                  # the tied head and the lookup: not trained as x @ W
+            if sess.engine.plan(shapes, rows, "train", "bfloat16", "cuda").mode == "kernel":
+                out["/".join(path[:-1])] = (cfg.num_layers // cfg.attn_every
+                                            if path[0] == "shared_attn" else cfg.num_layers)
+        return out
+
+    # (a) the kernels at zamba2-7b's shapes against their plain versions: one
+    # layer of a HYB_LIFE_LAYERS-layer model drawn on the card (also (e)'s
+    # source)
+    zsrc = Session.init(dataclasses.replace(zcfg, num_layers=HYB_LIFE_LAYERS), seed=SEED,
+                        init_device="cuda")
+    zm = {name: [c[0] for c in cores_to_list(_at(zsrc.params, path)["cores"])]
+          for name, path in (("in_proj", ("mamba", "in_proj")),
+                             ("out_proj", ("mamba", "out_proj")),
+                             ("w_up", ("shared_attn", "mlp", "w_up")),
+                             ("w_down", ("shared_attn", "mlp", "w_down")),
+                             ("wq", ("shared_attn", "attn", "wq")))}
+    # (in_proj's forward takes ~0.3 s a call at 8 x 512 rows in bf16: timed
+    # at 3 calls there)
+    zrows = HYB_BATCH * HYB_PROMPT
+    for dtype in ("bfloat16", "float32"):
+        for name, ms in (("in_proj", (8, zrows)), ("out_proj", (zrows,)), ("w_up", (zrows,))):
+            i_dim = math.prod(c.shape[1] for c in zm[name])
+            for m in ms:
+                results[("mpo", HYBRID, name, m, dtype)] = fwd_case(
+                    f"{HYBRID} {name}", zm[name], m, dtype, phase="hybrid", prev=False,
+                    reps=3 if m == zrows else 10,
+                    tol=f32_tol(i_dim) if dtype == "float32" else None)
+    # the float32 attention matrices' route (the bf16 plan refuses them)
+    results[("mpo", HYBRID, "wq", 128, "float32")] = fwd_case(
+        f"{HYBRID} wq", zm["wq"], 128, "float32", phase="hybrid", reps=3,
+        tol=f32_tol(zcfg.d_model))
+    ztok = HYB_TRAIN_BATCH * HYB_TRAIN_SEQ
+    for name in ("out_proj", "w_up", "w_down"):
+        for dtype in ("bfloat16", "float32") if name == "out_proj" else ("bfloat16",):
+            results[("bwd", HYBRID, name, dtype)] = bwd_case(
+                f"{HYBRID} {name}", zm[name], ztok, dtype, phase="hybrid", dw_gate=False)
+    for dtype in ("bfloat16", "float32"):
+        results[("ssd", HYBRID, dtype)] = ssd_case(HYB_BATCH, HYB_PROMPT, dtype, geom=zcfg,
+                                                   phase="hybrid")
+        results[("ssd_bwd", HYBRID, dtype)] = ssd_bwd_case(
+            HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, dtype, True, True, geom=zcfg, phase="hybrid")
+    del zm
+    torch.cuda.empty_cache()
+
+    # (b) the smoke model (6 layers: shared block 0 serves segments 0 and 2)
+    # in float32, every matmul in the kernel mode, on the card against the
+    # CPU: prefill and decode logits (the card fed the CPU's tokens), one
+    # train step's gradients of every leaf and a 3-step loss trajectory
+    zsmoke = kernel_mode(configs.smoke_config(HYBRID, num_layers=6))
+    zsp = np.random.default_rng(SEED + 6).integers(0, zsmoke.vocab_size, (4, 24))
+
+    def hyb_smoke(device, feed=None):
+        ss = Session.init(zsmoke, seed=SEED, device=device)
+        ssm_zero()
+        h = ss.serve(4, 40, weight_cache=False)
+        steps = [h.prefill({"tokens": zsp})[:, -1].float().cpu()]
+        toks = []
+        for k in range(4):
+            tok = (torch.argmax(steps[-1], -1)[:, None].to(torch.int32) if feed is None
+                   else feed[:, k:k + 1])
+            toks.append(tok)
+            steps.append(h.decode(tok)[1][:, -1].float().cpu())
+        serve_counts = ssm_counts()
+        ssm_zero()
+        seen = []
+        rec_opt = OPT.Optimizer(init=lambda p: OPT.OptState(0, None),
+                                update=lambda g, st, p: seen.append(g) or st)
+        step = TS.make_train_step(ss.model, rec_opt, ss._default_loss_fn())
+        batch = {k: torch.as_tensor(v).to(device)
+                 for k, v in ss._default_batch_fn(16, 4, SEED)(0).items()}
+        step(TS.TrainState(ss.params, rec_opt.init(ss.params)), batch)
+        grads = [g.detach().cpu() for g in lightweight.leaves(seen[0])]
+        hist = ss.finetune(steps=3, seq_len=16, batch_size=4, log_every=1)["history"]
+        if device == "cuda":
+            gate_routes(f"the float32 smoke {HYBRID} serving on the card", serve_counts,
+                        ss.params, train=False)
+            counts = ssm_counts()
+            got = gate_routes(f"the float32 smoke {HYBRID} train steps on the card", counts,
+                              ss.params, train=True, tied_head=True)
+            if (serve_counts["ssd_scan"] != ss.cfg.num_layers or not counts["ssd_scan_bwd"]
+                    or not counts["mpo_linear_bwd_cores"]
+                    or any(counts[k] for k in ssm_plains)):
+                fail(f"the float32 smoke {HYBRID} on the card: serving {serve_counts}, "
+                     f"train steps {counts}")
+            where = f"smoke {HYBRID} train (4 steps)"
+            for k, d in (("mpo_linear_fwd", cuda_core), ("mpo_linear_fwd_mma", f32_mma)):
+                if got[k]:
+                    d[where] = got[k]
+            f32_bwd[where] = counts["mpo_linear_bwd_cores"]
+            f32_ssd[where] = counts["ssd_scan"] + serve_counts["ssd_scan"]
+            f32_ssd_bwd[where] = counts["ssd_scan_bwd"]
+        return torch.stack(steps, 1), torch.cat(toks, 1), grads, [h["loss"] for h in hist]
+
+    cpu = hyb_smoke("cpu")
+    card = hyb_smoke("cuda", feed=cpu[1].to(dev))
+    ldiff = (card[0] - cpu[0]).abs().max().item()
+    lscale = cpu[0].abs().max().item()
+    gdiff = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(card[2], cpu[2]))
+    hdiff = max(abs(a - b) / abs(b) for a, b in zip(card[3], cpu[3]))
+    emit(phase="hybrid", smoke=HYBRID, layers=zsmoke.num_layers, mode="kernel", dtype="float32",
+         card_vs_cpu_logits_diff=ldiff, scale=lscale, tol=SMOKE_TOL, leaves=len(card[2]),
+         card_vs_cpu_grad_rel_diff=gdiff, card_vs_cpu_loss_rel_diff=hdiff,
+         losses_card=card[3], losses_cpu=cpu[3], train_tol=TRAIN_TOL)
+    if ldiff > SMOKE_TOL * lscale or not gdiff <= TRAIN_TOL or not hdiff <= TRAIN_TOL:
+        fail(f"smoke {HYBRID} on the card differs from the CPU: logits {ldiff} (scale "
+             f"{lscale}), grads {gdiff}, losses {card[3]} vs {cpu[3]}")
+    del card, cpu
+
+    # (c) full width, bf16: all 81 layers with the weight cache, then
+    # factorized at HYB_FACT_LAYERS; 81 SSD-scan launches a prefill
+    zprompts = np.random.default_rng(SEED + 5).integers(
+        0, zcfg.vocab_size, (HYB_BATCH, HYB_PROMPT)).astype(np.int32)
+
+    def hyb_serve(sess, what, wc):
+        handle, per_prefill, per_decode, logits = serve_run(
+            sess, what, zprompts, HYB_MAX_LEN, ("mpo_linear_fwd_mma", "ssd_scan"),
+            new_tokens=HYB_NEW, weight_cache=wc)
+        layers = sess.cfg.num_layers
+        if per_prefill["ssd_scan"] != layers or per_decode["ssd_scan"]:
+            fail(f"{what} weight_cache={wc}: {per_prefill['ssd_scan']} SSD-scan launches a "
+                 f"prefill (expected {layers}), {per_decode['ssd_scan']} in decode")
+        _, want = serve_plan(sess.engine, sess.params, sess.cfg, HYB_BATCH, HYB_PROMPT,
+                             "bfloat16", weight_cache=wc)
+        llm_gate(f"{what} weight_cache={wc} prefill", per_prefill,
+                 {k: v[0] for k, v in want.items()})
+        llm_gate(f"{what} weight_cache={wc} decode", per_decode,
+                 {k: v[1] * (HYB_NEW - 1) for k, v in want.items()})
+        counts = {k: per_prefill[k] + per_decode[k] for k in per_prefill}
+        for k in ("mpo_linear_fwd_mma", "ssd_scan"):
+            if counts[k]:
+                hyb.setdefault(k, {})[f"{what} serve weight_cache={wc}"] = counts[k]
+        cached = sum(_at(handle.params, p[:-1])["w"].numel() * 2
+                     for p in SQ.find_mpo_layers(sess.params) if "w" in _at(handle.params, p[:-1]))
+        return handle, logits, cached
+
+    del zsrc
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync_clock()
+    zs = Session.init(zcfg, seed=SEED, init_device="cuda")
+    z_init_s = sync_clock() - t0
+    z_init_peak = torch.cuda.max_memory_allocated()
+    master = sum(t.numel() * t.element_size() for t in lightweight.leaves(zs.params))
+    handle, _, cached = hyb_serve(zs, HYBRID, True)
+    emit(phase="hybrid", arch=HYBRID, step="weight cache", layers=zcfg.num_layers,
+         init_s=z_init_s, init_peak_bytes=z_init_peak, master_f32_bytes=master,
+         cache_weights_s=handle.init_seconds, cached_w_bytes=cached,
+         ssm_state_bytes=handle.cache["ssm"].numel() * 4,
+         kv_cache_bytes=2 * handle.cache["kv"]["k"].numel() * 2,
+         decode_ms_per_step=decode_step_ms[(HYBRID, True)])
+    zs._serve.clear()
+    del handle, zs
+    torch.cuda.empty_cache()
+    zf = Session.init(dataclasses.replace(zcfg, num_layers=HYB_FACT_LAYERS), seed=SEED,
+                      init_device="cuda")
+    fmodes, _ = serve_plan(zf.engine, zf.params, zf.cfg, HYB_BATCH, HYB_PROMPT, "bfloat16")
+    handle, _, _ = hyb_serve(zf, f"{HYBRID} ({HYB_FACT_LAYERS} layers)", False)
+    emit(phase="hybrid", arch=HYBRID, step="factorized plans", layers=HYB_FACT_LAYERS,
+         depth_cut=True, modes=fmodes)
+    zf._serve.clear()
+    del handle, zf
+    torch.cuda.empty_cache()
+
+    # float32 at HYB_F32_LAYERS layers from one prompt: the cached and the
+    # factorized runs' tokens identical, every decode step's logits within
+    # f32_tol of the teacher-forced forward's on the same tokens
+    z32cfg = dataclasses.replace(zcfg, dtype="float32", num_layers=HYB_F32_LAYERS)
+    z32 = Session.init(z32cfg, seed=SEED, init_device="cuda")
+    fprompt = np.random.default_rng(SEED + 7).integers(
+        0, zcfg.vocab_size, (1, HYB_F32_PROMPT)).astype(np.int32)
+    zruns, zwall = {}, {}
+    ssm_zero()
+    for name, wc in (("cached", True), ("factorized", False)):
+        t0 = sync_clock()
+        h = z32.serve(1, HYB_F32_PROMPT + HYB_NEW, weight_cache=wc)
+        lg = h.prefill({"tokens": fprompt})
+        steps = [lg[:, -1]]
+        tok = torch.argmax(lg[:, -1], -1)[:, None].to(torch.int32)
+        toks = [tok]
+        for _ in range(HYB_NEW - 1):
+            tok, lg = h.decode(tok)
+            toks.append(tok)
+            steps.append(lg[:, -1])
+        zruns[name] = (torch.cat(toks, 1).cpu(), torch.stack(steps, 1).float().cpu())
+        zwall[name] = sync_clock() - t0
+        z32._serve.clear()
+        del h
+    counts = hyb_counts()
+    _, want = serve_plan(z32.engine, z32.params, z32cfg, 1, HYB_F32_PROMPT, "float32")
+    want_all = {k: v[0] + v[1] * (HYB_NEW - 1) for k, v in want.items()}
+    _, want_c = serve_plan(z32.engine, z32.params, z32cfg, 1, HYB_F32_PROMPT, "float32",
+                           weight_cache=True)
+    for k, v in want_c.items():
+        want_all[k] = want_all.get(k, 0) + v[0] + v[1] * (HYB_NEW - 1)
+    llm_gate(f"{HYBRID} float32 runs", counts, want_all)
+    seq = torch.cat([torch.as_tensor(fprompt), zruns["cached"][0][:, :-1]], 1).to(dev)
+    tree = z32.model.cache_weights(z32.params)
+    with torch.no_grad():
+        hidden = ZB.forward_hidden(tree, {"tokens": seq}, z32cfg, phase="prefill")
+        tf = ZB.logits_head(tree, hidden[:, HYB_F32_PROMPT - 1:], z32cfg,
+                            phase="prefill").float().cpu()
+    del tree, hidden
+    terms = max(zcfg.d_ff, zcfg.d_inner, HYB_F32_PROMPT + HYB_NEW)
+    tol = f32_tol(terms, HYB_F32_LAYERS)
+    tscale = tf.abs().max().item()
+    tdiff = {name: (lg - tf).abs().max().item() for name, (_, lg) in zruns.items()}
+    same_tokens = torch.equal(zruns["cached"][0], zruns["factorized"][0])
+    top2 = zruns["cached"][1].topk(2, dim=-1).values
+    emit(phase="hybrid", arch=HYBRID, step="float32 parity", layers=HYB_F32_LAYERS,
+         prompt=HYB_F32_PROMPT, new_tokens=HYB_NEW, identical=same_tokens, wall_s=zwall,
+         min_top2_margin=(top2[..., 0] - top2[..., 1]).min().item(),
+         launches={k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd", "ssd_scan")},
+         launches_planned=want_all, teacher_forced_max_abs_diff=tdiff, scale=tscale,
+         summed_terms=terms, tol=tol)
+    if not same_tokens or not max(tdiff.values()) <= tol * tscale:
+        fail(f"{HYBRID} float32: tokens identical {same_tokens}, decode logits {tdiff} from "
+             f"the teacher-forced forward's (tol {tol} x {tscale})")
+    for k, d in (("mpo_linear_fwd_mma", f32_mma), ("mpo_linear_fwd", cuda_core),
+                 ("ssd_scan", f32_ssd)):
+        if counts[k]:
+            d[f"{HYBRID} float32 {HYB_F32_LAYERS} layers (two runs)"] = counts[k]
+    del z32, zruns
+    torch.cuda.empty_cache()
+
+    # (d) full width, bf16, HYB_TRAIN_LAYERS layers (3 segments: shared block
+    # 0 takes two uses): LFA at 2 x 512, then preempted and resumed
+    zt_cfg = dataclasses.replace(zcfg, num_layers=HYB_TRAIN_LAYERS)
+    zft = dict(mode="lfa", seq_len=HYB_TRAIN_SEQ, batch_size=HYB_TRAIN_BATCH, log_every=1)
+    zt = Session.init(zt_cfg, seed=SEED, init_device="cuda")
+    bwd_plan = hyb_train_bwd(zt, ztok)
+    central = {k: v.clone() for k, v in zt.model.state_dict().items() if k.endswith(".central")}
+    zt.finetune(steps=1, seed=SEED + 1, **zft)              # warm-up, not counted
+    ssm_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync_clock()
+    rep = zt.finetune(steps=HYB_TRAIN_STEPS, seed=SEED, **zft)
+    zt_s = sync_clock() - t0
+    counts = ssm_counts()
+    losses = [h["loss"] for h in rep["history"]]
+    unchanged = all(torch.equal(v, zt.model.state_dict()[k]) for k, v in central.items())
+    emit(phase="hybrid", step="finetune lfa", arch=HYBRID, layers=HYB_TRAIN_LAYERS,
+         dtype=zt_cfg.dtype, remat=zt_cfg.remat, batch=HYB_TRAIN_BATCH, seq_len=HYB_TRAIN_SEQ,
+         steps=HYB_TRAIN_STEPS, ms_per_step=1e3 * zt_s / HYB_TRAIN_STEPS,
+         tokens_per_s=ztok * HYB_TRAIN_STEPS / zt_s,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), losses=losses,
+         trainable=rep["trainable"], total=rep["total"], launches=counts,
+         launches_per_step={k: v / HYB_TRAIN_STEPS for k, v in counts.items()},
+         cores_bwd_planned_per_step=bwd_plan, central_cores=len(central),
+         central_unchanged=unchanged)
+    if len(losses) != HYB_TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"{HYBRID} fine-tuning: losses {losses}")
+    if not central or not unchanged:
+        fail(f"{HYBRID} fine-tuning: a central core changed under LFA")
+    if (rep["trainable"], rep["total"]) != HYB_LFA_COUNTS:
+        fail(f"{HYBRID} fine-tuning: {rep['trainable']} of {rep['total']} trainable, expected "
+             f"{HYB_LFA_COUNTS}")
+    if set(bwd_plan) != {"mamba/out_proj", "shared_attn/mlp/w_up", "shared_attn/mlp/w_down"}:
+        fail(f"{HYBRID} fine-tuning: the cores backward is planned at {bwd_plan}")
+    per_step = sum(bwd_plan.values())
+    if (counts["mpo_linear_bwd_cores"] != per_step * HYB_TRAIN_STEPS
+            or counts["ssd_scan_bwd"] != HYB_TRAIN_LAYERS * HYB_TRAIN_STEPS
+            or counts["ssd_scan"] != 2 * HYB_TRAIN_LAYERS * HYB_TRAIN_STEPS):
+        fail(f"{HYBRID} fine-tuning: launches {counts}; a step plans {per_step} cores-backward "
+             f"calls, {HYB_TRAIN_LAYERS} SSD backward and {2 * HYB_TRAIN_LAYERS} SSD forward "
+             "(remat)")
+    hyb_gate(f"{HYBRID} finetune lfa ({HYB_TRAIN_LAYERS} layers)", counts,
+             ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores", "ssd_scan", "ssd_scan_bwd"))
+    del zt, central
+    torch.cuda.empty_cache()
+    # a run preempted at step 2 and resumed, against one straight through, at
+    # HYB_LIFE_LAYERS layers (one segment)
+    zl_cfg = dataclasses.replace(zcfg, num_layers=HYB_LIFE_LAYERS)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_hybrid_"))
+    try:
+        a = Session.init(zl_cfg, seed=SEED, init_device="cuda")
+        a.finetune(steps=HYB_TRAIN_STEPS, ckpt_dir=str(tmp / "a"), seed=SEED, **zft)
+        pa = params_of(a)
+        del a
+        torch.cuda.empty_cache()
+        b = Session.init(zl_cfg, seed=SEED, init_device="cuda")
+        with FLT.fault_scope(FLT.FaultPlan(preempt_finetune_step=2)):
+            expect_raise(FLT.Preemption, lambda: b.finetune(
+                steps=HYB_TRAIN_STEPS, ckpt_dir=str(tmp / "b"), seed=SEED, **zft),
+                f"{HYBRID} preempted finetune")
+        drained = CKM.CheckpointManager(str(tmp / "b")).latest_step()
+        ssm_zero()
+        t0 = sync_clock()
+        b.finetune(steps=HYB_TRAIN_STEPS, ckpt_dir=str(tmp / "b"), seed=SEED, **zft)
+        resume_s = sync_clock() - t0
+        counts = ssm_counts()
+        with np.load(tmp / "a" / f"step_{HYB_TRAIN_STEPS}" / "arrays.npz") as za, \
+                np.load(tmp / "b" / f"step_{HYB_TRAIN_STEPS}" / "arrays.npz") as zb:
+            keys = sorted(za.files)
+            differ = [k for k in keys if not np.array_equal(za[k], zb[k])]
+            same_keys = keys == sorted(zb.files)
+        params_equal = same(pa, params_of(b))
+        emit(phase="hybrid", step="finetune resume", arch=HYBRID, layers=HYB_LIFE_LAYERS,
+             preempted_at=2,
+             latest_step_after_preemption=drained, resumed_s=resume_s, launches_resumed=counts,
+             arrays=len(keys), arrays_differing=differ, params_bit_identical=params_equal)
+        if drained != 2:
+            fail(f"{HYBRID} preempted finetune: latest step {drained}, expected 2")
+        if not same_keys or differ or not params_equal:
+            fail(f"{HYBRID} finetune resume: arrays differing {differ}, same keys {same_keys}, "
+                 f"params bit-identical {params_equal}")
+        if counts["ssd_scan_bwd"] != HYB_LIFE_LAYERS * (HYB_TRAIN_STEPS - 2):
+            fail(f"{HYBRID} finetune resume: {counts['ssd_scan_bwd']} SSD backward launches")
+        hyb_gate(f"{HYBRID} finetune resumed", counts, ("mpo_linear_bwd_cores", "ssd_scan_bwd"))
+        del b, pa
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (e) the lifecycle at HYB_LIFE_LAYERS layers: from_dense of an exact tree
+    # made on the card, 2 LFA steps, one squeeze iteration against its float64
+    # recount, the result served both ways under (c)'s gates
+    zsrc = Session.init(zl_cfg, seed=SEED, init_device="cuda")
+    zdense = exact_dense(zsrc.params)
+    del zsrc
+    torch.cuda.empty_cache()
+    t0 = sync_clock()
+    zl = Session.from_dense(zdense, zl_cfg)
+    conv_s = sync_clock() - t0
+    del zdense
+    torch.cuda.empty_cache()
+    rep = zl.report()
+    emit(phase="hybrid", step="from_dense exact", arch=HYBRID, layers=HYB_LIFE_LAYERS,
+         matrices=rep["stages"][-1]["matrices"], from_dense_s=conv_s,
+         conversion_rel_err=zl.conversion_report,
+         conversion_max_rel_err=rep["conversion_max_rel_err"], tol=EXACT_TOL)
+    if not rep["conversion_max_rel_err"] <= EXACT_TOL:
+        fail(f"{HYBRID} from_dense of an exact tree: error {rep['conversion_max_rel_err']}")
+    ssm_zero()
+    t0 = sync_clock()
+    rep = zl.finetune(steps=2, seed=SEED, **zft)
+    lt_s = sync_clock() - t0
+    counts = ssm_counts()
+    losses = [h["loss"] for h in rep["history"]]
+    emit(phase="hybrid", step="lifecycle finetune lfa", arch=HYBRID, layers=HYB_LIFE_LAYERS,
+         steps=2, ms_per_step=1e3 * lt_s / 2, losses=losses, launches=counts)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{HYBRID} lifecycle fine-tuning: losses {losses}")
+    hyb_gate(f"{HYBRID} lifecycle finetune lfa ({HYB_LIFE_LAYERS} layers)", counts,
+             ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores", "ssd_scan", "ssd_scan_bwd"))
+    pre = lightweight.tree_map(lambda t: t.detach().clone(), zl.params)
+    rho0 = SQ.model_compression_ratio(zl.params)
+    ssm_zero()
+    t0 = sync_clock()
+    evs = zl.squeeze(step=1, max_iters=1, finetune_steps=1, seq_len=HYB_TRAIN_SEQ,
+                     batch_size=HYB_TRAIN_BATCH, delta=1.0)
+    sq_s = sync_clock() - t0
+    counts = ssm_counts()
+    rho1 = SQ.model_compression_ratio(zl.params)
+    for ev in evs:
+        rc = check_event(ev, pre)
+        emit(phase="hybrid", step="squeeze iteration", arch=HYBRID,
+             layer="/".join(ev.layer[:-1]), bond=ev.bond, new_dim=ev.new_dim,
+             predicted_error=ev.predicted_error, metric=ev.metric, seconds=ev.seconds, **rc)
+    del pre
+    emit(phase="hybrid", step="squeeze", arch=HYBRID, s=sq_s, events=len(evs),
+         rho_before=rho0, rho_after=rho1, launches=counts)
+    if len(evs) != 1 or not rho1 < rho0:
+        fail(f"{HYBRID} squeeze: {len(evs)} events, rho {rho0} -> {rho1}")
+    hyb_gate(f"{HYBRID} squeeze (re-tune and evaluations)", counts,
+             ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores", "ssd_scan_bwd"))
+    for wc in (True, False):
+        handle, _, _ = hyb_serve(zl, f"{HYBRID} lifecycle ({HYB_LIFE_LAYERS} layers)", wc)
+        zl._serve.clear()
+        del handle
+    del zl
+    torch.cuda.empty_cache()
+    emit(phase="hybrid", s=time.perf_counter() - z_t0)
+
+    # ---- 15. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,
@@ -3768,6 +4233,55 @@ def main() -> int:
               "float32 (launches: the stacked calls of the smoke float32 train steps)",
               sum(f32_stacked_bwd.values()), launches_by_path=f32_stacked_bwd, stacked=True,
               launch_sets=sb32["launch_sets"]),
+    ]
+    mine = lambda d: {k: v for k, v in d.items() if HYBRID in k}
+    in_proj_j = zcfg.d_inner * 2 + 2 * zcfg.ssm_state + zcfg.ssm_heads
+    hname = f"{HYBRID} ({zcfg.d_model} -> {in_proj_j})"
+    ssd_geom = (f"H={zcfg.ssm_heads} P={zcfg.ssm_head_dim} N={zcfg.ssm_state}, chunk "
+                f"{zcfg.ssm_chunk}")
+    line += [
+        entry("mpo_linear_fwd_mma", "cuda", *fwd, results[("mpo", HYBRID, "in_proj", zrows,
+                                                          "bfloat16")],
+              f"{hname} in_proj, M={zrows} (a prefill of 8 x 512), bfloat16",
+              sum(hyb["mpo_linear_fwd_mma"].values()), launches_by_path=hyb["mpo_linear_fwd_mma"]),
+        entry("mpo_linear_fwd_mma", "cuda", *fwd, results[("mpo", HYBRID, "in_proj", zrows,
+                                                          "float32")],
+              f"{hname} in_proj, M={zrows}, float32 (launches: the float32 hybrid runs)",
+              sum(mine(f32_mma).values()), launches_by_path=mine(f32_mma)),
+        entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu", fwd[1],
+              results[("mpo", HYBRID, "wq", 128, "float32")],
+              f"{HYBRID} shared attention wq ({zcfg.d_model} -> {zcfg.d_model}: no bf16 route; "
+              "float32 takes the CUDA-core kernel), M=128, float32",
+              sum(mine(cuda_core).values()), launches_by_path=mine(cuda_core)),
+        entry("mpo_linear_bwd_cores", "cuda", *bwd, results[("bwd", HYBRID, "w_up", "bfloat16")],
+              f"{HYBRID} shared w_up ({zcfg.d_model} -> {zcfg.d_ff}), M={ztok} (2 x 512 "
+              "fine-tuning tokens), bfloat16", sum(hyb["mpo_linear_bwd_cores"].values()),
+              launches_by_path=hyb["mpo_linear_bwd_cores"], launches_per_call=MK.BWD_KERNELS),
+        entry("mpo_linear_bwd_cores", "cuda", *bwd, results[("bwd", HYBRID, "out_proj",
+                                                            "float32")],
+              f"{HYBRID} out_proj ({zcfg.d_inner} -> {zcfg.d_model}), M={ztok}, float32 "
+              "(launches: the smoke float32 train steps)", sum(mine(f32_bwd).values()),
+              launches_by_path=mine(f32_bwd), launches_per_call=MK.BWD_KERNELS),
+        entry("ssd_scan", "cuda", *ssd, results[("ssd", HYBRID, "bfloat16")],
+              f"{HYBRID} prefill: B={HYB_BATCH} S={HYB_PROMPT} {ssd_geom}, bfloat16",
+              sum(hyb["ssd_scan"].values()), launches_by_path=hyb["ssd_scan"],
+              launches_per_call=SSD.SSD_KERNELS,
+              launch_ms=results[("ssd", HYBRID, "bfloat16")]["launch_ms"]),
+        entry("ssd_scan", "cuda", *ssd, results[("ssd", HYBRID, "float32")],
+              f"{HYBRID} prefill: B={HYB_BATCH} S={HYB_PROMPT}, float32 (launches: the float32 "
+              "hybrid runs)", sum(mine(f32_ssd).values()), launches_by_path=mine(f32_ssd),
+              launches_per_call=SSD.SSD_KERNELS,
+              launch_ms=results[("ssd", HYBRID, "float32")]["launch_ms"]),
+        entry("ssd_scan_bwd", "cuda", *ssdb, results[("ssd_bwd", HYBRID, "bfloat16")],
+              f"{HYBRID} fine-tuning: B={HYB_TRAIN_BATCH} S={HYB_TRAIN_SEQ} {ssd_geom}, a "
+              "random final-state cotangent, bfloat16", sum(hyb["ssd_scan_bwd"].values()),
+              launches_by_path=hyb["ssd_scan_bwd"], launches_per_call=SSD.SSD_BWD_KERNELS,
+              launch_ms=results[("ssd_bwd", HYBRID, "bfloat16")]["launch_ms"]),
+        entry("ssd_scan_bwd", "cuda", *ssdb, results[("ssd_bwd", HYBRID, "float32")],
+              f"{HYBRID} fine-tuning: B={HYB_TRAIN_BATCH} S={HYB_TRAIN_SEQ}, float32 (launches: "
+              "the smoke float32 train steps)", sum(mine(f32_ssd_bwd).values()),
+              launches_by_path=mine(f32_ssd_bwd), launches_per_call=SSD.SSD_BWD_KERNELS,
+              launch_ms=results[("ssd_bwd", HYBRID, "float32")]["launch_ms"]),
     ]
     if any(e["launches"] == 0 for e in line):
         fail(f"a kernel of the paths never launched: {[(e['name'], e['dtype'], e['launches']) for e in line]}")

@@ -8,11 +8,12 @@ import importlib
 from repro_torch.configs.base import ModelConfig, scaled_down
 
 # arch id -> module name, under the reference's ids; the reference's
-# hybrid and encdec families come with ROADMAP.md, Queue 1 item 7b
+# encdec family comes with ROADMAP.md, Queue 1 item 7b
 ARCHS = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b_a66b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "llava-next-34b": "llava_next_34b",
+    "zamba2-7b": "zamba2_7b",
     "gemma2-27b": "gemma2_27b",
     "nemotron-4-15b": "nemotron4_15b",
     "mistral-nemo-12b": "mistral_nemo_12b",

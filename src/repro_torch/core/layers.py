@@ -100,12 +100,11 @@ def init_linear(gen: torch.Generator, in_dim: int, out_dim: int, *,
                 cfg: MPOConfig, kind: str = "ffn", sharded_in: bool = False,
                 sharded_out: bool = False, scale: float | None = None,
                 dtype=torch.float32) -> dict:
-    """A (possibly MPO-factorized) ``in_dim -> out_dim`` matrix, drawn on
-    the CPU from ``gen``."""
+    """A (possibly MPO-factorized) ``in_dim -> out_dim`` matrix, drawn from
+    ``gen`` on its device."""
     if not cfg.enabled:
         std = scale if scale is not None else in_dim ** -0.5
-        return {"w": std * torch.randn(in_dim, out_dim, generator=gen,
-                                       dtype=dtype)}
+        return {"w": std * mpo.randn((in_dim, out_dim), gen, dtype)}
     spec = make_spec(cfg, in_dim, out_dim, kind, sharded_in, sharded_out)
     cores = mpo.init_cores(gen, spec, scale=scale, dtype=dtype)
     return {"cores": cores_from_list(cores)}

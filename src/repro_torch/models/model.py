@@ -1,6 +1,7 @@
 """``Model``: a model family as an ``nn.Module`` — the port of
 ``repro.models.model``.  ``build`` dispatches by family: ``dense``,
-``moe`` and ``vlm`` to ``models.transformer``, ``ssm`` to ``models.mamba``.
+``moe`` and ``vlm`` to ``models.transformer``, ``ssm`` to ``models.mamba``,
+``hybrid`` to ``models.zamba``.
 
 Parameters are registered under the reference's key paths
 (``embed.cores.c0``, ``layers.attn.wq.cores.central``, ``layers.ln1.scale``,
@@ -22,11 +23,12 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import engine_for
-from repro_torch.models import mamba, transformer
+from repro_torch.models import mamba, transformer, zamba
 
-# family -> module of its init / forward / serving functions; hybrid and
-# encdec come with ROADMAP.md, Queue 1 item 7b
-FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer, "ssm": mamba}
+# family -> module of its init / forward / serving functions; encdec comes
+# with ROADMAP.md, Queue 1 item 7b
+FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer, "ssm": mamba,
+            "hybrid": zamba}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -87,20 +89,22 @@ class _Tree(nn.Module):
 class Model(_Tree):
     """The model of ``cfg``'s family, weights drawn from ``seed`` on the
     CPU and placed on ``device`` (the card unless the caller asks for the
-    CPU).  ``model(batch)`` is the teacher-forced forward; serving goes
-    through ``init_cache`` / ``prefill`` / ``decode_step`` with an explicit
-    params tree (``tree()`` or its ``cache_weights`` snapshot)::
+    CPU).  ``init_device="cuda"`` draws them on the card instead: other
+    draws from the same seed, in a fraction of the time a full-width model
+    takes on the CPU.  ``model(batch)`` is the teacher-forced forward;
+    serving goes through ``init_cache`` / ``prefill`` / ``decode_step`` with
+    an explicit params tree (``tree()`` or its ``cache_weights`` snapshot)::
 
         model = build(cfg, seed=0, device="cpu")
         cache = model.init_cache(8, 64)
         logits, cache = model.prefill(model.tree(), {"tokens": ids}, cache)
     """
 
-    def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None, init_device="cpu"):
         mod = family_module(cfg)
-        gen = torch.Generator().manual_seed(seed)
-        params = mod.init(gen, cfg)
         dev = resolve_device(device)
+        gen = torch.Generator(device=resolve_device(init_device)).manual_seed(seed)
+        params = mod.init(gen, cfg)
         super().__init__(_to(params, dev))
         self.cfg = cfg
         self.device = dev
@@ -120,8 +124,9 @@ class Model(_Tree):
     def init_cache(self, batch: int, max_len: int, **kw):
         """The serving cache: the KV cache (a dict; ``paged=True`` pages it)
         for the transformer families, the ``(L, B, H, N, P)`` f32 state
-        tensor for ``ssm``, which has no KV sequence to page (``paged=True``
-        raises)."""
+        tensor for ``ssm``, and for ``hybrid`` a dict of both (``kv``: one
+        dense cache a segment, ``ssm``: the states); neither of the last two
+        pages (``paged=True`` raises)."""
         return self.mod.init_cache(self.cfg, batch, max_len, device=self.device, **kw)
 
     def reset_cache(self, cache):
@@ -140,7 +145,8 @@ class Model(_Tree):
         """Incremental prefill, ``(params, batch, cache, phase="prefill") ->
         (all-position logits, cache)``: one chunk at the cache's current
         offset (``transformer.prefill_chunk``).  ``None`` for the ``ssm``
-        family, whose state has no KV sequence to continue."""
+        and ``hybrid`` families, whose states have no KV sequence to
+        continue (the reference has none for either)."""
         fn = getattr(self.mod, "prefill_chunk", None)
         if fn is None:
             return None
@@ -196,8 +202,8 @@ def _to(tree: dict, device) -> dict:
 
 
 def family_module(cfg: ModelConfig):
-    """The module of ``cfg``'s family; the families not yet ported raise
-    naming their ROADMAP.md item."""
+    """The module of ``cfg``'s family; ``encdec``, not yet ported, raises
+    naming its ROADMAP.md item."""
     mod = FAMILIES.get(cfg.family)
     if mod is None:
         raise NotImplementedError(
@@ -205,7 +211,7 @@ def family_module(cfg: ModelConfig):
     return mod
 
 
-def build(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
-    """The model for ``cfg``: the ``dense``, ``moe``, ``vlm`` and ``ssm``
-    families (``hybrid`` and ``encdec`` raise, ROADMAP.md Queue 1 item 7b)."""
-    return Model(cfg, seed=seed, device=device)
+def build(cfg: ModelConfig, *, seed: int = 0, device=None, init_device="cpu") -> Model:
+    """The model for ``cfg``: the ``dense``, ``moe``, ``vlm``, ``ssm`` and
+    ``hybrid`` families (``encdec`` raises, ROADMAP.md Queue 1 item 7b)."""
+    return Model(cfg, seed=seed, device=device, init_device=init_device)

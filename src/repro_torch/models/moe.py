@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.layers import MPOConfig
+from repro_torch.core.mpo import randn
 from repro_torch.models import nn
 
 
@@ -23,7 +24,7 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int, num_experts: int,
              act: str, mpo: MPOConfig) -> dict:
     """``{"router": {"w": (D, E) f32}, "experts": init_mlp stacked on E}``
     under the reference's key paths."""
-    router = {"w": (d_model ** -0.5) * torch.randn(d_model, num_experts, generator=gen)}
+    router = {"w": (d_model ** -0.5) * randn((d_model, num_experts), gen)}
     experts = nn.stack_layers(lambda g: nn.init_mlp(g, d_model, d_ff, act, mpo), gen,
                               num_experts)
     return {"router": router, "experts": experts}

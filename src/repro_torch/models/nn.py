@@ -1,7 +1,8 @@
 """Shared neural building blocks — the port of ``repro.models.nn``.
 
-Init functions return nested dicts of tensors drawn on the CPU from a
-``torch.Generator``; apply functions are plain functions on tensors.
+Init functions return nested dicts of tensors drawn from a
+``torch.Generator`` (on its device: the CPU's unless the caller draws on the
+card); apply functions are plain functions on tensors.
 
 The KV caches are updated IN PLACE (the reference returns new arrays): a
 cache is a dict of tensors, and each append writes its K/V rows, page-table
@@ -322,9 +323,10 @@ def apply_attention(params, x, cfg: AttnCfg, mpo: MPOConfig, *, positions, mask,
     """Returns (y, cache).
 
     ``cache``: one layer's dense ring buffer ``dict(k, v, pos)`` with per-slot
-    positions, or its paged form (k_pages / v_pages / page_table / free_list
-    / free_count / pos, see ``transformer.init_cache(paged=True)``); either
-    is updated in place.  ``phase`` feeds the engine's per-matrix planning.
+    positions (``pos`` (B,)) or one position for every row (``pos`` 0-d, a
+    hybrid segment's), or its paged form (k_pages / v_pages / page_table /
+    free_list / free_count / pos, see ``transformer.init_cache(paged=True)``);
+    either is updated in place.  ``phase`` feeds the engine's per-matrix planning.
     ``chunk=True`` marks a multi-token prefill CHUNK continuing at the
     cache's current position (``transformer.prefill_chunk``): the caller
     gives offset positions and mask; the dense cache already appends a
@@ -346,7 +348,8 @@ def apply_attention(params, x, cfg: AttnCfg, mpo: MPOConfig, *, positions, mask,
     if cache is not None:
         kc, vc, idx = cache["k"], cache["v"], cache["pos"]
         max_len = kc.shape[1]
-        if s == 1:
+        per_slot = idx.dim() >= 1
+        if per_slot and s == 1:
             # one row per slot at its own position; a slot past max_len
             # writes nothing
             rows = torch.arange(b, device=x.device) * max_len + idx
@@ -354,11 +357,15 @@ def apply_attention(params, x, cfg: AttnCfg, mpo: MPOConfig, *, positions, mask,
                 _scatter_rows(c.view(b * max_len, *c.shape[2:]), rows, new[:, 0],
                               idx < max_len)
         else:
-            # every row starts at row 0's offset, clamped so the slice fits
-            # (the reference's dynamic_update_slice)
+            # a prefill (every row at row 0's offset) or a cache with one
+            # scalar position (the hybrid family's): one slice, its start
+            # clamped so that it fits, as the reference's
+            # dynamic_update_slice clamps it (a write past the end
+            # overwrites the last rows)
             if s > max_len:
                 raise ValueError(f"prompt of {s} tokens exceeds the cache's {max_len}")
-            at = torch.clamp(idx[0], 0, max_len - s) + torch.arange(s, device=x.device)
+            start = idx[0] if per_slot else idx
+            at = torch.clamp(start, 0, max_len - s) + torch.arange(s, device=x.device)
             kc.index_copy_(1, at, k.to(kc.dtype))
             vc.index_copy_(1, at, v.to(vc.dtype))
         idx.add_(s)

@@ -189,18 +189,21 @@ class Session:
 
     @classmethod
     def init(cls, cfg: ModelConfig | str, *, seed: int = 0, smoke: bool = True,
-             device=None, **overrides) -> "Session":
+             device=None, init_device="cpu", **overrides) -> "Session":
         """Fresh MPO-parameterized model on ``device`` (the card when None;
-        raises if there is none).  ``cfg`` may be a ``ModelConfig`` or an arch
-        name (``smoke=True`` scales it down to the CPU-sized config the tests
-        use); ``overrides`` replace config fields either way."""
+        raises if there is none), its weights drawn on ``init_device`` (the
+        CPU: the same weights on every device; ``"cuda"`` draws a full-width
+        model on the card, other weights from the same seed).  ``cfg`` may be
+        a ``ModelConfig`` or an arch name (``smoke=True`` scales it down to
+        the CPU-sized config the tests use); ``overrides`` replace config
+        fields either way."""
         if isinstance(cfg, str):
             cfg = (configs.smoke_config(cfg, **overrides) if smoke
                    else configs.get_config(cfg, **overrides))
         elif overrides:
             cfg = dataclasses.replace(cfg, **overrides)
         t0 = time.perf_counter()
-        model = M.build(cfg, seed=seed, device=device)
+        model = M.build(cfg, seed=seed, device=device, init_device=init_device)
         s = cls(cfg, model)
         s._record("init", t0, {"params": lightweight.count_params(s.params)})
         return s
@@ -218,7 +221,7 @@ class Session:
         replaced."""
         _refuse_expert_stacks(cfg, "Session.from_dense", convert.EXPERT_STACKS)
         t0 = time.perf_counter()
-        model = M.build(cfg, device=device)
+        model = M.build(cfg, device=device, init_device=device)   # a template: drawn in place
         dense = lightweight.tree_map(lambda t: carry.to_tensor(t).to(model.device),
                                      dense_params)
         with torch.no_grad():

@@ -49,7 +49,7 @@ def lm_loss(model: Model, params, batch):
     if model.mod is transformer:
         hidden, aux = model.mod.forward_hidden(params, batch, cfg, phase="train",
                                                with_aux=True)
-    else:                                             # ssm: no aux loss
+    else:                                             # ssm, hybrid: no aux loss
         hidden = model.mod.forward_hidden(params, batch, cfg, phase="train")
         aux = torch.zeros((), device=hidden.device)
     labels = batch["labels"]

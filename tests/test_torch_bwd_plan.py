@@ -29,6 +29,8 @@ from repro.kernels.ref import mpo_linear_ref
 from repro_torch import configs
 from repro_torch.kernels import mpo_linear as TMK
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 TOL = 2e-5
 SMS = (132, 114, 8)
 

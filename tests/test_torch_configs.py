@@ -33,6 +33,8 @@ from repro_torch.models import model as TModel
 from repro_torch.models import transformer as TT
 from repro_torch.pipeline import cli
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 TOL = 1e-4
 
 

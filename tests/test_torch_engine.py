@@ -29,8 +29,11 @@ from repro_torch.core.carry import load_jax_params
 from repro_torch.kernels import mpo_linear as TMK
 from repro_torch.models import model as TModel
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCHS = ("bert-base", "qwen3-14b")
 MOE_VLM = ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b", "llava-next-34b")
+HYBRID = "zamba2-7b"
 
 
 def _matrix_shapes(cfg_mod, arch, smoke):
@@ -43,13 +46,18 @@ def _matrix_shapes(cfg_mod, arch, smoke):
     out["embed_T"] = [(a, j, i, b) for a, i, j, b in out["embed"]]
     if "lm_head" in params:
         out["lm_head"] = [c.shape for c in JL.cores_to_list(params["lm_head"]["cores"])]
-    for grp in ("attn", "mlp"):
-        for name, lin in params["layers"].get(grp, {}).items():
-            if "cores" in lin:
-                out[name] = [c.shape[1:] for c in JL.cores_to_list(lin["cores"])]
+    # a stack's matrices (the layers; the hybrid's Mamba2 blocks and its
+    # shared attention blocks), one layer's shapes
+    blocks = [params[k] for k in ("layers", "shared_attn") if k in params]
+    blocks += [{"mamba": params["mamba"]}] if "mamba" in params else []
+    for block in blocks:
+        for grp in ("attn", "mlp", "mamba"):
+            for name, lin in block.get(grp, {}).items():
+                if isinstance(lin, dict) and "cores" in lin:
+                    out[name] = [c.shape[1:] for c in JL.cores_to_list(lin["cores"])]
     # a MoE layer's expert matrices, one expert's shapes (as the reference's
     # vmap over the experts shows them to its engine)
-    for name, lin in params["layers"].get("moe", {}).get("experts", {}).items():
+    for name, lin in params.get("layers", {}).get("moe", {}).get("experts", {}).items():
         out[f"experts/{name}"] = [c.shape[2:] for c in JL.cores_to_list(lin["cores"])]
     return out
 
@@ -58,7 +66,7 @@ def _jcfg(tcfg):
     return JL.MPOConfig(**dataclasses.asdict(tcfg))
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_VLM)
+@pytest.mark.parametrize("arch", ARCHS + MOE_VLM + (HYBRID,))
 @pytest.mark.parametrize("smoke", [True, False])
 def test_cpu_plans_equal_reference_interpret(arch, smoke):
     tcfg = (tconfigs.smoke_config(arch) if smoke else tconfigs.get_config(arch)).mpo
@@ -171,6 +179,64 @@ def test_queue3_h_matrices_are_the_pinned_exception():
                               dtype="bfloat16")[0] == "reconstruct"
         assert TE.choose_mode(tcfg, sh, tokens, "prefill", device="cuda",
                               dtype="bfloat16")[0] == "kernel"
+
+
+# zamba2-7b's bf16 plans on the card against the reference's compiled ones,
+# every difference by matrix, rows and phase, as (reference, port):
+# - in_proj (3584 -> 14576 = 16 x 911): J is no multiple of the TPU's 128
+#   lanes, so the reference's kernel refuses it at prefill (and in a
+#   factorized decode, re-planned as a prefill); the port's bf16 forward
+#   takes it (Queue 3 H, as phi3.5-moe's experts);
+# - out_proj, w_up and w_down in training: the reference's backward does
+#   not fit its VMEM budget at bond 128 (``kernel_fits(backward=True)``);
+#   the port's cores backward keeps its scratch in device memory;
+# - wo at a prefill of 1024 rows or more: the reference's kernel takes it,
+#   the port's bf16 plan refuses it (split at bond 3, R and P take 3.28 MB
+#   against ``_mma_split``'s cap of an eighth of the 25.7 MB bf16 W, 3.21 MB:
+#   2% over; at bond 2 its shared memory would be 1.09 MB) and rebuilds W;
+#   wq, wk and wv the reference refuses too, so both rebuild.
+HYBRID_H = {("in_proj", "prefill"): ("reconstruct", "kernel", (8, 1024, 4096)),
+            ("in_proj", "decode"): ("reconstruct", "kernel", (8, 1024, 4096)),
+            ("out_proj", "train"): ("reconstruct", "kernel", (1024, 4096)),
+            ("w_down", "train"): ("reconstruct", "kernel", (1024, 4096)),
+            ("w_up", "train"): ("reconstruct", "kernel", (8, 1024, 4096)),
+            ("wo", "prefill"): ("kernel", "reconstruct", (1024, 4096)),
+            ("wo", "decode"): ("kernel", "reconstruct", (1024, 4096))}
+
+
+def test_cuda_kernel_decisions_for_zamba2_7b_pin_every_difference():
+    """Every factorized matrix of zamba2-7b (the Mamba2 blocks' in_proj and
+    out_proj, the shared blocks' attention and MLP, the embedding and its
+    transpose), bf16, at 8, 1024 and 4096 rows in every phase: the port's
+    decision equals the reference's compiled one except at ``HYBRID_H``'s
+    named cases, each in its direction."""
+    tcfg = tconfigs.get_config(HYBRID).mpo
+    jcfg = _jcfg(tcfg)
+    shapes = _matrix_shapes(jconfigs, HYBRID, False)
+    assert set(shapes) == {"embed", "embed_T", "in_proj", "out_proj", "wq", "wk", "wv", "wo",
+                           "w_up", "w_down"}
+    seen = {}
+    for name, sh in shapes.items():
+        for tokens in (8, 1024, 4096):
+            for phase in ("train", "prefill", "decode"):
+                jm = _effective(JE.choose_mode, jcfg, sh, tokens, phase, interpret=False,
+                                dtype="bfloat16")
+                tm = _effective(TE.choose_mode, tcfg, sh, tokens, phase, device="cuda",
+                                dtype="bfloat16")
+                if jm != tm:
+                    seen.setdefault((name, phase), []).append((jm, tm, tokens))
+    got = {k: (v[0][0], v[0][1], tuple(t for _, _, t in v)) for k, v in seen.items()}
+    assert all(len({(a, b) for a, b, _ in v}) == 1 for v in seen.values()), seen
+    assert got == HYBRID_H
+    # the reasons: the alignment of in_proj's J, the port's routes
+    assert TMK.forward_kernel(shapes["in_proj"], "bfloat16") == "mma"
+    assert not JMK.kernel_eligible(shapes["in_proj"], JE.DEFAULT_BLOCK_M)
+    for name in ("wq", "wk", "wv", "wo"):
+        assert TMK.forward_kernel(shapes[name], "bfloat16") is None, name
+        assert TMK.forward_kernel(shapes[name], "float32") == "cuda_core", name
+    assert JMK.kernel_eligible(shapes["wo"], JE.DEFAULT_BLOCK_M)
+    assert not any(JMK.kernel_eligible(shapes[n], JE.DEFAULT_BLOCK_M, train=True)
+                   for n in ("out_proj", "w_up", "w_down"))
 
 
 def test_forced_mode_and_phase_validation():

@@ -38,6 +38,8 @@ from repro_torch.kernels import mpo_linear as TMK
 from repro_torch.kernels import ssd_scan as TSSD
 from repro_torch.models import model as TModel
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
 

@@ -2,7 +2,8 @@
 -> ``squeeze`` (Algorithm 2) -> ``serve`` — held against the JAX package's
 ``Session`` on smoke bert-base (cls) and smoke qwen3-14b (lm), from the
 reference's own dense tree carried through numpy (the roundtrip of
-``tests/test_pipeline.py``), squeezing without a re-tune and, on bert-base,
+``tests/test_pipeline.py``; the reference's init and Algorithm 1 jitted, once
+for each arch), squeezing without a re-tune and, on bert-base,
 with the LFA re-tune of every iteration; the re-tune alone on one tree;
 ``Model.set_tree`` and the entry points that wait for later items.
 
@@ -41,6 +42,7 @@ Tolerances (float32, two frameworks' LAPACK calls):
   step whose reference top-2 margin is within twice that gap."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +52,8 @@ import torch
 
 from repro import Session as JSession
 from repro import configs as jconfigs
+from repro.core import convert as JC
+from repro.core import layers as JL
 from repro.core import squeeze as JSQ
 from repro.core.engine import _reconstruct_stacked
 from repro.core.layers import cores_to_list as j_cores_to_list
@@ -64,6 +68,8 @@ from repro_torch.kernels import ssd_scan as TSSD
 from repro_torch.models import model as TModel
 from repro_torch.resilience.journal import SqueezeJournal
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 # (arch, LFA re-tune steps a squeeze iteration)
 CASES = (("bert-base", 0), ("qwen3-14b", 0), ("bert-base", 2), ("albert-base", 0),
          ("albert-base", 2))
@@ -75,6 +81,30 @@ REC_TUNED_TOL, UPDATE_TOL = 5e-3, 5e-2
 
 def _dense_cfg(cfg):
     return dataclasses.replace(cfg, mpo=dataclasses.replace(cfg.mpo, enabled=False))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_conversion(arch):
+    """The reference's smoke dense tree (``PRNGKey(0)``), its Algorithm 1
+    conversion and per-matrix error report (``Session.from_dense``'s three
+    steps), the first two jitted, made once a module for each arch: the
+    eager init and conversion cost ~14 s a call on a CPU."""
+    jcfg = jconfigs.smoke_config(arch)
+    model = JModel.build(_dense_cfg(jcfg))
+    dense = jax.jit(lambda k: JL.split_annotations(model.init(k))[0])(jax.random.PRNGKey(0))
+    template, _ = JL.split_annotations(jax.eval_shape(JModel.build(jcfg).init,
+                                                      jax.random.PRNGKey(0)))
+    conv = jax.jit(lambda d: JC.convert_dense_to_mpo(d, template))(dense)
+    return dense, conv, JC.conversion_error(dense, conv)
+
+
+def _reference_from_dense(arch):
+    """(a reference session at the ``from_dense`` stage of its own, the dense
+    tree) from ``_reference_conversion``."""
+    dense, conv, report = _reference_conversion(arch)
+    js = JSession(jconfigs.smoke_config(arch), conv)
+    js.stage, js.conversion_report = "from_dense", dict(report)
+    return js, dense
 
 
 def _max_rel(a, b) -> float:
@@ -99,10 +129,9 @@ def lifecycle(request):
     (with ``finetune_steps`` re-tune steps an iteration) and served; a
     pre-squeeze handle kept."""
     arch, steps = request.param
-    jcfg, tcfg = jconfigs.smoke_config(arch), tconfigs.smoke_config(arch)
-    dense, _ = JModel.build(_dense_cfg(jcfg)).init_params(jax.random.PRNGKey(0))
+    tcfg = tconfigs.smoke_config(arch)
+    js, dense = _reference_from_dense(arch)
     dense_np = jax.tree.map(np.asarray, dense)
-    js = JSession.from_dense(dense, jcfg)
     ts = TSession.from_dense(dense_np, tcfg, device="cpu")
     prompts = np.random.default_rng(0).integers(0, tcfg.vocab_size, (3, 7)).astype(np.int32)
     converted = {"port": ts.model({"tokens": torch.from_numpy(prompts)}).numpy(),
@@ -311,9 +340,8 @@ def test_retune_matches_reference_on_one_tree():
     the port: each trainable leaf moves as the reference's does within
     UPDATE_TOL of its update's norm; frozen leaves and the given tree keep
     their bits."""
-    jcfg, tcfg = jconfigs.smoke_config("bert-base"), tconfigs.smoke_config("bert-base")
-    dense, _ = JModel.build(_dense_cfg(jcfg)).init_params(jax.random.PRNGKey(0))
-    js = JSession.from_dense(dense, jcfg)
+    tcfg = tconfigs.smoke_config("bert-base")
+    js, _ = _reference_from_dense("bert-base")
     ts = TSession.init(tcfg, device="cpu")
     ts.model.set_tree(jax_tree_to_torch(jax.tree.map(np.asarray, js.params)))
     given = jax.tree.map(lambda t: t.detach().clone(), ts.params)

@@ -35,6 +35,8 @@ from repro_torch.models import mamba as TMB
 from repro_torch.models import model as TModel
 from repro_torch.models import nn as TNN
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCH = "mamba2-130m"
 TOL = 1e-4
 SSD_TOL = 2e-5

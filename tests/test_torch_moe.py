@@ -40,6 +40,8 @@ from repro_torch.kernels import mpo_linear as TMK
 from repro_torch.models import model as TModel
 from repro_torch.models import moe as TMOE
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCHS = ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b")
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 MODEL_TOL = 1e-4

@@ -60,6 +60,8 @@ from repro_torch.models import model as TModel
 from repro_torch.models import moe as TMOE
 from repro_torch.resilience import faults
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCHS = ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b")
 TOL = 2e-5
 METRIC_TOL = 2e-4

@@ -18,6 +18,8 @@ from repro.core import mpo as JM
 from repro_torch.core import layers as TL
 from repro_torch.core import mpo as TM
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 TOL = 1e-5
 
 SPECS = [((24, 36), 3, None), ((64, 96), 3, 8), ((64, 64), 5, 8),

@@ -27,6 +27,8 @@ from repro.core import mpo as JM
 from repro_torch.core import convert as TC
 from repro_torch.core import mpo as TM
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 TOL = 1e-5
 TRUNC_TOL = 1e-4
 HELPER_TOL = 1e-6

@@ -34,6 +34,8 @@ from repro_torch.kernels import mpo_linear as TMK
 from repro_torch.models import mamba as TMB
 from repro_torch.models import model as TModel
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 
 @pytest.fixture
 def cuda():

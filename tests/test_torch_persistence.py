@@ -38,6 +38,8 @@ from repro_torch.core.lightweight import leaves
 from repro_torch.resilience import faults
 from repro_torch.resilience.journal import SqueezeJournal
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 SEQ, BATCH = 16, 4
 SERVE_TOL, METRIC_TOL = 5e-4, 1e-4
 SQUEEZE_KW = dict(delta=100.0, max_iters=3, seq_len=SEQ, batch_size=BATCH)

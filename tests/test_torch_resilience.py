@@ -35,6 +35,8 @@ from repro_torch.resilience.journal import SqueezeJournal, event_from_json, even
 from repro_torch.resilience.state import atomic_write_json
 from repro_torch.train.steps import TrainState
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 SPECS = ["preempt-finetune:3", "preempt-squeeze:2", "crash-ckpt:mid_write",
          "crash-ckpt:pre_latest:5", "io:ckpt:3", "nan-decode:1", "nan-decode:1:0",
          "deny-pages:2", "flash-raise", "expire-admit:2", "kill-pool:1:40",

@@ -43,6 +43,8 @@ from repro_torch.pipeline import session as tsession
 from repro_torch.pipeline import traffic
 from repro_torch.resilience import faults
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCH = "qwen3-14b"
 MAX_LEN, PAGE = 32, 8
 POOL_KW = dict(paged=True, page_size=PAGE)

@@ -8,6 +8,8 @@ import torch
 from repro_torch import Session, configs
 from repro_torch.core import lightweight
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 
 @pytest.mark.parametrize("arch,kw", [
     ("bert-base", dict(paged=True)), ("bert-base", dict(paged=False)),

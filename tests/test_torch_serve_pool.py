@@ -42,6 +42,8 @@ from repro_torch.pipeline.clock import VirtualClock
 from repro_torch.pipeline.scheduler import FailReason, ServePool
 from repro_torch.resilience import faults
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCH = "qwen3-14b"
 MAX_LEN, PAGE = 32, 8
 PAGED = dict(paged=True, page_size=PAGE)

@@ -23,6 +23,8 @@ from repro_torch.core import layers as TL
 from repro_torch.core import mpo as TM
 from repro_torch.core import squeeze as TSQ
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 TOL = 1e-5
 GAP = 1e-3
 LAYERS = 3

@@ -32,6 +32,8 @@ from repro_torch.core import lightweight as TLW
 from repro_torch.kernels import ssd_scan as TSSD
 from repro_torch.models import mamba as TMB
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 H, P, N, CHUNK = 8, 16, 16, 16           # the smoke mamba2-130m's SSD geometry
 TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 NAMES = ("x", "dt", "a_log", "b", "c", "d_skip")

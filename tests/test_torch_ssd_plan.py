@@ -26,6 +26,8 @@ from repro.kernels.ssd_scan import ssd_scan as j_ssd_scan
 from repro.models.mamba import ssd_chunked as j_ssd_chunked
 from repro_torch.kernels import ssd_scan as TSSD
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}     # chip_smoke.py's TOL
 STATE_TOL = 1e-4                                    # chip_smoke.py's STATE_TOL
 

@@ -34,6 +34,8 @@ from repro_torch.models import model as TModel
 from repro_torch.pipeline import cli, traffic
 from repro_torch.pipeline.clock import VirtualClock
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCH = "qwen3-14b"
 MAX_LEN, PAGE = 32, 8
 PAGED = dict(paged=True, page_size=PAGE)

@@ -55,6 +55,8 @@ from repro_torch.optim import schedule as TSched
 from repro_torch.train import loop as TLoop
 from repro_torch.train import steps as TSteps
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCHS = ("bert-base", "qwen3-14b", "albert-base", "gemma2-27b", "mistral-nemo-12b",
          "nemotron-4-15b", "mamba2-130m")
 TOL = dict(atol=2e-4, rtol=2e-4)

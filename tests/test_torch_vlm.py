@@ -28,6 +28,8 @@ from repro_torch.data import pipeline as TP
 from repro_torch.models import model as TModel
 from repro_torch.train import steps as TSteps
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCH = "llava-next-34b"
 TOL = 1e-4
 

@@ -50,6 +50,8 @@ from repro_torch.core.layers import cores_to_list
 from repro_torch.core.lightweight import leaves
 from repro_torch.models import model as TModel
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCH = "llava-next-34b"
 SEQ, BATCH, LR = 16, 4, 2e-3
 CONV_TOL, REC_TOL, EPS_TOL, GAP = 1e-5, 5e-4, 1e-4, 1e-3

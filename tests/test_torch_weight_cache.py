@@ -19,6 +19,8 @@ from repro_torch.core import squeeze as SQ
 from repro_torch.core.engine import engine_for
 from repro_torch.train.steps import make_serve_steps
 
+torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
 ARCHS = ("bert-base", "albert-base", "qwen3-14b", "gemma2-27b", "mamba2-130m")
 
 
