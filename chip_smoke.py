@@ -164,8 +164,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the weight cache (init, ``cache_weights`` seconds and bytes, prefill,
    decode, tok/s, peak memory; flash once a layer a step and no other
    kernel); (a') the same model factorized, the tensor-core forward launched
-   exactly as the engine's plans name it, matrix by matrix (mistral-nemo-12b
-   and qwen3-14b at 4 layers); (b) float32 at
+   exactly as the engine's plans name it, matrix by matrix (at 4 layers);
+   (b) float32 at
    full width and 2 layers (gemma2-27b at 1, ``LLM_F32_DEPTH``: one
    4352-token prompt, past its 4096-token window; the others 2 x 128), 16
    new tokens: greedy tokens
@@ -174,8 +174,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    forward kernels the float32 plans name (``csrc/mpo_linear.cu`` at
    gemma2's and nemotron's FFN), and gemma2's w_down (36864 -> 4608)
    through ``csrc/mpo_linear.cu`` against its plain version at M = 64.
-   The factorized runs of mistral-nemo-12b and qwen3-14b are cut to 4
-   layers (``LLM_FACT_LAYERS``).
+   The factorized runs are cut to 4 layers (``LLM_FACT_LAYERS``).
 11. ssm_train — the SSM family fine-tuned and squeezed: (a) the SSD scan's
    backward kernel (``csrc/ssd_scan_bwd.cu``, four launches a call) against
    its plain version from the same forward scratch, at mamba2-130m's
@@ -283,11 +282,40 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``HYB_LIFE_LAYERS``; (e) at ``HYB_LIFE_LAYERS``: ``from_dense`` of an
    exact tree made on the card, 2 LFA steps, one squeeze iteration against
    its float64 recount, served both ways under (c)'s gates.
-15. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+15. encdec — whisper-tiny at full width and depth (4 encoder and 4 decoder
+   layers, d 384, 1500 stub frames a clip; weights drawn on the card): (a)
+   ``csrc/mpo_linear.cu`` in float32 at its attention matrix, w_up and
+   w_down (no bf16 route takes them) at M = 8 and 12000 (8 x 1500), the
+   cores backward in float32 at M = 3584 (8 x 448) and 12000, the tied head
+   on the tensor-core kernel in both dtypes at the rows its paths give it
+   (bf16: E^T (384 -> 51968) at M = 8 and 3584, E's own cores (51968 ->
+   384, the head's dL/dx) and the cores backward at 3584; float32: the same
+   at ``ENC_F32_BATCH`` and ``ENC_F32_BATCH`` x 448): within tolerance of their plain versions, two launches bit-identical,
+   each plan's shared memory and scratch against the CUDA source's; (b) the
+   smoke model in float32, every matmul in the kernel mode, card against
+   CPU: prefill and decode logits, one train step's gradients, a 3-step
+   loss trajectory; (c) bf16 ``serve(8, 448)`` from 8 clips and 64-token
+   prompts, 32 new, with the weight cache and factorized: the forward
+   launched exactly as the plans name it (none in the layers: bf16 has no
+   route for whisper's matrices; the factorized tied head once a call), the
+   plans' modes listed, no plain call; (d) float32 from ``ENC_F32_BATCH``
+   clips both ways: the same tokens, decode logits against the
+   teacher-forced forward, ``csrc/mpo_linear.cu`` launched exactly as
+   planned (the factorized encoder, and the cross-attention K/V each
+   factorized decode step recomputes over the frames); (e)
+   ``finetune(mode="lfa", seq_len=448)`` at batch 8 in bf16 and
+   ``ENC_F32_BATCH`` in float32, ``ENC_TRAIN_STEPS`` steps: finite losses,
+   central cores unchanged, 14,592,960 of 18,860,992 training, the forwards
+   and the cores backward exactly as the train plans name them; a float32
+   run preempted at step 2 and resumed bit for bit; (f) ``from_dense`` of
+   an exact tree made on the card, 2 LFA steps, one squeeze iteration
+   against its float64 recount, served both ways under (c)'s gates, saved
+   and restored with the same greedy tokens.
+16. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
    squeezed shapes' times are phase 6's records), the stacked forward, the
    stacked cores backward and flash at llava's geometry beside them, the
-   hybrid's cases with their launches on the hybrid paths.
-16. last line: ``{"ok": true, "device": {...}}``.
+   hybrid's and the encdec's cases with their launches on their paths.
+17. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -373,12 +401,15 @@ ALBERT_LFA_COUNTS = (284_020, 702_836)           # trainable, total (reference's
 # prompts of 512 tokens, 16 new; float32 at full width and 2 layers, 16 new,
 # from 2 prompts of 128 (gemma2-27b: one of 4352, past its 4096-token window);
 # gemma2's CUDA-core FFN held against its plain version at M = 64.  The
-# factorized bf16 runs of mistral-nemo-12b and qwen3-14b are cut to 4 layers:
-# the forward takes ~140 ms a call at their FFN (phase 2's mistral w_up case
-# on an H100), ~17 s a full-depth prefill (PERF.md)
+# factorized bf16 runs are cut to 4 layers: the forward takes ~140 ms a call
+# at mistral's and qwen3's FFN (phase 2's mistral w_up case on an H100), ~17
+# s a full-depth prefill (PERF.md); gemma2-27b's and nemotron-4-15b's
+# full-depth factorized runs took ~16 and ~13 s with their warm-ups, and with
+# them (and zamba2-7b's factorized run at 27 layers) the whole script took
+# 904.6-1134.7 s of its 1200 s limit on one H100 host
 LLM_ARCHS = ("gemma2-27b", "mistral-nemo-12b", "nemotron-4-15b", "qwen3-14b")
 LLM_BATCH, LLM_PROMPT, LLM_MAX_LEN, LLM_NEW = 8, 512, 640, 16
-LLM_FACT_LAYERS = {"mistral-nemo-12b": 4, "qwen3-14b": 4}
+LLM_FACT_LAYERS = {arch: 4 for arch in LLM_ARCHS}
 LLM_F32_LAYERS, LLM_F32_NEW, LLM_F32_CASE_M = 2, 16, 64
 # depth cuts of the float32 runs whose factorized prefill sends an FFN to the
 # CUDA-core forward: gemma2-27b's 4352 rows took 84.5 s at 2 layers, llava's
@@ -432,9 +463,9 @@ SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # segments of 9 Mamba2 blocks, 2 shared attention blocks), weights drawn on the
 # card from the seed.  bf16 serving from 8 prompts of 512 tokens, 16 new, at
 # all 81 layers with the weight cache (~13.5 GB of bf16 W beside ~17.3 GB of
-# f32 cores) and factorized at HYB_FACT_LAYERS (3 segments; the forward at
-# its in_proj and out_proj makes a full-depth factorized run several times
-# longer); float32 at HYB_F32_LAYERS (one segment) from one prompt of
+# f32 cores) and factorized at HYB_FACT_LAYERS (one segment; the forward at
+# its in_proj takes ~0.3 s a call at 8 x 512, ~23 s of a 27-layer run with
+# its warm-up); float32 at HYB_F32_LAYERS (one segment) from one prompt of
 # HYB_F32_PROMPT tokens (its attention matrices take csrc/mpo_linear.cu);
 # LFA at HYB_TRAIN_LAYERS (3 segments: shared block 0 takes two uses) at 2 x
 # 512, preempted and resumed at HYB_LIFE_LAYERS (every save writes the f32
@@ -442,9 +473,21 @@ SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # the lifecycle at HYB_LIFE_LAYERS
 HYBRID = "zamba2-7b"
 HYB_BATCH, HYB_PROMPT, HYB_MAX_LEN, HYB_NEW = 8, 512, 544, 16
-HYB_FACT_LAYERS, HYB_F32_LAYERS, HYB_F32_PROMPT, HYB_LIFE_LAYERS = 27, 9, 64, 9
+HYB_FACT_LAYERS, HYB_F32_LAYERS, HYB_F32_PROMPT, HYB_LIFE_LAYERS = 9, 9, 64, 9
 HYB_TRAIN_LAYERS, HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB_TRAIN_STEPS = 27, 2, 512, 4
 HYB_LFA_COUNTS = (1_444_506_784, 1_455_971_488)  # at 27 layers: trainable, total (reference's)
+# the encdec family (phase 15): whisper-tiny at full width and depth (4
+# encoder and 4 decoder layers, d 384; weights drawn on the card from the
+# seed): bf16 serve(8, 448) (448: whisper's decoder context) from 8 clips of
+# 1500 frames and 64-token prompts, 32 new, both ways; float32 from
+# ENC_F32_BATCH clips (its factorized encoder runs csrc/mpo_linear.cu at 2 x
+# 1500 rows; 8 x 1500 takes ~4x as long a call); LFA at 8 x 448 in bf16 and
+# ENC_F32_BATCH x 448 in float32, ENC_TRAIN_STEPS steps; the lifecycle at
+# full depth
+ENCDEC = "whisper-tiny"
+ENC_BATCH, ENC_PROMPT, ENC_MAX_LEN, ENC_NEW = 8, 64, 448, 32
+ENC_F32_BATCH, ENC_TRAIN_STEPS = 2, 4
+ENC_LFA_COUNTS = (14_592_960, 18_860_992)        # trainable, total (reference's count)
 PEAK_BYTES_S = 3.35e12                           # H100 SXM HBM3
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 non-tensor
 
@@ -581,22 +624,39 @@ def planned_modes(engine, params: dict, train_tokens: int, prefill_tokens: int,
     return out
 
 
+FWD_KERNEL = {"mma": "mpo_linear_fwd_mma", "cuda_core": "mpo_linear_fwd"}   # forward_kernel's routes
+
+
+def path_rows(path, cfg, batch: int, tokens: int) -> int:
+    """The rows a layer matrix multiplies for ``batch`` x ``tokens`` decoder
+    tokens: an encdec model's encoder matrices and cross-attention K/V
+    projections take the frames (``batch * frontend_len``), every other
+    matrix a row a token."""
+    if cfg.family == "encdec" and (path[0] == "encoder" or
+                                   (path[1] == "xattn" and path[2] in ("wk", "wv"))):
+        return batch * cfg.frontend_len
+    return batch * tokens
+
+
 def serve_plan(engine, params: dict, cfg, batch: int, prompt: int,
                dtype: str, weight_cache: bool = False) -> tuple[dict, dict]:
     """How the engine plans a factorized serving run on the card (``linear``'s
     rules): each layer matrix at a prefill's ``batch * prompt`` rows (a
-    VLM's ``prompt`` counts its patches), an expert matrix at its capacity
-    rows an expert (``batch * cap``, ``cap`` of the prompt's length in
-    prefill, of one token in decode; the whole stack one launch), the head
-    (E^T when ``tied``, else ``lm_head``) at the prefill's last position
-    (``batch`` rows), and in decode the ``cached`` plan re-made as a prefill
-    of the decode's rows (raw cores).  Returns ``({matrix: {"prefill":
-    mode, "decode": mode}}, {kernel: [launches a prefill, launches a decode
-    step]})`` with the kernel ``mpo_linear`` routes each ``kernel`` plan to,
-    an expert stack's launches counted again under ``kernel + "_stacked"``;
-    a layer matrix runs once a layer (``num_layers`` times for the one
-    stored layer of ``share_layers``), a hybrid's shared block once a
-    segment.  With ``weight_cache`` the matrices
+    VLM's ``prompt`` counts its patches; ``path_rows`` gives an encdec
+    model's encoder and cross-attention K/V the frames' rows, and a decode
+    step recomputes those K/V from the stored encoder output), an expert
+    matrix at its capacity rows an expert (``batch * cap``, ``cap`` of the
+    prompt's length in prefill, of one token in decode; the whole stack one
+    launch), the head (E^T when ``tied``, else ``lm_head``) at the prefill's
+    last position (``batch`` rows), and in decode the ``cached`` plan re-made
+    as a prefill of the decode's rows (raw cores); an encoder runs in the
+    prefill only.  Returns ``({matrix: {"prefill": mode, "decode": mode}},
+    {kernel: [launches a prefill, launches a decode step]})`` with the
+    kernel ``mpo_linear`` routes each ``kernel`` plan to, an expert stack's
+    launches counted again under ``kernel + "_stacked"``; a layer matrix runs
+    once a layer (``num_layers`` times for the one stored layer of
+    ``share_layers``, ``num_enc_layers`` for an encoder's), a hybrid's shared
+    block once a segment.  With ``weight_cache`` the matrices
     ``cache_weights`` contracts (decode plan ``cached`` at one token) run
     their dense W and are left out."""
     from repro_torch.core import squeeze as SQ
@@ -613,26 +673,64 @@ def serve_plan(engine, params: dict, cfg, batch: int, prompt: int,
                 continue                     # looked up, never multiplied
             shapes = tuple((d0, j, i, d1) for d0, i, j, d1 in shapes)      # E^T
         head = path[0] in ("embed", "lm_head")
+        encoder = cfg.family == "encdec" and path[0] == "encoder"
         if "experts" in path:
             cap = lambda s: max(4, int(cfg.capacity_factor * s * cfg.top_k / cfg.num_experts))
             rows, dec_rows = batch * cap(prompt), batch * cap(1)
+        elif head:
+            rows, dec_rows = batch, batch
         else:
-            rows, dec_rows = (batch if head else batch * prompt), batch
+            rows = path_rows(path, cfg, batch, prompt)
+            dec_rows = None if encoder else path_rows(path, cfg, batch, 1)
         plan = lambda m, ph: engine.plan(shapes, m, ph, dtype, "cuda").mode
-        dec = plan(dec_rows, "decode")
-        use = {"prefill": plan(rows, "prefill"),
-               "decode": plan(dec_rows, "prefill") if dec == "cached" else dec}
+        use = {"prefill": plan(rows, "prefill")}
+        if dec_rows is not None:
+            dec = plan(dec_rows, "decode")
+            use["decode"] = plan(dec_rows, "prefill") if dec == "cached" else dec
         modes["/".join(path[:-1])] = use
-        route = {"mma": "mpo_linear_fwd_mma", "cuda_core": "mpo_linear_fwd"}.get(
-            MK.forward_kernel(shapes, dtype))
+        route = FWD_KERNEL.get(MK.forward_kernel(shapes, dtype))
         # a hybrid's shared blocks run once a segment that takes them
-        uses = (1 if head else cfg.num_layers // cfg.attn_every if path[0] == "shared_attn"
+        uses = (1 if head else cfg.num_enc_layers if encoder
+                else cfg.num_layers // cfg.attn_every if path[0] == "shared_attn"
                 else cfg.num_layers)
         for k, ph in enumerate(("prefill", "decode")):
-            if use[ph] == "kernel":
+            if use.get(ph) == "kernel":
                 for key in (route, route + "_stacked") if "experts" in path else (route,):
                     launches.setdefault(key, [0, 0])[k] += uses
     return modes, launches
+
+
+def encdec_train_launches(engine, params: dict, cfg, batch: int, seq: int, dtype: str,
+                          steps: int) -> tuple[dict, dict]:
+    """The kernel launches ``steps`` whisper fine-tuning steps of ``batch``
+    x ``seq`` decoder tokens make where the train plan names the kernel:
+    each use of such a matrix runs its forward once (twice in a layer that
+    ``cfg.remat`` recomputes in the backward), its dL/dx over the
+    i/j-swapped cores once and the cores backward once; the tied head E^T
+    at every decoder position.  Returns ``({matrix: uses a step}, {kernel:
+    launches})``."""
+    from repro_torch.core import squeeze as SQ
+    from repro_torch.core.layers import cores_to_list
+    from repro_torch.kernels import mpo_linear as MK
+    planned, want = {}, {}
+    for path, cd in SQ.find_mpo_layers(params).items():
+        shapes = tuple(tuple(c.shape[-4:]) for c in cores_to_list(cd))
+        if path[0] == "embed":
+            shapes = tuple((d0, j, i, d1) for d0, i, j, d1 in shapes)      # E^T
+            rows, uses, again = batch * seq, 1, 0
+        else:
+            rows = path_rows(path, cfg, batch, seq)
+            uses = cfg.num_enc_layers if path[0] == "encoder" else cfg.num_layers
+            again = int(cfg.remat)
+        if engine.plan(shapes, rows, "train", dtype, "cuda").mode != "kernel":
+            continue
+        planned["/".join(path[:-1])] = uses
+        swap = tuple((d0, j, i, d1) for d0, i, j, d1 in shapes)
+        for key, n in ((FWD_KERNEL[MK.forward_kernel(shapes, dtype)], uses * (1 + again)),
+                       (FWD_KERNEL[MK.forward_kernel(swap, dtype)], uses),
+                       ("mpo_linear_bwd_cores", uses)):
+            want[key] = want.get(key, 0) + n * steps
+    return planned, want
 
 
 def main() -> int:
@@ -704,7 +802,6 @@ def main() -> int:
     results = {}
 
     mma_lib = MK._mma_lib()
-    kname = {"mma": "mpo_linear_fwd_mma", "cuda_core": "mpo_linear_fwd"}
 
     def fwd_case(mname, cores32, m, dtype, phase="kernels", reps=10, tol=None, prev=True):
         """The MPO-linear forward through ``MK.mpo_linear`` against its plain
@@ -737,10 +834,10 @@ def main() -> int:
         again = MK.mpo_linear(cores, x)
         torch.cuda.synchronize()
         if (counter.launches, counter.stacked_launches) != (before + 2, sbefore + 2 * (n > 1)):
-            fail(f"{kname[route]} {mname} M={m} {dtype}: not one launch of it a call, or "
+            fail(f"{FWD_KERNEL[route]} {mname} M={m} {dtype}: not one launch of it a call, or "
                  "its stacked count wrong")
         if not torch.equal(y, again):
-            fail(f"{kname[route]} {mname} M={m} {dtype}: two launches differ")
+            fail(f"{FWD_KERNEL[route]} {mname} M={m} {dtype}: two launches differ")
         extra = {"experts": n} if stack else {}
         if route == "mma":
             plan = MK._mma_plan(shapes, m, dtype)
@@ -763,15 +860,28 @@ def main() -> int:
                 # the CUDA-core kernel the float32 path ran before, as the yardstick
                 extra["prev_ms"] = timed(lambda: MK.mpo_linear_cuda_core(cores, shapes, j_dim,
                                                                           m, x), reps)
+        else:
+            # the CUDA-core kernel: its launch's shared memory against the
+            # CUDA source's (it takes no scratch)
+            tile = 1 if m <= MK.SMALL_M else 0
+            split, njp = MK._launch_plan(shapes, tile)
+            smem = MK._smem_bytes(shapes, split, njp, tile)
+            smem_c = MK._lib().mpo_linear_fwd_smem(MK._dims(shapes), len(cores), split, njp,
+                                                   tile)
+            if smem_c != smem:
+                fail(f"mpo_linear_fwd {mname} M={m}: the plan's shared memory {smem} differs "
+                     f"from the CUDA source's {smem_c}")
+            extra.update(split=split, njp=njp, tile=list(MK.TILES[tile]), smem_bytes=smem,
+                         workspace_bytes=0)
         ref = MK.mpo_linear_plain(cores, x)
         tol = TOL[dtype] if tol is None else tol
-        err = check(kname[route], y, ref, dtype, f"{mname} M={m} {dtype}", tol)
+        err = check(FWD_KERNEL[route], y, ref, dtype, f"{mname} M={m} {dtype}", tol)
         del y, again, ref
         isz = x.element_size()
         nbytes = isz * (x.numel() + sum(c.numel() for c in cores) + n * m * j_dim)
         ops = 2 * n * m * i_dim * j_dim
         rec = dict(
-            kernel=kname[route], matrix=mname, shapes=[list(c.shape) for c in cores],
+            kernel=FWD_KERNEL[route], matrix=mname, shapes=[list(c.shape) for c in cores],
             M=m, dtype=dtype, max_abs_err=err, tol=tol, deterministic=True, **extra,
             kernel_ms=timed(lambda: MK.mpo_linear(cores, x), reps),
             plain_ms=timed(lambda: MK.mpo_linear_plain(cores, x), reps),
@@ -1351,7 +1461,7 @@ def main() -> int:
                         (swap,) if tied else ())
                 else:
                     forms = (sh, swap) if train else (sh,)
-                routes.update(kname[MK.forward_kernel(f, "float32")] for f in forms)
+                routes.update(FWD_KERNEL[MK.forward_kernel(f, "float32")] for f in forms)
                 return
             for k, v in tree.items():
                 if isinstance(v, dict):
@@ -1404,8 +1514,9 @@ def main() -> int:
     bwd_lib = MK._bwd_lib()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def bwd_case(mname, cores32, m, dtype, phase="train", dw_gate=True):
-        """The cores backward against its plain version: within ``TOL``, two
+    def bwd_case(mname, cores32, m, dtype, phase="train", dw_gate=True, tol=None):
+        """The cores backward against its plain version: within ``TOL`` (or
+        ``tol`` where more rows are summed than it was set for), two
         launches bit-identical, a call with the central core skipped (what
         ``freeze_central_grads`` asks) giving the other cores the same bits;
         the plan's shared memory and workspace equal to the CUDA source's,
@@ -1429,8 +1540,9 @@ def main() -> int:
             fail(f"mpo_linear_bwd_cores {mname} M={m} {dtype}: the call without core "
                  f"{central} differs from the full call")
         ref = MK.mpo_linear_bwd_cores_plain(cores, x, dy)
-        err = max(check("mpo_linear_bwd_cores", g, r, dtype, f"{mname} M={m} {dtype} core {k}")
-                  for k, (g, r) in enumerate(zip(got, ref)))
+        tol = TOL[dtype] if tol is None else tol
+        err = max(check("mpo_linear_bwd_cores", g, r, dtype, f"{mname} M={m} {dtype} core {k}",
+                        tol) for k, (g, r) in enumerate(zip(got, ref)))
         rel = max(((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
                   for g, r in zip(got, ref))
 
@@ -1462,7 +1574,7 @@ def main() -> int:
                    cluster=plan.cluster, smem_bytes=plan.smem,
                    launches_per_call=MK.BWD_KERNELS, workspace_bytes=plan.workspace,
                    dense_dw_f32_bytes=4 * i_dim * j_dim,
-                   max_abs_err=err, max_rel_err=rel, tol=TOL[dtype], deterministic=True,
+                   max_abs_err=err, max_rel_err=rel, tol=tol, deterministic=True,
                    kernel_ms=timed(lambda: MK.mpo_linear_bwd_cores(cores, x, dy)),
                    plain_ms=timed(lambda: MK.mpo_linear_bwd_cores_plain(cores, x, dy)),
                    library_ms=timed(library),
@@ -3429,7 +3541,7 @@ def main() -> int:
                    launches_per_call=MK.BWD_KERNELS * sets, workspace_bytes=group * plan.workspace,
                    workspace_per_expert=plan.workspace,
                    dense_dw_f32_bytes_all_experts=4 * e * i_dim * j_dim, zero_expert=zero,
-                   max_abs_err=err, max_rel_err=rel, tol=TOL[dtype], deterministic=True,
+                   max_abs_err=err, max_rel_err=rel, tol=tol, deterministic=True,
                    kernel_ms=timed(lambda: MK.mpo_linear_bwd_cores(cores, x, dy), reps),
                    plain_ms=timed(lambda: MK.mpo_linear_bwd_cores_plain(cores, x, dy), reps),
                    library_ms=library_ms, library_fits=library_ms is not None,
@@ -4111,7 +4223,410 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(phase="hybrid", s=time.perf_counter() - z_t0)
 
-    # ---- 15. the kernels line: one entry per kernel and dtype ----
+    # ---- 15. encdec: whisper-tiny's encoder, cross-attention decoder and frame inputs ----
+    from repro_torch.models import whisper as WH
+    w_t0 = time.perf_counter()
+    wcfg = configs.get_config(ENCDEC)
+    wrows = ENC_BATCH * wcfg.frontend_len             # the encoder's rows at batch 8
+    enc = {}                 # kernel -> {encdec path: launches}, for the kernels line
+
+    def enc_gate(path, counts, want):
+        """Exactly the MPO-linear launches ``want`` names (forwards and the
+        cores backward), no plain version; the launches kept for the kernels
+        line."""
+        keys = ("mpo_linear_fwd_mma", "mpo_linear_fwd", "mpo_linear_bwd_cores")
+        got = {k: counts[k] for k in keys}
+        plain = sum(counts[k] for k in ssm_plains)
+        if got != {k: want.get(k, 0) for k in keys} or plain:
+            fail(f"{path}: launches {got}, plain-version calls {plain}; the plans name {want}")
+        for k in keys:
+            if counts[k]:
+                enc.setdefault(k, {})[path] = counts[k]
+        return got
+
+    # (a) the kernels at whisper-tiny's shapes against their plain versions:
+    # the encoder's layer 0 of a model drawn on the card (served in (c),
+    # fine-tuned in (e), the lifecycle's source in (f)); the float32 forward
+    # (csrc/mpo_linear.cu: no bf16 route takes these) at a decode step's 8
+    # rows and the encoder's 8 x 1500, the cores backward at the decoder's
+    # 8 x 448 and the encoder's 8 x 1500; the tied head in bf16
+    ws = Session.init(wcfg, seed=SEED, init_device="cuda")
+    wm = {name: [c[0] for c in cores_to_list(_at(ws.params, ("encoder",) + path)["cores"])]
+          for name, path in (("attn", ("attn", "wq")), ("w_up", ("mlp", "w_up")),
+                             ("w_down", ("mlp", "w_down")))}
+    for name, cores32 in wm.items():
+        for m in (8, wrows):
+            results[("mpo", ENCDEC, name, m, "float32")] = fwd_case(
+                f"{ENCDEC} {name}", cores32, m, "float32", phase="encdec",
+                reps=3 if m == wrows else 10)
+        for m in (ENC_BATCH * ENC_MAX_LEN, wrows):
+            results[("bwd", ENCDEC, name, m, "float32")] = bwd_case(
+                f"{ENCDEC} {name}", cores32, m, "float32", phase="encdec", dw_gate=False,
+                tol=f32_tol(m) if m > 3072 else None)
+    # the tied head at the rows each path gives it, on the tensor-core kernel
+    # in both dtypes (float32 as its three-term split): E^T (384 -> 51968)
+    # at a serving step's batch rows and an LFA step's tokens, E's own cores
+    # (51968 -> 384: the head's dL/dx, summing 51968 terms an output) and the
+    # cores backward at an LFA step's tokens (bf16 8 x 448, float32
+    # ENC_F32_BATCH x 448)
+    wembed = cores_to_list(ws.params["embed"]["cores"])
+    whead = mpo.transpose_cores(wembed)
+    vocab_terms = math.prod(c.shape[1] for c in wembed)
+    for hdt, hbatch in (("bfloat16", ENC_BATCH), ("float32", ENC_F32_BATCH)):
+        htok = hbatch * ENC_MAX_LEN
+        for m in (hbatch, htok):
+            results[("mpo", ENCDEC, "head", m, hdt)] = fwd_case(
+                f"{ENCDEC} head", whead, m, hdt, phase="encdec", prev=False)
+        results[("mpo", ENCDEC, "embed", htok, hdt)] = fwd_case(
+            f"{ENCDEC} head dL/dx (E)", wembed, htok, hdt, phase="encdec", prev=False,
+            tol=f32_tol(vocab_terms) if hdt == "float32" else None)
+        results[("bwd", ENCDEC, "head", hdt)] = bwd_case(
+            f"{ENCDEC} head", whead, htok, hdt, phase="encdec", dw_gate=False)
+    del wm, wembed, whead
+    torch.cuda.empty_cache()
+
+    # (b) the smoke model in float32, every matmul in the kernel mode, on the
+    # card against the CPU: prefill and decode logits (the card fed the CPU's
+    # tokens), one train step's gradients of every leaf, a 3-step loss trajectory
+    wsmoke = kernel_mode(configs.smoke_config(ENCDEC))
+    srng = np.random.default_rng(SEED + 8)
+    wsb = {"tokens": srng.integers(0, wsmoke.vocab_size, (4, 12)).astype(np.int32),
+           "frames": srng.normal(size=(4, wsmoke.frontend_len, wsmoke.d_model))
+           .astype(np.float32)}
+
+    def enc_smoke(device, feed=None):
+        ss = Session.init(wsmoke, seed=SEED, device=device)
+        ssm_zero()
+        h = ss.serve(4, 24, weight_cache=False)
+        steps = [h.prefill(wsb)[:, -1].float().cpu()]
+        toks = []
+        for k in range(4):
+            tok = (torch.argmax(steps[-1], -1)[:, None].to(torch.int32) if feed is None
+                   else feed[:, k:k + 1])
+            toks.append(tok)
+            steps.append(h.decode(tok)[1][:, -1].float().cpu())
+        serve_counts = hyb_counts()
+        ssm_zero()
+        seen = []
+        rec_opt = OPT.Optimizer(init=lambda p: OPT.OptState(0, None),
+                                update=lambda g, st, p: seen.append(g) or st)
+        step = TS.make_train_step(ss.model, rec_opt, ss._default_loss_fn())
+        batch = {k: torch.as_tensor(v).to(device)
+                 for k, v in ss._default_batch_fn(12, 4, SEED)(0).items()}
+        step(TS.TrainState(ss.params, rec_opt.init(ss.params)), batch)
+        grads = [g.detach().cpu() for g in lightweight.leaves(seen[0])]
+        hist = ss.finetune(steps=3, seq_len=12, batch_size=4, log_every=1)["history"]
+        if device == "cuda":
+            got = gate_routes(f"the float32 smoke {ENCDEC} serving on the card", serve_counts,
+                              ss.params, train=False)
+            counts = hyb_counts()
+            got_t = gate_routes(f"the float32 smoke {ENCDEC} train steps on the card", counts,
+                                ss.params, train=True, tied_head=True)
+            if not counts["mpo_linear_bwd_cores"] or any(counts[k] for k in ssm_plains):
+                fail(f"the float32 smoke {ENCDEC} on the card: train steps {counts}")
+            for where, g in ((f"smoke {ENCDEC} serve", got),
+                             (f"smoke {ENCDEC} train (4 steps)", got_t)):
+                for k, d in (("mpo_linear_fwd", cuda_core), ("mpo_linear_fwd_mma", f32_mma)):
+                    if g[k]:
+                        d[where] = g[k]
+            f32_bwd[f"smoke {ENCDEC} train (4 steps)"] = counts["mpo_linear_bwd_cores"]
+        return torch.stack(steps, 1), torch.cat(toks, 1), grads, [h["loss"] for h in hist]
+
+    cpu = enc_smoke("cpu")
+    card = enc_smoke("cuda", feed=cpu[1].to(dev))
+    ldiff = (card[0] - cpu[0]).abs().max().item()
+    lscale = cpu[0].abs().max().item()
+    gdiff = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(card[2], cpu[2]))
+    hdiff = max(abs(a - b) / abs(b) for a, b in zip(card[3], cpu[3]))
+    emit(phase="encdec", smoke=ENCDEC, mode="kernel", dtype="float32",
+         card_vs_cpu_logits_diff=ldiff, scale=lscale, tol=SMOKE_TOL, leaves=len(card[2]),
+         card_vs_cpu_grad_rel_diff=gdiff, card_vs_cpu_loss_rel_diff=hdiff,
+         losses_card=card[3], losses_cpu=cpu[3], train_tol=TRAIN_TOL)
+    if ldiff > SMOKE_TOL * lscale or not gdiff <= TRAIN_TOL or not hdiff <= TRAIN_TOL:
+        fail(f"smoke {ENCDEC} on the card differs from the CPU: logits {ldiff} (scale "
+             f"{lscale}), grads {gdiff}, losses {card[3]} vs {cpu[3]}")
+    del card, cpu
+
+    # (c) bf16 serve(8, 448) from 8 clips of 1500 frames and 64-token prompts,
+    # 32 new, with the weight cache and factorized: the forward launched
+    # exactly as the plans name it (bf16 sends no layer matrix to a kernel:
+    # only the factorized tied head runs one), no plain call
+    wrng = np.random.default_rng(SEED + 9)
+    wprompts = wrng.integers(0, wcfg.vocab_size, (ENC_BATCH, ENC_PROMPT)).astype(np.int32)
+    wframes = wrng.normal(size=(ENC_BATCH, wcfg.frontend_len, wcfg.d_model)).astype(np.float32)
+
+    def enc_serve(sess, what, wc):
+        handle, per_prefill, per_decode, _ = serve_run(
+            sess, what, wprompts, ENC_MAX_LEN, ("mpo_linear_fwd_mma",), new_tokens=ENC_NEW,
+            extra={"frames": wframes}, weight_cache=wc)
+        modes, want = serve_plan(sess.engine, sess.params, sess.cfg, ENC_BATCH, ENC_PROMPT,
+                                  "bfloat16", weight_cache=wc)
+        llm_gate(f"{what} weight_cache={wc} prefill", per_prefill,
+                 {k: v[0] for k, v in want.items()})
+        llm_gate(f"{what} weight_cache={wc} decode", per_decode,
+                 {k: v[1] * (ENC_NEW - 1) for k, v in want.items()})
+        n = per_prefill["mpo_linear_fwd_mma"] + per_decode["mpo_linear_fwd_mma"]
+        if n:
+            enc.setdefault("mpo_linear_fwd_mma", {})[f"{what} serve weight_cache={wc}"] = n
+        emit(phase="encdec", arch=ENCDEC, step="bf16 serve plans", what=what, weight_cache=wc,
+             modes=modes, launches_planned=want,
+             launches={"prefill": {k: per_prefill[k] for k in ("mpo_linear_fwd_mma",
+                                                               "mpo_linear_fwd")},
+                       "decode": {k: per_decode[k] for k in ("mpo_linear_fwd_mma",
+                                                             "mpo_linear_fwd")}})
+        return handle
+
+    for wc in (True, False):
+        enc_serve(ws, ENCDEC, wc)
+        ws._serve.clear()
+    wdense = exact_dense(ws.params)                   # (f)'s source, before (e) tunes ws
+    torch.cuda.empty_cache()
+
+    # (d) float32 from ENC_F32_BATCH clips, with the weight cache and
+    # factorized: the same tokens, every decode step's logits within f32_tol
+    # of the teacher-forced forward's, the forwards launched exactly as the
+    # plans name them (the factorized encoder, and the cross-attention K/V a
+    # decode step recomputes, on csrc/mpo_linear.cu)
+    w32cfg = dataclasses.replace(wcfg, dtype="float32")
+    w32 = Session.init(w32cfg, seed=SEED, init_device="cuda")
+    b32 = {"tokens": wprompts[:ENC_F32_BATCH], "frames": wframes[:ENC_F32_BATCH]}
+    wruns, wwall = {}, {}
+    ssm_zero()
+    for name, wc in (("cached", True), ("factorized", False)):
+        t0 = sync_clock()
+        h = w32.serve(ENC_F32_BATCH, ENC_MAX_LEN, weight_cache=wc)
+        lg = h.prefill(b32)
+        steps = [lg[:, -1]]
+        tok = torch.argmax(lg[:, -1], -1)[:, None].to(torch.int32)
+        toks = [tok]
+        for _ in range(ENC_NEW - 1):
+            tok, lg = h.decode(tok)
+            toks.append(tok)
+            steps.append(lg[:, -1])
+        wruns[name] = (torch.cat(toks, 1).cpu(), torch.stack(steps, 1).float().cpu())
+        wwall[name] = sync_clock() - t0
+        w32._serve.clear()
+        del h
+    counts = hyb_counts()
+    _, want = serve_plan(w32.engine, w32.params, w32cfg, ENC_F32_BATCH, ENC_PROMPT, "float32")
+    want_all = {k: v[0] + v[1] * (ENC_NEW - 1) for k, v in want.items()}
+    _, want_c = serve_plan(w32.engine, w32.params, w32cfg, ENC_F32_BATCH, ENC_PROMPT,
+                            "float32", weight_cache=True)
+    for k, v in want_c.items():
+        want_all[k] = want_all.get(k, 0) + v[0] + v[1] * (ENC_NEW - 1)
+    llm_gate(f"{ENCDEC} float32 runs", counts, want_all)
+    if not counts["mpo_linear_fwd"]:
+        fail(f"{ENCDEC} float32 runs: csrc/mpo_linear.cu never launched ({counts})")
+    seq = torch.cat([torch.as_tensor(b32["tokens"]), wruns["cached"][0][:, :-1]], 1).to(dev)
+    tree = w32.model.cache_weights(w32.params)
+    with torch.no_grad():
+        hidden = WH.forward_hidden(tree, {"tokens": seq,
+                                          "frames": torch.as_tensor(b32["frames"]).to(dev)},
+                                   w32cfg, phase="prefill")
+        tf = WH.logits_head(tree, hidden[:, ENC_PROMPT - 1:], w32cfg,
+                            phase="prefill").float().cpu()
+    del tree, hidden
+    terms = max(wcfg.d_ff, wcfg.frontend_len, ENC_PROMPT + ENC_NEW)
+    tol = f32_tol(terms, wcfg.num_layers + wcfg.num_enc_layers)
+    tscale = tf.abs().max().item()
+    tdiff = {name: (lg - tf).abs().max().item() for name, (_, lg) in wruns.items()}
+    same_tokens = torch.equal(wruns["cached"][0], wruns["factorized"][0])
+    top2 = wruns["cached"][1].topk(2, dim=-1).values
+    # the cross-attention K/V that a factorized decode step recomputes: one
+    # projection over the stored encoder output, the card's time, times the
+    # 2 x 4 a step, against the factorized run's wall time a decode step
+    xattn = nn.index_layer(w32.params["decoder"], 0)["xattn"]
+    enc_out = torch.randn(ENC_F32_BATCH, wcfg.frontend_len, wcfg.d_model, generator=gen).to(dev)
+    with torch.no_grad():
+        xkv_ms = timed(lambda: L.apply_linear(xattn["wk"], enc_out, cfg=w32cfg.mpo,
+                                              phase="decode"), 3)
+    emit(phase="encdec", arch=ENCDEC, step="float32 parity", batch=ENC_F32_BATCH,
+         prompt=ENC_PROMPT, new_tokens=ENC_NEW, identical=same_tokens, wall_s=wwall,
+         min_top2_margin=(top2[..., 0] - top2[..., 1]).min().item(),
+         launches={k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd")},
+         launches_planned=want_all, teacher_forced_max_abs_diff=tdiff, scale=tscale,
+         summed_terms=terms, tol=tol, cross_kv_projection_ms=xkv_ms,
+         cross_kv_ms_per_decode_step=2 * wcfg.num_layers * xkv_ms)
+    if not same_tokens or not max(tdiff.values()) <= tol * tscale:
+        fail(f"{ENCDEC} float32: tokens identical {same_tokens}, decode logits {tdiff} from "
+             f"the teacher-forced forward's (tol {tol} x {tscale})")
+    for k, d in (("mpo_linear_fwd", cuda_core), ("mpo_linear_fwd_mma", f32_mma)):
+        if counts[k]:
+            d[f"{ENCDEC} float32 serve (two runs)"] = counts[k]
+    del wruns, enc_out
+    torch.cuda.empty_cache()
+
+    # (e) LFA: bf16 at 8 x 448 on (c)'s session (a warm-up step first), and
+    # float32 at ENC_F32_BATCH x 448 on (d)'s: finite losses, central cores
+    # unchanged, the reference's trainable count, the forwards and the cores
+    # backward launched exactly as the train plans name them; a float32 run
+    # preempted at step 2 and resumed, bit for bit against (d)'s run straight
+    # through (both checkpointed only at their end)
+    wft = dict(mode="lfa", seq_len=ENC_MAX_LEN, log_every=1)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_encdec_"))
+    try:
+        for sess, batch in ((ws, ENC_BATCH), (w32, ENC_F32_BATCH)):
+            dt = sess.cfg.dtype
+            planned, want = encdec_train_launches(sess.engine, sess.params, sess.cfg, batch,
+                                                  ENC_MAX_LEN, dt, ENC_TRAIN_STEPS)
+            central = {k: v.clone() for k, v in sess.model.state_dict().items()
+                       if k.endswith(".central")}
+            kw = dict(wft, batch_size=batch)
+            if dt == "bfloat16":
+                sess.finetune(steps=1, seed=SEED + 1, **kw)         # warm-up, not counted
+            else:
+                kw["ckpt_dir"] = str(tmp / "straight")
+            ssm_zero()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = sync_clock()
+            rep = sess.finetune(steps=ENC_TRAIN_STEPS, seed=SEED, **kw)
+            ft_s = sync_clock() - t0
+            counts = hyb_counts()
+            losses = [h["loss"] for h in rep["history"]]
+            unchanged = all(torch.equal(v, sess.model.state_dict()[k])
+                            for k, v in central.items())
+            emit(phase="encdec", step="finetune lfa", arch=ENCDEC, dtype=dt,
+                 remat=sess.cfg.remat, batch=batch, seq_len=ENC_MAX_LEN,
+                 frames=wcfg.frontend_len, steps=ENC_TRAIN_STEPS,
+                 ms_per_step=1e3 * ft_s / ENC_TRAIN_STEPS,
+                 timed_with_final_checkpoint="ckpt_dir" in kw,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(), mem_before_bytes=held,
+                 losses=losses, trainable=rep["trainable"], total=rep["total"],
+                 launches={k: counts[k] for k in ("mpo_linear_fwd_mma", "mpo_linear_fwd",
+                                                  "mpo_linear_bwd_cores")},
+                 launches_planned=want, cores_bwd_planned_per_step=planned,
+                 central_cores=len(central), central_unchanged=unchanged)
+            if len(losses) != ENC_TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+                fail(f"{ENCDEC} {dt} fine-tuning: losses {losses}")
+            if not central or not unchanged:
+                fail(f"{ENCDEC} {dt} fine-tuning: a central core changed under LFA")
+            if (rep["trainable"], rep["total"]) != ENC_LFA_COUNTS:
+                fail(f"{ENCDEC} {dt} fine-tuning: {rep['trainable']} of {rep['total']} "
+                     f"trainable, expected {ENC_LFA_COUNTS}")
+            if not want.get("mpo_linear_bwd_cores"):
+                fail(f"{ENCDEC} {dt} fine-tuning: no matrix plans the cores backward")
+            got = enc_gate(f"{ENCDEC} {dt} finetune lfa ({batch} x {ENC_MAX_LEN})", counts,
+                           want)
+            if dt == "float32":
+                f32_bwd[f"{ENCDEC} float32 finetune lfa"] = got["mpo_linear_bwd_cores"]
+                for k, d in (("mpo_linear_fwd", cuda_core), ("mpo_linear_fwd_mma", f32_mma)):
+                    if got[k]:
+                        d[f"{ENCDEC} float32 finetune lfa"] = got[k]
+            del central
+        pa = params_of(w32)
+        del sess, w32
+        torch.cuda.empty_cache()
+        b = Session.init(w32cfg, seed=SEED, init_device="cuda")
+        kw = dict(wft, batch_size=ENC_F32_BATCH, ckpt_dir=str(tmp / "resumed"))
+        with FLT.fault_scope(FLT.FaultPlan(preempt_finetune_step=2)):
+            expect_raise(FLT.Preemption, lambda: b.finetune(steps=ENC_TRAIN_STEPS, seed=SEED,
+                                                            **kw), f"{ENCDEC} preempted finetune")
+        drained = CKM.CheckpointManager(str(tmp / "resumed")).latest_step()
+        b.finetune(steps=ENC_TRAIN_STEPS, seed=SEED, **kw)
+        with np.load(tmp / "straight" / f"step_{ENC_TRAIN_STEPS}" / "arrays.npz") as za, \
+                np.load(tmp / "resumed" / f"step_{ENC_TRAIN_STEPS}" / "arrays.npz") as zb:
+            keys = sorted(za.files)
+            differ = [k for k in keys if not np.array_equal(za[k], zb[k])]
+            same_keys = keys == sorted(zb.files)
+        params_equal = same(pa, params_of(b))
+        emit(phase="encdec", step="finetune resume", arch=ENCDEC, dtype="float32",
+             preempted_at=2, latest_step_after_preemption=drained, arrays=len(keys),
+             arrays_differing=differ, params_bit_identical=params_equal)
+        if drained != 2 or not same_keys or differ or not params_equal:
+            fail(f"{ENCDEC} finetune resume: drained at {drained}, arrays differing {differ}, "
+                 f"same keys {same_keys}, params bit-identical {params_equal}")
+        del b, pa
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del ws
+    torch.cuda.empty_cache()
+
+    # (f) the lifecycle at full depth, bf16: from_dense of (a)'s exact tree
+    # (made on the card), 2 LFA steps, one squeeze iteration against its
+    # float64 recount, served both ways under (c)'s gates, saved and
+    # restored: the same greedy tokens
+    t0 = sync_clock()
+    wl = Session.from_dense(wdense, wcfg)
+    conv_s = sync_clock() - t0
+    del wdense
+    rep = wl.report()
+    emit(phase="encdec", step="from_dense exact", arch=ENCDEC,
+         matrices=rep["stages"][-1]["matrices"], from_dense_s=conv_s,
+         conversion_rel_err=wl.conversion_report,
+         conversion_max_rel_err=rep["conversion_max_rel_err"], tol=EXACT_TOL)
+    if not rep["conversion_max_rel_err"] <= EXACT_TOL:
+        fail(f"{ENCDEC} from_dense of an exact tree: error {rep['conversion_max_rel_err']}")
+    _, want = encdec_train_launches(wl.engine, wl.params, wcfg, ENC_BATCH, ENC_MAX_LEN,
+                                    "bfloat16", 2)
+    ssm_zero()
+    t0 = sync_clock()
+    rep = wl.finetune(steps=2, seed=SEED, batch_size=ENC_BATCH, **wft)
+    lt_s = sync_clock() - t0
+    counts = hyb_counts()
+    losses = [h["loss"] for h in rep["history"]]
+    emit(phase="encdec", step="lifecycle finetune lfa", arch=ENCDEC, steps=2,
+         ms_per_step=1e3 * lt_s / 2, losses=losses, launches=counts)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{ENCDEC} lifecycle fine-tuning: losses {losses}")
+    enc_gate(f"{ENCDEC} bfloat16 lifecycle finetune lfa", counts, want)
+    pre = lightweight.tree_map(lambda t: t.detach().clone(), wl.params)
+    rho0 = SQ.model_compression_ratio(wl.params)
+    ssm_zero()
+    t0 = sync_clock()
+    evs = wl.squeeze(step=1, max_iters=1, finetune_steps=1, seq_len=ENC_MAX_LEN,
+                     batch_size=ENC_BATCH, delta=1.0)
+    sq_s = sync_clock() - t0
+    counts = hyb_counts()
+    rho1 = SQ.model_compression_ratio(wl.params)
+    for ev in evs:
+        rc = check_event(ev, pre)
+        emit(phase="encdec", step="squeeze iteration", arch=ENCDEC,
+             layer="/".join(ev.layer[:-1]), bond=ev.bond, new_dim=ev.new_dim,
+             predicted_error=ev.predicted_error, metric=ev.metric, seconds=ev.seconds, **rc)
+    del pre
+    emit(phase="encdec", step="squeeze", arch=ENCDEC, s=sq_s, events=len(evs),
+         rho_before=rho0, rho_after=rho1, launches=counts)
+    if len(evs) != 1 or not rho1 < rho0:
+        fail(f"{ENCDEC} squeeze: {len(evs)} events, rho {rho0} -> {rho1}")
+    if any(counts[k] for k in ssm_plains) or not counts["mpo_linear_bwd_cores"]:
+        fail(f"{ENCDEC} squeeze: a plain version ran, or the re-tune no cores backward "
+             f"({counts})")
+    for k in ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"):
+        enc.setdefault(k, {})[f"{ENCDEC} bfloat16 squeeze (re-tune and evaluations)"] = counts[k]
+    for wc in (True, False):
+        enc_serve(wl, f"{ENCDEC} lifecycle", wc)
+        wl._serve.clear()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_encdec_session_"))
+    try:
+        inputs = {"tokens": wprompts, "frames": wframes}
+        want_tokens = wl.serve(ENC_BATCH, ENC_MAX_LEN).generate(inputs, ENC_NEW).cpu()
+        t0 = sync_clock()
+        wl.save(str(tmp / "s"))
+        save_s = sync_clock() - t0
+        r = Session.restore(str(tmp / "s"))
+        restore_s = sync_clock() - t0 - save_s
+        got_tokens = r.serve(ENC_BATCH, ENC_MAX_LEN).generate(inputs, ENC_NEW).cpu()
+        same_leaves = same(params_of(wl), params_of(r))
+        emit(phase="encdec", step="save/restore", arch=ENCDEC, save_s=save_s,
+             restore_s=restore_s, dir_bytes=dir_bytes(tmp / "s"), leaves_equal=same_leaves,
+             tokens_identical=torch.equal(got_tokens, want_tokens),
+             stage=r.stage, weights_version=r.weights_version)
+        if not same_leaves or not torch.equal(got_tokens, want_tokens) or \
+                (r.stage, r.weights_version) != (wl.stage, wl.weights_version):
+            fail(f"{ENCDEC} save/restore: leaves equal {same_leaves}, tokens "
+                 f"{got_tokens.tolist()} vs {want_tokens.tolist()}, stage/version "
+                 f"{(r.stage, r.weights_version)} vs {(wl.stage, wl.weights_version)}")
+        del r
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del wl
+    torch.cuda.empty_cache()
+    emit(phase="encdec", s=time.perf_counter() - w_t0)
+
+    # ---- 16. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,
@@ -4282,6 +4797,37 @@ def main() -> int:
               "the smoke float32 train steps)", sum(mine(f32_ssd_bwd).values()),
               launches_by_path=mine(f32_ssd_bwd), launches_per_call=SSD.SSD_BWD_KERNELS,
               launch_ms=results[("ssd_bwd", HYBRID, "float32")]["launch_ms"]),
+    ]
+    wmine = lambda d: {k: v for k, v in d.items() if ENCDEC in k}
+    wbf16 = lambda d: {k: v for k, v in d.items() if "float32" not in k}
+    wname = f"{ENCDEC} attention matrix ({wcfg.d_model} -> {wcfg.d_model}: no bf16 route)"
+    line += [
+        entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu", fwd[1],
+              results[("mpo", ENCDEC, "attn", wrows, "float32")],
+              f"{wname}, M={wrows} (the encoder over 8 x {wcfg.frontend_len} frames), float32 "
+              "(launches: the float32 encdec runs)", sum(wmine(cuda_core).values()),
+              launches_by_path=wmine(cuda_core)),
+        entry("mpo_linear_bwd_cores", "cuda", *bwd,
+              results[("bwd", ENCDEC, "attn", wrows, "float32")],
+              f"{wname}, M={wrows}, float32 (launches: the float32 encdec train steps)",
+              sum(wmine(f32_bwd).values()), launches_by_path=wmine(f32_bwd),
+              launches_per_call=MK.BWD_KERNELS),
+        entry("mpo_linear_fwd_mma", "cuda", *fwd,
+              results[("mpo", ENCDEC, "head", ENC_BATCH, "bfloat16")],
+              f"{ENCDEC} tied head ({wcfg.d_model} -> {wcfg.vocab_size}), M={ENC_BATCH} (a "
+              "decode step), bfloat16 (launches: the bf16 encdec paths, where only the head "
+              "has a route)", sum(wbf16(enc["mpo_linear_fwd_mma"]).values()),
+              launches_by_path=wbf16(enc["mpo_linear_fwd_mma"])),
+        entry("mpo_linear_fwd_mma", "cuda", *fwd,
+              results[("mpo", ENCDEC, "head", ENC_F32_BATCH * ENC_MAX_LEN, "float32")],
+              f"{ENCDEC} tied head, M={ENC_F32_BATCH * ENC_MAX_LEN} ({ENC_F32_BATCH} x "
+              f"{ENC_MAX_LEN} fine-tuning tokens), float32 (launches: the float32 encdec paths)",
+              sum(wmine(f32_mma).values()), launches_by_path=wmine(f32_mma)),
+        entry("mpo_linear_bwd_cores", "cuda", *bwd, results[("bwd", ENCDEC, "head", "bfloat16")],
+              f"{ENCDEC} tied head, M={ENC_BATCH * ENC_MAX_LEN} (8 x 448 fine-tuning tokens), "
+              "bfloat16", sum(wbf16(enc["mpo_linear_bwd_cores"]).values()),
+              launches_by_path=wbf16(enc["mpo_linear_bwd_cores"]),
+              launches_per_call=MK.BWD_KERNELS),
     ]
     if any(e["launches"] == 0 for e in line):
         fail(f"a kernel of the paths never launched: {[(e['name'], e['dtype'], e['launches']) for e in line]}")

@@ -1,4 +1,4 @@
-"""Config registry: ``get_config(name)`` for the architectures the port serves."""
+"""Config registry: ``get_config(name)`` for every architecture of the reference."""
 
 from __future__ import annotations
 
@@ -7,13 +7,13 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, scaled_down
 
-# arch id -> module name, under the reference's ids; the reference's
-# encdec family comes with ROADMAP.md, Queue 1 item 7b
+# arch id -> module name, under the reference's ids: every one of its archs
 ARCHS = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b_a66b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "llava-next-34b": "llava_next_34b",
     "zamba2-7b": "zamba2_7b",
+    "whisper-tiny": "whisper_tiny",
     "gemma2-27b": "gemma2_27b",
     "nemotron-4-15b": "nemotron4_15b",
     "mistral-nemo-12b": "mistral_nemo_12b",
@@ -27,8 +27,7 @@ ARCHS = {
 
 def get_config(name: str, **overrides) -> ModelConfig:
     if name not in ARCHS:
-        raise KeyError(f"unknown or not yet ported arch {name!r}; the port "
-                       f"has {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {name!r}; the port has {sorted(ARCHS)}")
     cfg = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}").CONFIG
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 

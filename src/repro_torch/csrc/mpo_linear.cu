@@ -222,11 +222,17 @@ mpo_linear_fwd_kernel(MpoArgs a, const T* __restrict__ x, T* __restrict__ y) {
   }
 }
 
+// dynamic shared memory of one block: R, the prefix rows, the two chain
+// buffers, the W sub-block and the x tile (``_smem_bytes`` in Python)
+size_t fwd_smem(const MpoArgs& a, int bm, int bn) {
+  const int ds = a.bond[a.s];
+  return sizeof(float) * ((size_t)ds * a.Is * a.Js + (size_t)a.njp * ds +
+                          (size_t)2 * a.cb * a.dmax + KC * bn + bm * (KC + 1));
+}
+
 template <typename T, int BM, int BN>
 int launch(const MpoArgs& a, const void* x, void* y, cudaStream_t stream) {
-  const int ds = a.bond[a.s];
-  const size_t smem = sizeof(float) * ((size_t)ds * a.Is * a.Js + (size_t)a.njp * ds +
-                                       (size_t)2 * a.cb * a.dmax + KC * BN + BM * (KC + 1));
+  const size_t smem = fwd_smem(a, BM, BN);
   cudaError_t err = repro::allow_smem(mpo_linear_fwd_kernel<T, BM, BN>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.J + BN - 1) / BN, (a.M + BM - 1) / BM, a.E);
@@ -242,26 +248,15 @@ int launch_tile(int tile, const MpoArgs& a, const void* x, void* y, cudaStream_t
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// cores: n device pointers; shapes: n * 4 ints (d0, i, j, d1) per core of
-// one matrix; E matrices stacked (each core E contiguous blocks of its
-// shape, x [E, M, I], y [E, M, J]; E = 1 for one matrix).
-// tile: 0 = 64 x 64 output tiles, 1 = 16 x 16 (njp must be sized for it).
-// x, cores and y float32.  Returns cudaGetLastError() after the launch (0 =
-// launched).
-extern "C" int mpo_linear_fwd(const void* const* cores, const int* shapes, int n, int split,
-                              int njp, int tile, const void* x, void* y, int M, int E,
-                              void* stream) {
-  if (n < 2 || n > MAXN || split < 1 || split >= n || E < 1 || E > 65535)
-    return (int)cudaErrorInvalidValue;
+// The launch arguments of one matrix's cores (pointers and rows left
+// unset): factors, bonds, group sizes and digit place values.
+MpoArgs make_args(const int* shapes, int n, int split, int njp) {
   MpoArgs a;
   a.n = n;
   a.s = split;
   a.I = a.J = a.Is = a.Js = 1;
   a.dmax = 1;
   for (int k = 0; k < n; ++k) {
-    a.core[k] = cores[k];
     a.bond[k] = shapes[4 * k];
     a.fin[k] = shapes[4 * k + 1];
     a.fout[k] = shapes[4 * k + 2];
@@ -277,8 +272,6 @@ extern "C" int mpo_linear_fwd(const void* const* cores, const int* shapes, int n
   a.bond[n] = shapes[4 * (n - 1) + 3];
   a.dmax = a.bond[n] > a.dmax ? a.bond[n] : a.dmax;
   a.Ip = a.I / a.Is;
-  a.M = M;
-  a.E = E;
   a.njp = njp;
   a.cb = njp > PC ? njp : PC;
   // digit place values inside each group: the prefix cores [0, s) make up
@@ -290,5 +283,33 @@ extern "C" int mpo_linear_fwd(const void* const* cores, const int* shapes, int n
     pi *= a.fin[k];
     po *= a.fout[k];
   }
+  return a;
+}
+
+}  // namespace
+
+// cores: n device pointers; shapes: n * 4 ints (d0, i, j, d1) per core of
+// one matrix; E matrices stacked (each core E contiguous blocks of its
+// shape, x [E, M, I], y [E, M, J]; E = 1 for one matrix).
+// tile: 0 = 64 x 64 output tiles, 1 = 16 x 16 (njp must be sized for it).
+// x, cores and y float32.  Returns cudaGetLastError() after the launch (0 =
+// launched).
+extern "C" int mpo_linear_fwd(const void* const* cores, const int* shapes, int n, int split,
+                              int njp, int tile, const void* x, void* y, int M, int E,
+                              void* stream) {
+  if (n < 2 || n > MAXN || split < 1 || split >= n || E < 1 || E > 65535)
+    return (int)cudaErrorInvalidValue;
+  MpoArgs a = make_args(shapes, n, split, njp);
+  for (int k = 0; k < n; ++k) a.core[k] = cores[k];
+  a.M = M;
+  a.E = E;
   return launch_tile<float>(tile, a, x, y, static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic shared memory one block of a launch with these arguments
+// takes, bytes (-1 for arguments the launcher refuses).
+extern "C" long mpo_linear_fwd_smem(const int* shapes, int n, int split, int njp, int tile) {
+  if (n < 2 || n > MAXN || split < 1 || split >= n || tile < 0 || tile > 1) return -1;
+  const MpoArgs a = make_args(shapes, n, split, njp);
+  return (long)(tile == 0 ? fwd_smem(a, 64, 64) : fwd_smem(a, 16, 16));
 }

@@ -78,31 +78,37 @@ class SyntheticCLS:
         return {"tokens": toks[sl], "labels": labels[sl]}
 
 
+def frontend_input(cfg: ModelConfig) -> tuple[str, int] | None:
+    """The batch key and feature width of the family's non-token input:
+    ``("patches", frontend_dim)`` for ``vlm`` (ahead of the text),
+    ``("frames", d_model)`` for ``encdec`` (the encoder's stub frame
+    embeddings), else None; ``frontend_len`` of them a row."""
+    return {"vlm": ("patches", cfg.frontend_dim),
+            "encdec": ("frames", cfg.d_model)}.get(cfg.family)
+
+
 def make_batch_fn(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0):
     """Batch function ``step -> numpy batch dict``.  A ``vlm`` batch adds
-    ``patches`` (drawn once from the seed, the same every step) and its
-    ``seq_len`` counts them: the text takes ``seq_len - frontend_len``
-    tokens and the labels are IGNORE over the patches.  The encdec inputs
-    come with that family (ROADMAP.md, Queue 1 item 7b)."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7b")
+    ``patches`` and an ``encdec`` batch ``frames`` (``frontend_input``),
+    drawn once from the seed, the same every step.  A ``vlm`` ``seq_len``
+    counts the patches: the text takes ``seq_len - frontend_len`` tokens
+    and the labels are IGNORE over the patches; an ``encdec`` ``seq_len``
+    is the decoder's tokens alone."""
     text = shape.seq_len - (cfg.frontend_len if cfg.family == "vlm" else 0)
     lm = SyntheticLM(cfg.vocab_size, text, shape.global_batch, seed=seed)
-    patches = None
-    if cfg.family == "vlm":
-        patches = np.random.default_rng(seed + 1234).normal(
-            0, 1, size=(shape.global_batch, cfg.frontend_len,
-                        cfg.frontend_dim)).astype(np.float32)
+    frontend = frontend_input(cfg)
+    if frontend is not None:
+        static = np.random.default_rng(seed + 1234).normal(
+            0, 1, size=(shape.global_batch, cfg.frontend_len, frontend[1])).astype(np.float32)
 
     def fn(step: int, shard: int = 0, num_shards: int = 1) -> dict:
         b = lm.batch(step, shard, num_shards)
-        if patches is not None:
-            per = shape.global_batch // num_shards
-            b["patches"] = patches[shard * per:(shard + 1) * per]
+        per = shape.global_batch // num_shards
+        if frontend is not None:
+            b[frontend[0]] = static[shard * per:(shard + 1) * per]
+        if cfg.family == "vlm":
             pad = np.full((per, cfg.frontend_len), IGNORE, np.int32)
             b["labels"] = np.concatenate([pad, b["labels"]], axis=1)
         return b
 
     return fn
-

@@ -321,6 +321,9 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.mpo_linear_fwd.restype = ctypes.c_int
+    lib.mpo_linear_fwd_smem.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.mpo_linear_fwd_smem.restype = ctypes.c_long
     return lib
 
 

@@ -1,7 +1,7 @@
 """``Model``: a model family as an ``nn.Module`` — the port of
 ``repro.models.model``.  ``build`` dispatches by family: ``dense``,
 ``moe`` and ``vlm`` to ``models.transformer``, ``ssm`` to ``models.mamba``,
-``hybrid`` to ``models.zamba``.
+``hybrid`` to ``models.zamba``, ``encdec`` to ``models.whisper``.
 
 Parameters are registered under the reference's key paths
 (``embed.cores.c0``, ``layers.attn.wq.cores.central``, ``layers.ln1.scale``,
@@ -23,12 +23,12 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import engine_for
-from repro_torch.models import mamba, transformer, zamba
+from repro_torch.models import mamba, transformer, whisper, zamba
 
-# family -> module of its init / forward / serving functions; encdec comes
-# with ROADMAP.md, Queue 1 item 7b
+# family -> module of its init / forward / serving functions: every family
+# of the reference
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer, "ssm": mamba,
-            "hybrid": zamba}
+            "hybrid": zamba, "encdec": whisper}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -124,8 +124,11 @@ class Model(_Tree):
     def init_cache(self, batch: int, max_len: int, **kw):
         """The serving cache: the KV cache (a dict; ``paged=True`` pages it)
         for the transformer families, the ``(L, B, H, N, P)`` f32 state
-        tensor for ``ssm``, and for ``hybrid`` a dict of both (``kv``: one
-        dense cache a segment, ``ssm``: the states); neither of the last two
+        tensor for ``ssm``, for ``hybrid`` a dict of both (``kv``: one dense
+        cache a segment, ``ssm``: the states), and for ``encdec`` the
+        decoder's dense self-attention cache and the encoder's output
+        (``self``: ``k``, ``v`` (L, B, max_len, KV, Dh) and ``pos`` (L,);
+        ``enc_out``: (B, frontend_len, d_model)); none of the last three
         pages (``paged=True`` raises)."""
         return self.mod.init_cache(self.cfg, batch, max_len, device=self.device, **kw)
 
@@ -144,9 +147,9 @@ class Model(_Tree):
     def prefill_chunk(self):
         """Incremental prefill, ``(params, batch, cache, phase="prefill") ->
         (all-position logits, cache)``: one chunk at the cache's current
-        offset (``transformer.prefill_chunk``).  ``None`` for the ``ssm``
-        and ``hybrid`` families, whose states have no KV sequence to
-        continue (the reference has none for either)."""
+        offset (``transformer.prefill_chunk``).  ``None`` for the ``ssm``,
+        ``hybrid`` and ``encdec`` families, whose caches have no per-slot KV
+        sequence to continue (the reference has none for them)."""
         fn = getattr(self.mod, "prefill_chunk", None)
         if fn is None:
             return None
@@ -202,16 +205,14 @@ def _to(tree: dict, device) -> dict:
 
 
 def family_module(cfg: ModelConfig):
-    """The module of ``cfg``'s family; ``encdec``, not yet ported, raises
-    naming its ROADMAP.md item."""
+    """The module of ``cfg``'s family; an unknown family raises the
+    reference's ``ValueError``."""
     mod = FAMILIES.get(cfg.family)
     if mod is None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} comes with ROADMAP.md, Queue 1 item 7b")
+        raise ValueError(f"unknown family {cfg.family}")
     return mod
 
 
 def build(cfg: ModelConfig, *, seed: int = 0, device=None, init_device="cpu") -> Model:
-    """The model for ``cfg``: the ``dense``, ``moe``, ``vlm``, ``ssm`` and
-    ``hybrid`` families (``encdec`` raises, ROADMAP.md Queue 1 item 7b)."""
+    """The model for ``cfg``, of any of the reference's families."""
     return Model(cfg, seed=seed, device=device, init_device=init_device)

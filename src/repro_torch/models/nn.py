@@ -319,14 +319,17 @@ def _paged_attention(params, q, k, v, cache, cfg: AttnCfg, mpo: MPOConfig,
 
 
 def apply_attention(params, x, cfg: AttnCfg, mpo: MPOConfig, *, positions, mask,
-                    cache=None, phase: str = "train", chunk: bool = False):
+                    kv_x=None, cache=None, phase: str = "train", chunk: bool = False):
     """Returns (y, cache).
 
     ``cache``: one layer's dense ring buffer ``dict(k, v, pos)`` with per-slot
     positions (``pos`` (B,)) or one position for every row (``pos`` 0-d, a
     hybrid segment's), or its paged form (k_pages / v_pages / page_table /
     free_list / free_count / pos, see ``transformer.init_cache(paged=True)``);
-    either is updated in place.  ``phase`` feeds the engine's per-matrix planning.
+    either is updated in place.  ``kv_x`` makes it cross-attention: K and V
+    are projected from ``kv_x`` (no rope on K), or, with a cache, taken from
+    the cache's precomputed ``k`` / ``v``, which is returned unchanged.
+    ``phase`` feeds the engine's per-matrix planning.
     ``chunk=True`` marks a multi-token prefill CHUNK continuing at the
     cache's current position (``transformer.prefill_chunk``): the caller
     gives offset positions and mask; the dense cache already appends a
@@ -335,14 +338,24 @@ def apply_attention(params, x, cfg: AttnCfg, mpo: MPOConfig, *, positions, mask,
     b, s = x.shape[0], x.shape[1]
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(L.apply_linear(params["wq"], x, cfg=mpo, phase=phase), h, dh)
-    k = _split_heads(L.apply_linear(params["wk"], x, cfg=mpo, phase=phase), kvh, dh)
-    v = _split_heads(L.apply_linear(params["wv"], x, cfg=mpo, phase=phase), kvh, dh)
+    if kv_x is not None and cache is not None:
+        # cross-attention over the K/V a prefill stored (the reference
+        # projects kv_x and overwrites it: not computed here)
+        if cfg.qk_norm:
+            q = apply_rmsnorm(params["q_norm"], q)
+        if cfg.use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+        return _attend(params, q, cache["k"], cache["v"], cfg, mpo, mask, phase), cache
+    src = x if kv_x is None else kv_x
+    k = _split_heads(L.apply_linear(params["wk"], src, cfg=mpo, phase=phase), kvh, dh)
+    v = _split_heads(L.apply_linear(params["wv"], src, cfg=mpo, phase=phase), kvh, dh)
     if cfg.qk_norm:
         q = apply_rmsnorm(params["q_norm"], q)
         k = apply_rmsnorm(params["k_norm"], k)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        if kv_x is None:
+            k = rope(k, positions, cfg.rope_theta)
     if cache is not None and "k_pages" in cache:
         return _paged_attention(params, q, k, v, cache, cfg, mpo, mask, phase, chunk)
     if cache is not None:
@@ -370,9 +383,16 @@ def apply_attention(params, x, cfg: AttnCfg, mpo: MPOConfig, *, positions, mask,
             vc.index_copy_(1, at, v.to(vc.dtype))
         idx.add_(s)
         k, v = kc, vc
+    return _attend(params, q, k, v, cfg, mpo, mask, phase), cache
+
+
+def _attend(params, q, k, v, cfg: AttnCfg, mpo: MPOConfig, mask, phase: str):
+    """Softmax attention of q (B, Sq, H, Dh) over k, v (B, Sk, KV, Dh), then wo."""
+    b, s = q.shape[0], q.shape[1]
     w = attention_scores(q, k, cfg, mask)          # (B,KV,G,Sq,Sk)
-    y = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v).reshape(b, s, h * dh)
-    return L.apply_linear(params["wo"], y, cfg=mpo, phase=phase), cache
+    y = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
+    y = y.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return L.apply_linear(params["wo"], y, cfg=mpo, phase=phase)
 
 
 # --------------------------------------------------------------------------

@@ -138,9 +138,30 @@ def _replay_main(argv) -> int:
     return 0
 
 
-def _run(args) -> int:
+def sample_batch(cfg, batch: int, prompt_len: int, seed: int = 0) -> dict:
+    """The serving sample's prefill batch, with the shapes of the
+    reference's ``make_batch`` at a ``prefill`` of ``prompt_len`` (numpy
+    draws): tokens in ``[0, min(vocab, 1000))``, and the family's frontend
+    input (``data.pipeline.frontend_input``): a ``vlm`` prompt's
+    ``frontend_len`` positions are patches ahead of its text, an ``encdec``
+    batch adds the encoder's frames."""
     import numpy as np
 
+    from repro_torch.data.pipeline import frontend_input
+    rng = np.random.default_rng(seed)
+    text = prompt_len - (cfg.frontend_len if cfg.family == "vlm" else 0)
+    if text < 1:
+        raise ValueError(f"--prompt-len {prompt_len} leaves no text after the "
+                         f"{cfg.frontend_len} patches")
+    out = {"tokens": rng.integers(0, min(cfg.vocab_size, 1000), (batch, text)).astype(np.int32)}
+    frontend = frontend_input(cfg)
+    if frontend is not None:
+        out[frontend[0]] = rng.normal(0, 1, (batch, cfg.frontend_len, frontend[1])).astype(
+            np.float32)
+    return out
+
+
+def _run(args) -> int:
     from repro_torch.pipeline.session import Session
 
     session = None
@@ -162,9 +183,8 @@ def _run(args) -> int:
             print(f"[repro-torch-pipeline] session saved to {args.session_dir}")
     if args.tokens and session.task == "lm":
         handle = session.serve(args.batch, args.prompt_len + args.tokens + 1)
-        prompts = np.random.default_rng(0).integers(
-            0, min(session.cfg.vocab_size, 1000), (args.batch, args.prompt_len))
-        ids = handle.generate({"tokens": prompts.astype(np.int32)}, args.tokens)
+        batch = sample_batch(session.cfg, args.batch, args.prompt_len)
+        ids = handle.generate(batch, args.tokens)
         print(f"[repro-torch-pipeline] sample ids: {ids[0].tolist()}")
     print(json.dumps(session.report(), indent=2, default=float))
     return 0

@@ -98,8 +98,9 @@ from repro_torch.train.steps import make_serve_steps
 
 # families whose decode step tolerates per-slot state: transformers carry
 # per-slot positions in the KV cache; SSM states are position-free.  The
-# vlm frontend needs more than a token prompt at admission (the reference's
-# refusal, kept).
+# hybrid and encdec caches hold one shared position per segment or layer,
+# and the vlm and encdec frontends need more than a token prompt at
+# admission (the reference's refusals, kept).
 SUPPORTED_FAMILIES = ("dense", "moe", "ssm")
 
 # recent-failure ring size (aggregate counters stay exact past the cap)

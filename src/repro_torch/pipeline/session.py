@@ -23,8 +23,10 @@ A densified weight-cache snapshot is only valid for the cores it was taken
 from: ``finetune`` and ``squeeze`` bump the weights version, so a later
 ``serve`` re-densifies from the current cores.  The ``dense``, ``ssm``
 (mamba2-130m, whose SSD scan trains through the backward kernel
-``kernels.ssd_scan.ssd_scan_bwd``) and ``vlm`` families run every stage
-here.  The ``moe`` family fine-tunes (its expert matrices through the cores
+``kernels.ssd_scan.ssd_scan_bwd``), ``vlm``, ``hybrid`` and ``encdec``
+(whisper-tiny: batches carry ``frames``) families run every stage here;
+``serve_pool`` and ``serve_fleet`` refuse ``vlm``, ``hybrid`` and
+``encdec``, as the reference's ``ServePool`` does.  The ``moe`` family fine-tunes (its expert matrices through the cores
 backward over the expert stack) and serves (also ``serve_pool`` and
 ``serve_fleet``); its conversion and squeezing raise, as the reference's
 Algorithm 1 and 2 fail on (L, E) expert stacks (``core.convert`` and
@@ -411,7 +413,8 @@ class Session:
         backward kernels on the card; in the ``moe`` family each expert
         matrix's stack runs one forward and one cores-backward call a
         layer (the history reports the load-balance ``aux``); ``vlm``
-        batches carry patches (``seq_len`` counts them)."""
+        batches carry patches (``seq_len`` counts them), ``encdec`` batches
+        frames (``seq_len`` counts the decoder's tokens alone)."""
         t0 = time.perf_counter()
         loss_fn = loss_fn or self._default_loss_fn()
         batch_fn = batch_fn or self._default_batch_fn(seq_len, batch_size, seed)

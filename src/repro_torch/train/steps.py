@@ -49,7 +49,7 @@ def lm_loss(model: Model, params, batch):
     if model.mod is transformer:
         hidden, aux = model.mod.forward_hidden(params, batch, cfg, phase="train",
                                                with_aux=True)
-    else:                                             # ssm, hybrid: no aux loss
+    else:                                     # ssm, hybrid, encdec: no aux loss
         hidden = model.mod.forward_hidden(params, batch, cfg, phase="train")
         aux = torch.zeros((), device=hidden.device)
     labels = batch["labels"]
@@ -137,7 +137,8 @@ def make_cls_loss(cfg):
 class ServeSteps(NamedTuple):
     """The serving step bundle ``make_serve_steps`` returns.  Unpacks like
     the reference's (``prefill, decode, init_serve, chunk = ...``);
-    ``prefill_chunk`` is ``None`` for families without one (``ssm``)."""
+    ``prefill_chunk`` is ``None`` for families without one (``ssm``,
+    ``hybrid``, ``encdec``)."""
 
     prefill: Any
     decode: Any
@@ -153,7 +154,8 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
 
     ``init_serve(params, batch, max_len)`` runs ONCE per serving session: it
     allocates the cache (the KV cache with per-slot positions, paged when
-    ``paged``; the SSM state tensor for the ``ssm`` family) and —
+    ``paged``; the SSM state tensor for the ``ssm`` family; the hybrid's and
+    encdec's caches, ``Model.init_cache``) and —
     when ``weight_cache`` — contracts every factorized matrix whose decode
     plan is ``cached`` into its dense W in the config's activation dtype,
     returning ``(serve_params, cache)``.
@@ -165,13 +167,15 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
     handle.  Re-run ``init_serve`` to serve weights changed since.
 
     ``prefill(params, batch, cache)`` takes the batch dict: ``tokens``, and
-    for the ``vlm`` family ``patches`` (put ahead of the text).  The weight
+    for the ``vlm`` family ``patches`` (put ahead of the text), for the
+    ``encdec`` family ``frames`` (the encoder's input).  The weight
     cache covers expert stacks: a MoE layer's expert matrices are contracted
     into ``(L, E, I, J)`` W like any stacked matrix.
     ``decode(params, tokens, cache)`` returns ``(next_tokens (B, 1) int32,
     logits, cache)`` with greedy argmax; ``prefill_chunk(params, batch,
     cache)`` continues a prefill at the cache's current offsets and returns
-    the logits of EVERY chunk position (``None`` for the ``ssm`` family).
+    the logits of EVERY chunk position (``None`` for the ``ssm``,
+    ``hybrid`` and ``encdec`` families).
     Every step updates ``cache`` in place.  ``pool_pages`` oversubscribes
     the paged pool below ``batch * max_pages`` (only behind ``ServePool``'s
     page-reservation admission).

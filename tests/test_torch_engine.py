@@ -47,11 +47,13 @@ def _matrix_shapes(cfg_mod, arch, smoke):
     if "lm_head" in params:
         out["lm_head"] = [c.shape for c in JL.cores_to_list(params["lm_head"]["cores"])]
     # a stack's matrices (the layers; the hybrid's Mamba2 blocks and its
-    # shared attention blocks), one layer's shapes
-    blocks = [params[k] for k in ("layers", "shared_attn") if k in params]
+    # shared attention blocks; the encdec's encoder and decoder, whose
+    # self- and cross-attention matrices share their shapes), one layer's
+    # shapes
+    blocks = [params[k] for k in ("layers", "shared_attn", "encoder", "decoder") if k in params]
     blocks += [{"mamba": params["mamba"]}] if "mamba" in params else []
     for block in blocks:
-        for grp in ("attn", "mlp", "mamba"):
+        for grp in ("attn", "xattn", "mlp", "mamba"):
             for name, lin in block.get(grp, {}).items():
                 if isinstance(lin, dict) and "cores" in lin:
                     out[name] = [c.shape[1:] for c in JL.cores_to_list(lin["cores"])]
@@ -66,7 +68,7 @@ def _jcfg(tcfg):
     return JL.MPOConfig(**dataclasses.asdict(tcfg))
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_VLM + (HYBRID,))
+@pytest.mark.parametrize("arch", ARCHS + MOE_VLM + (HYBRID, "whisper-tiny"))
 @pytest.mark.parametrize("smoke", [True, False])
 def test_cpu_plans_equal_reference_interpret(arch, smoke):
     tcfg = (tconfigs.smoke_config(arch) if smoke else tconfigs.get_config(arch)).mpo
@@ -237,6 +239,86 @@ def test_cuda_kernel_decisions_for_zamba2_7b_pin_every_difference():
     assert JMK.kernel_eligible(shapes["wo"], JE.DEFAULT_BLOCK_M)
     assert not any(JMK.kernel_eligible(shapes[n], JE.DEFAULT_BLOCK_M, train=True)
                    for n in ("out_proj", "w_up", "w_down"))
+
+
+# whisper-tiny's plans on the card against the reference's compiled ones,
+# every difference by matrix, phase and dtype, as (reference, port, rows):
+# - bf16: the port's tensor-core plan (``_mma_split``) refuses every matrix
+#   of its layers.  At the attention matrices (384 -> 384, cores (1,3,3,9)
+#   (9,4,4,64) (64,4,4,64) (64,4,4,4) (4,2,2,1)) the split at bond 3 needs
+#   425,984 B of R and P against the cap of an eighth of the bf16 W, 36,864
+#   B, and at bond 2 302,080 B of shared memory against 232,448; at w_up
+#   and w_down 1,310,720 B against 147,456.  So the port rebuilds W
+#   (``reconstruct``) where the reference's kernel takes wq, wk, wv and wo
+#   (the encoder's and the decoder's self- and cross-attention, which share
+#   their shapes) in every phase from 8 rows and w_down from 128 rows in a
+#   prefill; its w_up both packages rebuild (the reference's J / j_1 = 96
+#   misses the TPU's 128 lanes).  The tied head is planned alike: ``kernel``
+#   from 8 rows in both (the port's bf16 forward takes it);
+# - float32: ``csrc/mpo_linear.cu`` takes every matrix of the layers, so the
+#   port fuses w_up (whose J / j_1 the reference refuses) in every phase and
+#   w_down in training (whose I / i_1 = 96 the reference's backward
+#   refuses); the reference rebuilds W there.
+WHISPER = "whisper-tiny"
+WHISPER_ROWS = (8, 3584, 12000)
+_ATTN = ("wq", "wk", "wv", "wo")
+WHISPER_H = {
+    "bfloat16": {**{(name, ph): ("kernel", "reconstruct", WHISPER_ROWS) for name in _ATTN
+                    for ph in ("train", "prefill", "decode")},
+                 ("w_down", "prefill"): ("kernel", "reconstruct", (3584, 12000)),
+                 ("w_down", "decode"): ("kernel", "reconstruct", (3584, 12000))},
+    "float32": {("w_up", "train"): ("reconstruct", "kernel", WHISPER_ROWS),
+                ("w_up", "prefill"): ("reconstruct", "kernel", WHISPER_ROWS),
+                ("w_up", "decode"): ("reconstruct", "kernel", WHISPER_ROWS),
+                ("w_down", "train"): ("reconstruct", "kernel", (3584, 12000))},
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_kernel_decisions_for_whisper_tiny_pin_every_difference(dtype):
+    """Every factorized matrix of whisper-tiny (its encoder's and decoder's
+    attention, cross-attention and MLP, the embedding and its transpose),
+    both dtypes, at 8 rows, a decoder prefill of 8 x 448 and the encoder's
+    8 x 1500, in every phase: the port's decision equals the reference's
+    compiled one except at ``WHISPER_H``'s named cases, each in its
+    direction; and the reasons, from the routes and gates."""
+    tcfg = tconfigs.get_config(WHISPER).mpo
+    jcfg = _jcfg(tcfg)
+    shapes = _matrix_shapes(jconfigs, WHISPER, False)
+    assert set(shapes) == {"embed", "embed_T", "wq", "wk", "wv", "wo", "w_up", "w_down"}
+    seen = {}
+    for name, sh in shapes.items():
+        for tokens in WHISPER_ROWS:
+            for phase in ("train", "prefill", "decode"):
+                jm = _effective(JE.choose_mode, jcfg, sh, tokens, phase, interpret=False,
+                                dtype=dtype)
+                tm = _effective(TE.choose_mode, tcfg, sh, tokens, phase, device="cuda",
+                                dtype=dtype)
+                if jm != tm:
+                    seen.setdefault((name, phase), []).append((jm, tm, tokens))
+    got = {k: (v[0][0], v[0][1], tuple(t for _, _, t in v)) for k, v in seen.items()}
+    assert all(len({(a, b) for a, b, _ in v}) == 1 for v in seen.values()), seen
+    assert got == WHISPER_H[dtype]
+    layer = ("wq", "wk", "wv", "wo", "w_up", "w_down")
+    if dtype == "bfloat16":
+        # no bf16 route for the layers' matrices: no MPO kernel runs there
+        assert all(TMK.forward_kernel(shapes[n], dtype) is None for n in layer)
+        assert TMK.forward_kernel(shapes["embed_T"], dtype) == "mma"
+        assert all(JMK.kernel_eligible(shapes[n], JE.DEFAULT_BLOCK_M) for n in _ATTN)
+    else:
+        assert all(TMK.forward_kernel(shapes[n], dtype) == "cuda_core" for n in layer)
+        assert all(TMK.kernel_eligible(shapes[n], dtype=dtype, train=True) for n in layer)
+    assert not JMK.kernel_eligible(shapes["w_up"], JE.DEFAULT_BLOCK_M)
+    assert JMK.kernel_eligible(shapes["w_down"], JE.DEFAULT_BLOCK_M)
+    assert not JMK.kernel_eligible(shapes["w_down"], JE.DEFAULT_BLOCK_M, train=True)
+    # the encoder's, the decoder's and the cross-attention's matrices share
+    # their shapes, so one entry a name covers all three
+    params, _ = JL.split_annotations(jax.eval_shape(
+        JModel.build(jconfigs.get_config(WHISPER)).init, jax.random.PRNGKey(0)))
+    for block, grp in (("encoder", "attn"), ("decoder", "attn"), ("decoder", "xattn")):
+        for name in _ATTN:
+            cs = JL.cores_to_list(params[block][grp][name]["cores"])
+            assert [c.shape[1:] for c in cs] == shapes[name], (block, grp, name)
 
 
 def test_forced_mode_and_phase_validation():

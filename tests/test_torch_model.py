@@ -277,13 +277,21 @@ def test_report_and_later_stages(pair):
 
 
 def test_other_families_raise():
-    # dense, ssm, moe, vlm and hybrid are ported (tests/test_torch_mamba.py,
-    # test_torch_moe.py, test_torch_vlm.py, test_torch_zamba.py); encdec raises
-    cfg = dataclasses.replace(tconfigs.smoke_config("bert-base"), family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7b"):
+    # every family of the reference is ported (tests/test_torch_mamba.py,
+    # test_torch_moe.py, test_torch_vlm.py, test_torch_zamba.py,
+    # test_torch_whisper.py) and every arch resolves; an unknown family
+    # raises the reference's ValueError, an unknown arch a KeyError
+    assert set(tconfigs.ARCHS) == set(jconfigs.ARCHS)
+    for arch in jconfigs.ARCHS:
+        assert TModel.family_module(tconfigs.get_config(arch)) is \
+            TModel.FAMILIES[jconfigs.get_config(arch).family], arch
+    cfg = dataclasses.replace(tconfigs.smoke_config("bert-base"), family="audio")
+    with pytest.raises(ValueError, match="unknown family audio"):
         TModel.build(cfg, device="cpu")
-    with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get_config("whisper-tiny")
+    with pytest.raises(ValueError, match="unknown family audio"):
+        JModel.build(dataclasses.replace(jconfigs.smoke_config("bert-base"), family="audio"))
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_config("whisper-base")
 
 
 def test_default_device_is_the_card():

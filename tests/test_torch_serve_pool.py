@@ -305,7 +305,8 @@ def test_pool_submit_and_knob_validation(pair):
         with pytest.raises(ValueError, match=match):
             ts.serve_pool(kw.pop("slots"), MAX_LEN, **kw)
     # families: vlm, hybrid and encdec cannot pool (the reference's refusal)
-    for family, match in (("vlm", "ServePool supports"), ("hybrid", "ServePool supports")):
+    for family, match in (("vlm", "ServePool supports"), ("hybrid", "ServePool supports"),
+                          ("encdec", "ServePool supports")):
         stub = types.SimpleNamespace(cfg=types.SimpleNamespace(family=family))
         with pytest.raises(NotImplementedError, match=match):
             ServePool(stub, {}, 2, MAX_LEN)

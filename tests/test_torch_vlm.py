@@ -71,9 +71,6 @@ def test_make_batch_fn_matches_reference():
                 np.testing.assert_array_equal(tb[k], jb[k], k)
             assert tb["labels"].shape == (2, 24) and tb["tokens"].shape == (2, 16)
             assert (tb["labels"][:, :tcfg.frontend_len] == TP.IGNORE).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7b"):
-        TP.make_batch_fn(tconfigs.smoke_config("bert-base", family="encdec"),
-                         ShapeConfig("t", "train", 8, 2))
 
 
 def test_forward_and_loss_match_reference(pair):
