@@ -14,12 +14,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    L2 flushed before every timed call, the host's enqueue hidden behind a
    GPU spin: the card's time alone) and the least time the card could take
    (``bound_ms``).  The MPO-linear forward runs the tensor-core kernel
-   (``csrc/mpo_linear_mma.cu``) in both dtypes, with ``csrc/mpo_linear.cu``
-   timed beside every float32 case (``prev_ms``), and ``csrc/mpo_linear.cu``
-   itself at a narrow float32 matrix the tensor-core plan refuses (smoke
-   bert-base's wq); every case checks that two launches give the same bits,
-   and every tensor-core case that its plan's shared memory and workspace
-   match the CUDA source's and stay under a quarter of a bf16 W.  Flash
+   (``csrc/mpo_linear_mma.cu``) in both dtypes, and ``csrc/mpo_linear.cu``
+   (float32 on the tensor cores too, for the shapes the first's plan
+   refuses) at a narrow float32 matrix (smoke bert-base's wq); every case
+   checks that two launches give the same bits, and that its plan's shared
+   memory and workspace match the CUDA source's and stay under a quarter of
+   a bf16 W.  Flash
    decode (split-K) at bert-base's and qwen3-14b's geometry, ragged lengths,
    softcap, page and split boundaries, both dtypes, two launches
    bit-identical, the previous serial kernel timed beside it (``prev_ms``).
@@ -45,7 +45,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    are zeroed just before each run and read just after; every full-width
    path must launch the tensor-core forward (factorized bert-base,
    mamba2-130m both ways through its tied head, fine-tuning, the float32
-   runs of phase 4), never the CUDA-core one, and no plain version.  Then
+   runs of phase 4), never csrc/mpo_linear.cu, and no plain version.  Then
    full-width mamba2-130m (bf16) served from 8 prompts of 512 tokens,
    ``serve(8, 544)``, 32 generated tokens, both ways: 24 SSD-scan launches a
    prefill, no plain-version call; then each run's bf16 prefill layer by
@@ -400,7 +400,8 @@ ALBERT_LFA_COUNTS = (284_020, 702_836)           # trainable, total (reference's
 # the dense LLM configurations (phase 10): bf16 at full width and depth from 8
 # prompts of 512 tokens, 16 new; float32 at full width and 2 layers, 16 new,
 # from 2 prompts of 128 (gemma2-27b: one of 4352, past its 4096-token window);
-# gemma2's CUDA-core FFN held against its plain version at M = 64.  The
+# gemma2's FFN (csrc/mpo_linear.cu) held against its plain version at M = 64
+# and 4352, qwen3-14b's lm_head (the same kernel) at M = 2.  The
 # factorized bf16 runs are cut to 4 layers: the forward takes ~140 ms a call
 # at mistral's and qwen3's FFN (phase 2's mistral w_up case on an H100), ~17
 # s a full-depth prefill (PERF.md); gemma2-27b's and nemotron-4-15b's
@@ -411,9 +412,10 @@ LLM_ARCHS = ("gemma2-27b", "mistral-nemo-12b", "nemotron-4-15b", "qwen3-14b")
 LLM_BATCH, LLM_PROMPT, LLM_MAX_LEN, LLM_NEW = 8, 512, 640, 16
 LLM_FACT_LAYERS = {arch: 4 for arch in LLM_ARCHS}
 LLM_F32_LAYERS, LLM_F32_NEW, LLM_F32_CASE_M = 2, 16, 64
-# depth cuts of the float32 runs whose factorized prefill sends an FFN to the
-# CUDA-core forward: gemma2-27b's 4352 rows took 84.5 s at 2 layers, llava's
-# 1152 rows 39.1 s (phase 14's time came from these)
+# depth cuts of the float32 runs whose factorized prefill sends an FFN to
+# csrc/mpo_linear.cu: gemma2-27b's 4352 rows took 84.5 s at 2 layers, llava's
+# 1152 rows 39.1 s with the kernel's first, CUDA-core design (phase 14's
+# time came from these)
 LLM_F32_DEPTH = {"gemma2-27b": 1, "llava-next-34b": 1}
 LLM_F32_PROMPT, LLM_F32_SHORT = {"gemma2-27b": (1, 4352)}, (2, 128)
 # the moe and vlm families (phase 12), weights random from the seed at full
@@ -803,21 +805,19 @@ def main() -> int:
 
     mma_lib = MK._mma_lib()
 
-    def fwd_case(mname, cores32, m, dtype, phase="kernels", reps=10, tol=None, prev=True):
+    def fwd_case(mname, cores32, m, dtype, phase="kernels", reps=10, tol=None):
         """The MPO-linear forward through ``MK.mpo_linear`` against its plain
         version: the kernel ``MK.forward_kernel`` names for the shapes (the
         tensor-core kernel in both dtypes, ``csrc/mpo_linear.cu`` for narrow
-        float32 shapes); two launches give the same bits; for the
-        tensor-core kernel the plan's shared memory and workspace match the
-        CUDA source's, the workspace stays under a quarter of a bf16 W's
-        bytes, and in float32 ``csrc/mpo_linear.cu`` is timed beside it
-        (``prev_ms``).  5-D ``cores32`` are a stack of E matrices (a MoE
-        layer's experts) with x (E, M, I): one launch a call, the stack's
-        workspace E times a matrix's (the quarter-of-W gate per matrix),
-        the library yardstick ``torch.matmul(x, reconstruct_stacked(cores))``.
-        ``tol`` replaces ``TOL`` where more terms are summed than it was set
-        for; ``reps`` shortens the timing of a slow case; ``prev=False``
-        leaves out the CUDA-core yardstick where it would take seconds."""
+        float32 shapes); two launches give the same bits; the plan's shared
+        memory and workspace match the CUDA source's and the workspace stays
+        under a quarter of a bf16 W's bytes.  5-D ``cores32`` are a stack of
+        E matrices (a MoE layer's experts) with x (E, M, I): one launch a
+        call, the stack's workspace E times a matrix's (the quarter-of-W
+        gate per matrix), the library yardstick ``torch.matmul(x,
+        reconstruct_stacked(cores))``.  ``tol`` replaces ``TOL`` where more
+        terms are summed than it was set for; ``reps`` shortens the timing
+        of a slow case."""
         tdt = getattr(torch, dtype)
         cores = [c.to(tdt).contiguous() for c in cores32]
         stack = cores[0].shape[:-4]                  # (E,) for an expert stack, else ()
@@ -856,23 +856,26 @@ def main() -> int:
             extra.update(split=plan.split, bm=plan.bm, tc=plan.tc, splits=plan.splits,
                          smem_bytes=plan.smem, workspace_bytes=n * plan.workspace,
                          w_bf16_bytes=2 * n * i_dim * j_dim)
-            if prev and dtype == "float32" and not stack and MK._launch_plan(shapes) is not None:
-                # the CUDA-core kernel the float32 path ran before, as the yardstick
-                extra["prev_ms"] = timed(lambda: MK.mpo_linear_cuda_core(cores, shapes, j_dim,
-                                                                          m, x), reps)
         else:
-            # the CUDA-core kernel: its launch's shared memory against the
-            # CUDA source's (it takes no scratch)
-            tile = 1 if m <= MK.SMALL_M else 0
-            split, njp = MK._launch_plan(shapes, tile)
-            smem = MK._smem_bytes(shapes, split, njp, tile)
-            smem_c = MK._lib().mpo_linear_fwd_smem(MK._dims(shapes), len(cores), split, njp,
-                                                   tile)
-            if smem_c != smem:
-                fail(f"mpo_linear_fwd {mname} M={m}: the plan's shared memory {smem} differs "
-                     f"from the CUDA source's {smem_c}")
-            extra.update(split=split, njp=njp, tile=list(MK.TILES[tile]), smem_bytes=smem,
-                         workspace_bytes=0)
+            # csrc/mpo_linear.cu: its plan's shared memory and workspace (the
+            # split partials) against the CUDA source's
+            plan = MK._narrow_plan(shapes, m)
+            lib = MK._lib()
+            smem_c = lib.mpo_linear_fwd_smem(MK._dims(shapes), len(cores), plan.split, plan.bm,
+                                             plan.ch, plan.lq)
+            ws_c = lib.mpo_linear_fwd_workspace(MK._dims(shapes), len(cores), plan.split, m,
+                                                plan.splits, n)
+            if (smem_c, ws_c) != (plan.smem, n * plan.workspace):
+                fail(f"mpo_linear_fwd {mname} M={m}: the plan's shared memory / workspace "
+                     f"{plan.smem} / {n * plan.workspace} differ from the CUDA source's "
+                     f"{smem_c} / {ws_c}")
+            if 4 * plan.workspace >= 2 * i_dim * j_dim:
+                fail(f"mpo_linear_fwd {mname} M={m}: workspace {plan.workspace} B a matrix is "
+                     f"not below a quarter of its bf16 W's {2 * i_dim * j_dim} B")
+            extra.update(split=plan.split, bm=plan.bm, rg=plan.rg, ch=plan.ch, lq=plan.lq,
+                         splits=plan.splits, fast=plan.fast,
+                         vec=plan.vec, smem_bytes=plan.smem, workspace_bytes=n * plan.workspace,
+                         w_bf16_bytes=2 * n * i_dim * j_dim)
         ref = MK.mpo_linear_plain(cores, x)
         tol = TOL[dtype] if tol is None else tol
         err = check(FWD_KERNEL[route], y, ref, dtype, f"{mname} M={m} {dtype}", tol)
@@ -904,7 +907,7 @@ def main() -> int:
         for dtype in ("bfloat16", "float32"):
             results[("mpo", "attn", m, dtype)] = fwd_case("attn", mats["attn"], m, dtype)
     # a narrow float32 matrix (smoke bert-base's wq at a smoke prefill's 4 x
-    # 12 rows): the tensor-core plan refuses it, the CUDA-core kernel runs
+    # 12 rows): the tensor-core plan refuses it, csrc/mpo_linear.cu runs
     smoke_wq = [c[0].to(dev) for c in cores_to_list(Session.init(
         configs.smoke_config("bert-base"), seed=SEED, device="cpu",
         dtype="float32").params["layers"]["attn"]["wq"]["cores"])]
@@ -1221,8 +1224,8 @@ def main() -> int:
         if not finite or tokens.shape != (batch, new_tokens):
             fail(f"{arch} weight_cache={wc}: non-finite logits or cache, or tokens of "
                  f"shape {tuple(tokens.shape)}")
-        # the full-width matrices run the tensor-core kernel, never the
-        # CUDA-core one; a factorized run launches it in prefill and decode
+        # the full-width matrices run the tensor-core kernel, never
+        # csrc/mpo_linear.cu; a factorized run launches it in prefill and decode
         fwd, other = "mpo_linear_fwd_mma", "mpo_linear_fwd"
         if not wc and (per_prefill[fwd] == 0 or per_decode[fwd] == 0):
             fail(f"{arch} weight_cache=False: prefill or decode never launched {fwd}")
@@ -1379,7 +1382,7 @@ def main() -> int:
     if (f32_counts["mpo_linear_fwd_mma"] == 0 or f32_counts["mpo_linear_fwd"]
             or any(f32_counts[k] for k in plains)):
         fail(f"float32 bert-base serving: launches {f32_counts}; the tensor-core kernel must "
-             "run, the CUDA-core kernel and the plain versions not")
+             "run, csrc/mpo_linear.cu and the plain versions not")
     f32_mma = {"bert-base float32 serve (three runs)": f32_counts["mpo_linear_fwd_mma"]}
     f32_flash = {"bert-base float32 serve (two paged runs)": f32_counts["flash_decode_attention"]}
     cuda_core = {}
@@ -1413,7 +1416,7 @@ def main() -> int:
     if (f32_counts["mpo_linear_fwd_mma"] == 0 or f32_counts["mpo_linear_fwd"]
             or any(f32_counts[k] for k in plains)):
         fail(f"float32 mamba2-130m serving: launches {f32_counts}; the tensor-core kernel "
-             "must run, the CUDA-core kernel and the plain versions not")
+             "must run, csrc/mpo_linear.cu and the plain versions not")
     f32_mma["mamba2-130m float32 serve (both runs)"] = f32_counts["mpo_linear_fwd_mma"]
     f32_ssd = {"mamba2-130m float32 serve (both runs)": f32_counts["ssd_scan"]}
     if f32_counts["ssd_scan"] != 2 * mcfg.num_layers:
@@ -1617,7 +1620,7 @@ def main() -> int:
     plain = MK.mpo_linear_plain.calls + MK.mpo_linear_bwd_cores_plain.calls
     if MK.mpo_linear_cuda_core.launches:
         fail(f"fine-tuning (bf16): {MK.mpo_linear_cuda_core.launches} launches of the "
-             "CUDA-core forward")
+             "csrc/mpo_linear.cu forward")
     losses = [h["loss"] for h in rep["history"]]
     unchanged = all(torch.equal(v, tsess.model.state_dict()[k]) for k, v in central.items())
     emit(phase="train", arch="bert-base", dtype=tsess.cfg.dtype, mode="lfa", remat=tsess.cfg.remat,
@@ -1920,11 +1923,11 @@ def main() -> int:
 
     def fold(path, counts, need):
         """Fail unless every kernel of ``need`` launched and nothing else
-        ran (plain versions, the CUDA-core forward); add the launches to the
+        ran (plain versions, csrc/mpo_linear.cu); add the launches to the
         kernels line."""
         other = plain_and_cuda_core()
         if any(counts[k] == 0 for k in need) or other:
-            fail(f"{path}: launches {counts}, plain-version or CUDA-core calls {other}")
+            fail(f"{path}: launches {counts}, plain-version or mpo_linear.cu calls {other}")
         for k, v in counts.items():
             if v:
                 path_launches[k] = path_launches.get(k, 0) + v
@@ -2173,11 +2176,11 @@ def main() -> int:
 
     def pool_gate(path, counts, need):
         """Fail unless every kernel of ``need`` launched, and no plain version
-        or CUDA-core forward ran; add the launches to the kernels line."""
+        or mpo_linear.cu forward ran; add the launches to the kernels line."""
         other = sum(counts[k] for k in plains) + counts["mpo_linear_fwd"]
         if any(counts[k] == 0 for k in need) or other:
             fail(f"{path}: launches {counts}; {need} must launch, plain versions and the "
-                 "CUDA-core forward not")
+                 "mpo_linear.cu forward not")
 
     def fold_bf16(path, counts):
         for k in ("mpo_linear_fwd_mma", "flash_decode_attention", "ssd_scan"):
@@ -2728,12 +2731,21 @@ def main() -> int:
             if counts[k]:
                 d[f"{arch} float32 {f32_layers} layers (three runs)"] = counts[k]
         if arch == "gemma2-27b":
-            # the CUDA-core forward at gemma2's FFN, where the float32 prefill
-            # sends it: w_down sums d_ff = 36864 terms an output
-            wd = cores_to_list(s32.params["layers"]["mlp"]["w_down"]["cores"])
-            results[("mpo", arch, "w_down", LLM_F32_CASE_M, "float32")] = fwd_case(
-                f"{arch} w_down", [c[0] for c in wd], LLM_F32_CASE_M, "float32", phase="llm",
-                reps=1, tol=f32_tol(c32.d_ff))
+            # csrc/mpo_linear.cu at gemma2's FFN, where the float32 prefill
+            # sends it: w_down sums d_ff = 36864 terms an output; at 64 rows
+            # and at the long prompt's 4352
+            wd = [c[0] for c in cores_to_list(s32.params["layers"]["mlp"]["w_down"]["cores"])]
+            for m in (LLM_F32_CASE_M, fp):
+                results[("mpo", arch, "w_down", m, "float32")] = fwd_case(
+                    f"{arch} w_down", wd, m, "float32", phase="llm",
+                    reps=1 if m == LLM_F32_CASE_M else 3, tol=f32_tol(c32.d_ff))
+        if arch == "qwen3-14b":
+            # csrc/mpo_linear.cu at qwen3's lm_head (5120 -> 152064: no bond's
+            # js group tiles the tensor-core kernel's columns) at a float32
+            # decode step's 2 rows
+            results[("mpo", arch, "lm_head", 2, "float32")] = fwd_case(
+                f"{arch} lm_head", cores_to_list(s32.params["lm_head"]["cores"]), 2, "float32",
+                phase="llm", reps=3, tol=f32_tol(c32.d_model))
         del s32, runs
         torch.cuda.empty_cache()
     emit(phase="llm", s=time.perf_counter() - l_t0)
@@ -2860,11 +2872,11 @@ def main() -> int:
 
     def ssm_gate(path, counts, need):
         """Fail unless every kernel of ``need`` launched and no plain version
-        (nor, in bf16, the CUDA-core forward) ran; add the launches to the
+        (nor, in bf16, the mpo_linear.cu forward) ran; add the launches to the
         kernels line."""
         other = sum(counts[k] for k in ssm_plains) + counts["mpo_linear_fwd"]
         if any(counts[k] == 0 for k in need) or other:
-            fail(f"{path}: launches {counts}, plain-version or CUDA-core calls {other}")
+            fail(f"{path}: launches {counts}, plain-version or mpo_linear.cu calls {other}")
         for k in ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores", "ssd_scan", "ssd_scan_bwd"):
             if counts[k]:
                 path_launches[k] = path_launches.get(k, 0) + counts[k]
@@ -3071,7 +3083,7 @@ def main() -> int:
     v_t0 = time.perf_counter()
     moe_rows = lambda cfg, s, b=LLM_BATCH: b * max(
         4, int(cfg.capacity_factor * s * cfg.top_k / cfg.num_experts))
-    # float32 stacked launches (tensor-core, CUDA-core kernel) on the moe paths
+    # float32 stacked launches (tensor-core, mpo_linear.cu kernel) on the moe paths
     f32_stacked, f32_moe_core = {}, {}
 
     def expert_cores(cfg, name):
@@ -3400,8 +3412,9 @@ def main() -> int:
         sess._serve.clear()
         del handle, sess
         torch.cuda.empty_cache()
-    # one prompt: the float32 prefill sends the FFN (7168 <-> 20480) to the
-    # CUDA-core forward, ~6 s a launch at its 1152 rows
+    # one prompt: the float32 prefill sends the FFN (7168 <-> 20480) to
+    # csrc/mpo_linear.cu (~6 s a launch at its 1152 rows in the kernel's
+    # first, CUDA-core design)
     c32 = dataclasses.replace(vcfg, dtype="float32", num_layers=LLM_F32_DEPTH[LLAVA])
     s32 = Session.init(c32, seed=SEED)
     fb = 1
@@ -3443,12 +3456,12 @@ def main() -> int:
 
     def train_gate(path, counts, need):
         """Fail unless every kernel of ``need`` launched and no plain version
-        (nor, in bf16, the CUDA-core forward) ran; add the bf16 launches to
+        (nor, in bf16, the mpo_linear.cu forward) ran; add the bf16 launches to
         the kernels line."""
         other = (sum(counts[k] for k in plains) + counts["mpo_linear_bwd_cores_plain"]
                  + counts["mpo_linear_fwd"])
         if any(counts[k] == 0 for k in need) or other:
-            fail(f"{path}: launches {counts}, plain-version or CUDA-core calls {other}")
+            fail(f"{path}: launches {counts}, plain-version or mpo_linear.cu calls {other}")
         for k in ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores", "mpo_linear_bwd_cores_stacked",
                   "flash_decode_attention"):
             if counts[k]:
@@ -3828,7 +3841,7 @@ def main() -> int:
 
     def hyb_gate(path, counts, need):
         """``ssm_gate``'s rule (each kernel of ``need`` launched, no plain
-        version, no CUDA-core forward), the launches kept apart too."""
+        version, no mpo_linear.cu forward), the launches kept apart too."""
         ssm_gate(path, counts, need)
         for k in ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores", "ssd_scan", "ssd_scan_bwd"):
             if counts[k]:
@@ -3872,7 +3885,7 @@ def main() -> int:
             i_dim = math.prod(c.shape[1] for c in zm[name])
             for m in ms:
                 results[("mpo", HYBRID, name, m, dtype)] = fwd_case(
-                    f"{HYBRID} {name}", zm[name], m, dtype, phase="hybrid", prev=False,
+                    f"{HYBRID} {name}", zm[name], m, dtype, phase="hybrid",
                     reps=3 if m == zrows else 10,
                     tol=f32_tol(i_dim) if dtype == "float32" else None)
     # the float32 attention matrices' route (the bf16 plan refuses them)
@@ -4276,9 +4289,9 @@ def main() -> int:
         htok = hbatch * ENC_MAX_LEN
         for m in (hbatch, htok):
             results[("mpo", ENCDEC, "head", m, hdt)] = fwd_case(
-                f"{ENCDEC} head", whead, m, hdt, phase="encdec", prev=False)
+                f"{ENCDEC} head", whead, m, hdt, phase="encdec")
         results[("mpo", ENCDEC, "embed", htok, hdt)] = fwd_case(
-            f"{ENCDEC} head dL/dx (E)", wembed, htok, hdt, phase="encdec", prev=False,
+            f"{ENCDEC} head dL/dx (E)", wembed, htok, hdt, phase="encdec",
             tol=f32_tol(vocab_terms) if hdt == "float32" else None)
         results[("bwd", ENCDEC, "head", hdt)] = bwd_case(
             f"{ENCDEC} head", whead, htok, hdt, phase="encdec", dw_gate=False)
@@ -4645,8 +4658,7 @@ def main() -> int:
               launches_by_path=by_path["mpo_linear_fwd_mma"]),
         entry("mpo_linear_fwd_mma", "cuda", *fwd, results[("mpo", "attn", 8, "float32")],
               "bert-base attention matrix, M=8 (a decode step), float32", sum(f32_mma.values()),
-              launches_by_path=f32_mma,
-              prev_ms=results[("mpo", "attn", 8, "float32")]["prev_ms"]),
+              launches_by_path=f32_mma),
         entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu", fwd[1],
               results[("mpo", "gemma2-27b", "w_down", LLM_F32_CASE_M, "float32")],
               f"gemma2-27b w_down (36864 -> 4608: the tensor-core plan refuses it), "
@@ -4655,6 +4667,20 @@ def main() -> int:
               smoke_case={k: results[("mpo", "smoke wq", 48, "float32")][k] for k in (
                   "matrix", "M", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
                   "library_ms")}),
+        entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu", fwd[1],
+              results[("mpo", "gemma2-27b", "w_down", LLM_F32_PROMPT["gemma2-27b"][1],
+                       "float32")],
+              f"gemma2-27b w_down, M={LLM_F32_PROMPT['gemma2-27b'][1]} (its float32 prefill "
+              "of one long prompt), float32 (launches: gemma2-27b's float32 runs)",
+              sum(v for k, v in cuda_core.items() if k.startswith("gemma2-27b float32")),
+              launches_by_path={k: v for k, v in cuda_core.items()
+                                if k.startswith("gemma2-27b float32")},
+              # no path of the script launches it at qwen3's lm_head (the
+              # engine plans that matrix otherwise), so its case rides here
+              qwen3_lm_head_case={k: results[("mpo", "qwen3-14b", "lm_head", 2, "float32")][k]
+                                  for k in ("matrix", "M", "max_abs_err", "kernel_ms",
+                                            "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}),
         entry("flash_decode_attention", "cuda", "src/repro_torch/csrc/decode_attention.cu",
               "src/repro/kernels/decode_attention.py:166", fk,
               "bert-base geometry KV=12 G=1 Dh=64 ps=16, 8 slots at 144 keys, bfloat16",
@@ -4766,7 +4792,7 @@ def main() -> int:
         entry("mpo_linear_fwd", "cuda", "src/repro_torch/csrc/mpo_linear.cu", fwd[1],
               results[("mpo", HYBRID, "wq", 128, "float32")],
               f"{HYBRID} shared attention wq ({zcfg.d_model} -> {zcfg.d_model}: no bf16 route; "
-              "float32 takes the CUDA-core kernel), M=128, float32",
+              "float32 takes csrc/mpo_linear.cu), M=128, float32",
               sum(mine(cuda_core).values()), launches_by_path=mine(cuda_core)),
         entry("mpo_linear_bwd_cores", "cuda", *bwd, results[("bwd", HYBRID, "w_up", "bfloat16")],
               f"{HYBRID} shared w_up ({zcfg.d_model} -> {zcfg.d_ff}), M={ztok} (2 x 512 "

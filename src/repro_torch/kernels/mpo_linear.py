@@ -13,13 +13,18 @@ Three CUDA kernels replace the Pallas TPU kernels of
   as the pair ``bf16(W)`` + ``bf16(W - bf16(W))``, in float32 x and W as
   three terms each (six products, ~24 bits); few rows split I across
   blocks and sum the f32 partials in a second pass.
-* ``mpo_linear_cuda_core`` (``csrc/mpo_linear.cu``) is the same forward
-  for the float32 core shapes the tensor-core plan refuses (the narrow
-  matrices of the smoke configs, qwen3-14b's ``lm_head``), on the CUDA
-  cores: each block keeps R in shared memory, rebuilds W sub-blocks and
-  loops over all of I with f32 accumulators.  ``forward_kernel`` names the
-  kernel a call takes, from the core shapes and dtype alone; ``mpo_linear``
-  is the entry point of both.
+* ``mpo_linear_cuda_core`` (``csrc/mpo_linear.cu``; the name is the route's,
+  ``"cuda_core"``) is the float32 forward for the core shapes that plan
+  refuses: whisper-tiny's layer matrices, zamba2-7b's shared attention,
+  gemma2-27b's, nemotron-4-15b's and llava-next-34b's FFN, the vocabulary
+  heads no bond tiles, the smoke configs' narrow matrices.  Digit groups
+  are padded in shared memory so any shape tiles; each block keeps R there,
+  forms L for groups of stages in one pass over core s-1's rows, keeps W
+  resident as three bf16 terms across a group of row tiles, and multiplies
+  on the tensor cores with the same six-product float32 arithmetic;
+  ``_narrow_plan`` picks the launch, few rows split I across blocks.
+  ``forward_kernel`` names the kernel a call takes, from the core shapes and
+  dtype alone; ``mpo_linear`` is the entry point of both.
 * ``mpo_linear_bwd_cores`` (``csrc/mpo_linear_bwd.cu``) replaces
   ``_bwd_cores_call`` / ``_bwd_cores_kernel`` in three launches a call:
   the chain vectors once per distinct prefix and suffix of digit pairs;
@@ -62,54 +67,9 @@ import torch
 from repro_torch.core import mpo
 from repro_torch.kernels import _build
 
-# must match csrc/mpo_linear.cu
-MAXN = 8
-KC, PC = 16, 32
-TILES = {0: (64, 64), 1: (16, 16)}   # tile id -> (BM, BN) output tile
-SMALL_M = 16                         # at most this many rows: 16 x 16 tiles
+MAXN = 8                             # cores a matrix, at most (every kernel)
 SMEM_LIMIT = 227 * 1024              # dynamic shared memory one block may use
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _smem_bytes(shapes: Sequence[tuple], s: int, njp: int, tile: int = 0) -> int:
-    bm, bn = TILES[tile]
-    ds = shapes[s][0]
-    i_s = math.prod(c[1] for c in shapes[s:])
-    j_s = math.prod(c[2] for c in shapes[s:])
-    dmax = max(c[0] for c in shapes)
-    return 4 * (ds * i_s * j_s + njp * ds + 2 * max(PC, njp) * dmax + KC * bn
-                + bm * (KC + 1))
-
-
-@functools.lru_cache(maxsize=None)
-def _launch_plan(shapes: tuple, tile: int = 0) -> tuple[int, int] | None:
-    """``(split, njp)`` for these core shapes and output tile, or None when
-    the kernel cannot take them.  Among the bonds whose suffix contraction
-    fits in shared memory, picks the one with the least per-block work: the
-    prefix vectors, the W sub-block rebuild and the suffix contraction."""
-    n = len(shapes)
-    if not 2 <= n <= MAXN or shapes[0][0] != 1 or shapes[-1][3] != 1:
-        return None
-    if any(a[3] != b[0] for a, b in zip(shapes, shapes[1:])):
-        return None
-    bn = TILES[tile][1]
-    i_dim = math.prod(c[1] for c in shapes)
-    best = None
-    for s in range(1, n):
-        ds = shapes[s][0]
-        i_s = math.prod(c[1] for c in shapes[s:])
-        j_s = math.prod(c[2] for c in shapes[s:])
-        j_p = math.prod(c[2] for c in shapes[:s])
-        njp = min(j_p, (bn - 1) // j_s + 2)
-        if _smem_bytes(shapes, s, njp, tile) > SMEM_LIMIT:
-            continue
-        prefix = sum(c[0] * c[3] for c in shapes[:s])
-        suffix = sum(c[0] * c[3] for c in shapes[s:])
-        cost = (i_dim // i_s) * njp * prefix + i_dim * bn * ds + i_s * j_s * suffix
-        if best is None or cost < best[0]:
-            best = (cost, s, njp)
-    return None if best is None else best[1:]
-
 
 # must match csrc/mpo_linear_mma.cu: the output tile's columns, the rows of
 # I a stage, the bf16 x and W stage row pitches, and the bf16 terms x and W
@@ -236,11 +196,235 @@ def _mma_plan(shapes: tuple, m: int, dtype: str = "bfloat16") -> MmaPlan | None:
     return MmaPlan(s, bm, g["tc"], splits, _mma_smem_bytes(g, bm, dtype), ws)
 
 
+# must match csrc/mpo_linear.cu: the padded output columns a tile, the
+# padded rows of I a stage, the f32 x stage and bf16 W term row pitches, and
+# the row tiles it is built for
+NARROW_BN, NARROW_BK = 64, 32
+NARROW_XP, NARROW_WP = NARROW_BK + 8, NARROW_BN + 8
+NARROW_NXB = 3                       # x stage buffers
+NARROW_BM = (64, 128)
+NARROW_LGROUPS = (1, 2, 4, 8, 16)    # stages an L group may span
+# the cost model that picks a launch (``_narrow_plan``), in SM clock cycles
+# (measured on an H100 with tools/torch_narrow_fwd_profile.py --phases):
+# CUDA-core multiply-adds a cycle a block
+# achieves on the W rebuild, tensor-core multiply-adds a cycle a block of 8
+# warps achieves on the six-term product, and the bytes a cycle one SM moves
+# for a row tile's partial sums between chunks; shared memory an SM holds
+NARROW_CHAIN_RATE, NARROW_MMA_RATE, NARROW_RMW_RATE = 13.0, 400.0, 6.0
+NARROW_CORE_RATE = 6.0               # bytes a cycle a block streams of core rows (L, P)
+NARROW_STAGE_CYCLES = 1000.0         # a row tile's stage besides its products: barriers, x wait
+SM_SMEM = 228 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class NarrowPlan:
+    split: int          # bond s of the L / R split
+    bm: int             # rows a row tile: 64 or 128
+    rg: int             # row tiles a block (a row group), each against the block's W
+    ch: int             # stages of I a chunk of W resident in shared memory
+    lq: int             # ip an L group: its L formed in one pass over core s-1
+    splits: int         # S, blocks that share one tile's stages of I
+    smem: int           # dynamic shared memory of a block, bytes
+    workspace: int      # bytes of scratch, one matrix's: the [S, M, J] f32 partials (S > 1)
+    fast: bool          # the W stage rebuilt in 4 x 2 register patches
+    vec: bool           # x copied in 16-byte chunks (I % 4 == 0, is not padded)
+
+
+def _pow2ceil(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+def _narrow_geometry(shapes: Sequence[tuple], s: int, groups: int = 1) -> dict:
+    """The geometry of bond s as ``make_args`` in ``csrc/mpo_linear.cu``
+    derives it, with L groups of ``groups`` stages' ip (``lq``): is and js
+    padded (a power of two up to a stage's 32 rows / a tile's 64 columns,
+    else a multiple of them), the ip a stage and jp a tile hold, the ipp an
+    L group and the jpp a tile span at most (P's rows), stages and tiles."""
+    i_dim = math.prod(c[1] for c in shapes)
+    j_dim = math.prod(c[2] for c in shapes)
+    i_s = math.prod(c[1] for c in shapes[s:])
+    j_s = math.prod(c[2] for c in shapes[s:])
+    bk, bn = NARROW_BK, NARROW_BN
+    isp = _pow2ceil(i_s) if i_s <= bk else -(-i_s // bk) * bk
+    jsp = _pow2ceil(j_s) if j_s <= bn else -(-j_s // bn) * bn
+    nq, njq = bk // min(isp, bk), bn // min(jsp, bn)
+    fi, fo = shapes[s - 1][1], shapes[s - 1][2]
+    dmax = max(c[0] for c in shapes)
+    lq = groups * nq
+    return dict(i_s=i_s, j_s=j_s, isp=isp, jsp=jsp, nq=nq, njq=njq, lq=lq,
+                npp=1 if s == 1 else min(lq, (lq - 1) // fi + 2),
+                npq=1 if s == 1 else min(njq, (njq - 1) // fo + 2),
+                ds=shapes[s][0], dpre=1 if s == 1 else shapes[s - 1][0], dmax=dmax,
+                nst=-(-(i_dim // i_s) * isp // bk),
+                jtiles=-(-(j_dim // j_s) * jsp // bn), fast=isp % 4 == 0 and njq % 2 == 0,
+                vec=isp == i_s and i_dim % 4 == 0)
+
+
+def _narrow_smem_bytes(g: dict, bm: int, ch: int = 1) -> int:
+    """``fwd_smem`` in the CUDA source: the three f32 x stage buffers, ``ch``
+    stages of the three bf16 W term tiles, R at the padded pitches, the L
+    group's L, P and the two chain buffers of P's steps, each rounded to 16
+    bytes; more than any block has where R's chain (two vectors of the
+    largest bond at least, in the x and W region) would not fit."""
+    r16 = lambda b: -(-b // 16) * 16
+    xw = r16(NARROW_NXB * 4 * bm * NARROW_XP) + r16(ch * 6 * NARROW_BK * NARROW_WP)
+    if xw < 8 * g["dmax"]:
+        return 1 << 40
+    chain = g["npp"] * g["npq"] * g["dmax"]
+    return (xw
+            + r16(4 * g["ds"] * g["isp"] * g["jsp"]) + r16(4 * g["lq"] * g["ds"] * g["njq"])
+            + r16(4 * g["npp"] * g["npq"] * g["dpre"]) + r16(8 * chain))
+
+
+def _narrow_chain(shapes: Sequence[tuple], s: int, g: dict) -> float:
+    """CUDA-core multiply-adds a block spends per W value of its tile on the
+    rebuild: W itself (d_s, thrice in the one-at-a-time form), L (one step
+    through core s-1 per (ip, jp) pair, for the tile's jpp), P (the chain
+    through cores 0..s-2 when ipp changes) and R once over the block's I."""
+    bk, bn = NARROW_BK, NARROW_BN
+    step = lambda ks: sum(shapes[k][0] * shapes[k][3] for k in ks)
+    fi, fo = shapes[s - 1][1], shapes[s - 1][2]
+    per_l = max(1, g["isp"] // bk)                  # stages that share one L
+    jpq = -(-g["njq"] // fo) if s > 1 else 1        # the tile's jpp
+    lform = g["dpre"] * g["ds"] * g["nq"] * min(g["njq"], jpq * fo) / (bk * bn * per_l)
+    every = max(1.0, fi * g["isp"] / bk)           # stages an ipp spans
+    pchain = step(range(s - 1)) * -(-g["nq"] // fi) * jpq / (bk * bn * every)
+    rchain = g["i_s"] * g["j_s"] * step(range(s, len(shapes))) / (g["nst"] * bk * bn)
+    return g["ds"] * (1 if g["fast"] else 3) + lform + pchain + rchain
+
+
+def _narrow_build(shapes: Sequence[tuple], s: int, g: dict) -> float:
+    """SM cycles a block spends on one stage of W: ``_narrow_chain``'s
+    multiply-adds at ``NARROW_CHAIN_RATE``, and the core rows its L group
+    streams (core s-1 once a group of ``lq`` ip, again for each 8 of its P
+    rows; core s-2 once a P vector) at ``NARROW_CORE_RATE``."""
+    fi, fo = shapes[s - 1][1], shapes[s - 1][2]
+    stages = max(1, g["lq"] // g["nq"]) * max(1, g["isp"] // NARROW_BK)    # a group's
+    nipp = g["npp"] if s > 1 else 1
+    npq = min(g["npq"], -(-g["njq"] // fo) + 1) if s > 1 else 1
+    cols = (fi if nipp > 1 else g["lq"]) * (fo if npq > 1 else g["njq"]) * g["ds"]
+    lbytes = 4 * g["dpre"] * cols * -(-nipp * npq // 8)
+    pbytes = 4 * nipp * npq * shapes[s - 2][0] * g["dpre"] if s > 1 else 0
+    chain = NARROW_BK * NARROW_BN * _narrow_chain(shapes, s, g) / NARROW_CHAIN_RATE
+    return chain + (lbytes + pbytes) / (stages * NARROW_CORE_RATE)
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_split(shapes: tuple) -> int | None:
+    """The bond ``csrc/mpo_linear.cu`` splits at, or None when it cannot
+    take the shapes: among the bonds whose block fits shared memory at 64
+    rows and one stage of W, the least work per W value: the rebuild
+    (``_narrow_chain``) and the six-term product over the padded rows and
+    columns at 64 rows (at ``NARROW_MMA_RATE`` against
+    ``NARROW_CHAIN_RATE``)."""
+    n = len(shapes)
+    if not 2 <= n <= MAXN or shapes[0][0] != 1 or shapes[-1][3] != 1:
+        return None
+    if any(a[3] != b[0] for a, b in zip(shapes, shapes[1:])) or min(min(c) for c in shapes) < 1:
+        return None
+    if math.prod(c[1] for c in shapes) > 2 ** 30 or math.prod(c[2] for c in shapes) > 2 ** 30:
+        return None
+    best = None
+    for s in range(1, n):
+        g = _narrow_geometry(shapes, s)
+        if _narrow_smem_bytes(g, NARROW_BM[0]) > SMEM_LIMIT:
+            continue
+        pad = g["isp"] * g["jsp"] / (g["i_s"] * g["j_s"])
+        cost = (_narrow_chain(shapes, s, g)
+                + 64 * 6 * pad * NARROW_CHAIN_RATE / NARROW_MMA_RATE)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return None if best is None else best[1]
+
+
+def _narrow_splits(i_dim: int, m: int, blocks: int, nst: int, slots: int = 2 * MMA_SMS) -> int:
+    """S: 1 when the blocks already fill two waves of the card; else at
+    least enough splits of I's stages for two waves (or as many as the
+    stages and the workspace allow: the [S, M, J] f32 partials stay below a
+    quarter of a bf16 W, S * M * J * 4 < I * J / 2, so S < I / (8 M)), and
+    up to that cap the S whose rounds of ``slots`` co-resident blocks take
+    the fewest stages a block (two stages added for a block's set-up)."""
+    if blocks >= 2 * MMA_SMS:
+        return 1
+    cap = min(nst, max(1, -(-i_dim // (8 * m)) - 1))
+    lo = min(cap, -(-2 * MMA_SMS // blocks))
+    best = None
+    for s in range(lo, cap + 1):
+        per = -(-nst // s)
+        s = -(-nst // per)                   # whole stages a split
+        t = -(-blocks * s // slots) * (per + 2)
+        if best is None or t < best[0]:
+            best = (t, s)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=4096)
+def _narrow_plan(shapes: tuple, m: int) -> NarrowPlan | None:
+    """``csrc/mpo_linear.cu``'s launch for these core shapes at ``m`` rows,
+    or None when it cannot take the shapes.  Row tiles of 64 up to 64 rows,
+    else 128 where that fits.  L groups of up to ``NARROW_LGROUPS`` stages'
+    ip (each pass over core s-1's rows serves them all), as many as fit.
+    One row tile: one block a column tile (and a split of I,
+    ``_narrow_splits``), its accumulator in registers, one stage of W at a
+    time, the L group the largest that leaves room for two blocks an SM.
+    More: the row tile, the L group, the chunk of resident W (as many stages
+    as fit beside them, up to all) and the row group (``rg`` row tiles a
+    block) that ``NARROW_*_RATE`` reckon fastest (``_narrow_build``): a
+    block rebuilds W once for its group, fewer groups rebuild less but fill
+    fewer SMs, larger L groups stream the core rows fewer times but leave
+    less room for resident W, and a group of more than one row tile moves
+    its partial sums between chunks."""
+    s = _narrow_split(shapes)
+    if s is None:
+        return None
+    g1 = _narrow_geometry(shapes, s)
+    i_dim = math.prod(c[1] for c in shapes)
+    j_dim = math.prod(c[2] for c in shapes)
+    bm = 64 if m <= 64 or _narrow_smem_bytes(g1, 128) > SMEM_LIMIT else 128
+    mtiles = -(-max(m, 1) // bm)
+    nst = g1["nst"]
+    geo = lambda k: _narrow_geometry(shapes, s, k)
+    if mtiles == 1:
+        fits = [k for k in NARROW_LGROUPS if k <= nst and _narrow_smem_bytes(geo(k), bm) <= SMEM_LIMIT]
+        two = [k for k in fits if _narrow_smem_bytes(geo(k), bm) <= SM_SMEM // 2 - 1024]
+        g = geo(max(two or fits))
+        smem = _narrow_smem_bytes(g, bm)
+        splits = _narrow_splits(i_dim, max(m, 1), g["jtiles"], nst,
+                                MMA_SMS * max(1, SM_SMEM // (smem + 1024)))
+        ws = 4 * splits * m * j_dim if splits > 1 else 0
+        return NarrowPlan(s, bm, 1, 1, g["lq"], splits, smem, ws, g["fast"], g["vec"])
+    wst = 6 * NARROW_BK * NARROW_WP
+    best = None
+    for bmc in NARROW_BM:                # row tile, L group, resident stages, row group
+        mt = -(-m // bmc)
+        for k in NARROW_LGROUPS:
+            if k > nst:
+                continue
+            gk = geo(k)
+            build = nst * _narrow_build(shapes, s, gk)
+            ch = min(nst, (SMEM_LIMIT - _narrow_smem_bytes(gk, bmc, 0)) // wst)
+            if ch < 1 or _narrow_smem_bytes(gk, bmc, ch) > SMEM_LIMIT:
+                continue
+            prod = nst * (bmc * NARROW_BK * NARROW_BN * 6 / NARROW_MMA_RATE
+                          + NARROW_STAGE_CYCLES)
+            rmw = (-(-nst // ch) - 1) * 2 * bmc * NARROW_BN * 4 / NARROW_RMW_RATE
+            for rg in sorted({-(-mt // q) for q in range(1, mt + 1)}):
+                c = ch if rg > 1 else 1
+                smem = _narrow_smem_bytes(gk, bmc, c)
+                slots = MMA_SMS * max(1, SM_SMEM // (smem + 1024))
+                blocks = gk["jtiles"] * -(-mt // rg)
+                t = -(-blocks // slots) * (build + rg * (prod + (rmw if rg > 1 else 0.0)))
+                if best is None or t < best[0]:
+                    best = (t, bmc, rg, c, smem, gk)
+    _, bm, rg, ch, smem, g = best
+    return NarrowPlan(s, bm, rg, ch, g["lq"], 1, smem, 0, g["fast"], g["vec"])
+
+
 def forward_kernel(shapes: Sequence[tuple], dtype: str) -> str | None:
     """The forward kernel ``mpo_linear`` launches for these core shapes on
     the card, from the shapes and dtype alone (never after a failure):
     ``"mma"`` (``csrc/mpo_linear_mma.cu``) wherever its plan takes them;
-    for float32 shapes it refuses but ``_launch_plan`` takes,
+    for float32 shapes it refuses but ``_narrow_split`` takes,
     ``"cuda_core"`` (``csrc/mpo_linear.cu``); else None."""
     return _route(tuple(tuple(int(d) for d in s) for s in shapes), dtype)
 
@@ -251,7 +435,7 @@ def _route(shapes: tuple, dtype: str) -> str | None:
         return None
     if _mma_split(shapes, dtype) is not None:
         return "mma"
-    if dtype == "float32" and _launch_plan(shapes) is not None:
+    if dtype == "float32" and _narrow_split(shapes) is not None:
         return "cuda_core"
     return None
 
@@ -262,26 +446,29 @@ def kernel_eligible(shapes: Sequence[tuple], *, dtype: str = "float32",
 
     bfloat16 runs ``csrc/mpo_linear_mma.cu``, whose bond must give whole
     stage and tile groups (``_mma_split``).  float32 admits what
-    ``csrc/mpo_linear.cu`` takes: 2..8 cores and a bond whose suffix
-    contraction fits one block's shared memory (``_launch_plan``; the 64 x 64
-    tile needs the most, so it decides for both tiles).  Of those, the
-    shapes the tensor-core plan takes in float32 run ``mpo_linear_mma.cu``
-    and the rest ``mpo_linear.cu`` (``forward_kernel``): at the repository's
-    configs that rest is six of smoke bert-base's seven matrices, the seven
-    narrow matrices of smoke qwen3-14b and smoke mamba2-130m's ``out_proj``
-    (W of 64 x 64 to 128 x 64: every bond's R and P exceed an eighth of it,
-    or its is group is not whole 4-row patches), and full-width qwen3-14b's
-    ``lm_head`` (no bond's js group divides the 128-column tile).
+    ``csrc/mpo_linear.cu`` takes: 2..8 cores and a bond whose padded R and
+    the rest of a block fit one block's shared memory at 64 rows
+    (``_narrow_split``; every matrix of every config in both orientations,
+    the answers the kernel's first plan gave).  Of those, the shapes the tensor-core
+    plan takes in float32 run ``mpo_linear_mma.cu`` and the rest
+    ``mpo_linear.cu`` (``forward_kernel``): at the repository's configs the
+    smoke configs' narrow matrices (W of 64 x 64 to 128 x 64: every bond's R
+    and P exceed an eighth of it, or its is group is not whole 4-row
+    patches), whisper-tiny's layer matrices, zamba2-7b's shared attention,
+    gemma2-27b's, nemotron-4-15b's and llava-next-34b's FFN and the
+    vocabulary heads no bond tiles (qwen3-14b's ``lm_head``: no bond's js
+    group divides the 128-column tile; ``tests/test_torch_narrow_fwd.py``
+    pins the list).
     ``train`` also needs the forward over the i/j-swapped cores (``dL/dx``)
     and the cores-backward kernel (``_bwd_plan``).  Over an expert stack the
     backward's grid is a group of experts times the plan's blocks along x
     (up to 2^31 - 1: any stack fits); the forwards' grid puts the experts
-    with the row tiles in z (at most 65535), which ``mpo_linear_mma`` and
+    with the row tiles (``mpo_linear.cu``: row groups) in z (at most 65535), which ``mpo_linear_mma`` and
     ``mpo_linear_cuda_core`` check at the call, where the rows are known."""
     if dtype not in ("float32", "bfloat16"):
         return False
     shapes = tuple(tuple(int(d) for d in s) for s in shapes)
-    fits = ((lambda sh: _launch_plan(sh) is not None) if dtype == "float32"
+    fits = ((lambda sh: _narrow_split(sh) is not None) if dtype == "float32"
             else (lambda sh: _mma_split(sh) is not None))
     if not fits(shapes):
         return False
@@ -316,14 +503,15 @@ mpo_linear_plain.calls = 0
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mpo_linear")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mpo_linear_fwd.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.mpo_linear_fwd.restype = ctypes.c_int
-    lib.mpo_linear_fwd_smem.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        ctypes.POINTER(ptr), ctypes.POINTER(i32), i32, i32, i32, i32, i32, i32, i32, ptr, ptr,
+        i32, i32, ptr, ptr]
+    lib.mpo_linear_fwd.restype = i32
+    lib.mpo_linear_fwd_smem.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32, i32]
     lib.mpo_linear_fwd_smem.restype = ctypes.c_long
+    lib.mpo_linear_fwd_workspace.argtypes = [ctypes.POINTER(i32), i32, i32, i32, i32, i32]
+    lib.mpo_linear_fwd_workspace.restype = ctypes.c_long
     return lib
 
 
@@ -399,32 +587,39 @@ def _dims(shapes: tuple):
 
 def mpo_linear_cuda_core(cores: list, shapes: tuple, j_dim: int, m: int,
                          x: torch.Tensor, n_stack: int = 1) -> torch.Tensor:
-    """Launches ``csrc/mpo_linear.cu`` on the float32 inputs ``mpo_linear``
-    checked, ``n_stack`` matrices of ``shapes`` at ``m`` rows each
+    """Launches ``csrc/mpo_linear.cu`` (the float32 forward for the shapes
+    the tensor-core plan of ``csrc/mpo_linear_mma.cu`` refuses; it runs on
+    the tensor cores too) on the float32 inputs ``mpo_linear`` checked,
+    ``n_stack`` matrices of ``shapes`` at ``m`` rows each
     (``mpo_linear_cuda_core.launches`` counts its launches,
-    ``.stacked_launches`` those over a stack of more than one matrix)."""
-    tile = 1 if m <= SMALL_M else 0
-    plan = _launch_plan(shapes, tile)
+    ``.stacked_launches`` those over a stack of more than one matrix;
+    ``.workspace_bytes`` is the last call's scratch: the split partials,
+    never W)."""
+    plan = _narrow_plan(shapes, m)
     if plan is None or x.dtype != torch.float32:
-        raise ValueError(f"mpo_linear: the CUDA-core kernel does not take {x.dtype} "
+        raise ValueError(f"mpo_linear: csrc/mpo_linear.cu does not take {x.dtype} "
                          f"core shapes {shapes}")
-    split, njp = plan
-    if m > 65535 * TILES[tile][0] or n_stack > 65535:
+    if n_stack * -(-m // (plan.bm * plan.rg)) > 65535:
         raise ValueError(f"mpo_linear: {n_stack} x {m} rows exceed the launch grid")
     y = torch.empty(*x.shape[:-1], j_dim, dtype=x.dtype, device=x.device)
     if m == 0:
         return y
+    if plan.vec and x.data_ptr() % 16:
+        x = x.clone()                  # cp.async copies x in 16-byte chunks
+    ws = torch.empty(n_stack * plan.workspace // 4, dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores])
     _build.launch("mpo_linear_fwd", x, lambda stream: _lib().mpo_linear_fwd(
-        ptrs, _dims(shapes), len(cores), split, njp, tile, x.data_ptr(), y.data_ptr(), m,
-        n_stack, stream))
+        ptrs, _dims(shapes), len(cores), plan.split, plan.bm, plan.rg, plan.ch, plan.lq,
+        plan.splits, x.data_ptr(), y.data_ptr(), m, n_stack, ws.data_ptr(), stream))
     mpo_linear_cuda_core.launches += 1
     mpo_linear_cuda_core.stacked_launches += n_stack > 1
+    mpo_linear_cuda_core.workspace_bytes = n_stack * plan.workspace
     return y
 
 
 mpo_linear_cuda_core.launches = 0
 mpo_linear_cuda_core.stacked_launches = 0
+mpo_linear_cuda_core.workspace_bytes = 0
 
 
 def mpo_linear_mma(cores: list, shapes: tuple, j_dim: int, m: int,

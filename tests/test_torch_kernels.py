@@ -126,9 +126,9 @@ def test_hopper_gate_admits_every_bert_base_matrix():
         for sh in (s, t):
             for dtype in ("float32", "bfloat16"):
                 assert TMK.kernel_eligible(sh, dtype=dtype), (name, sh)
-            for tile in TMK.TILES:
-                split, njp = TMK._launch_plan(tuple(sh), tile)
-                assert TMK._smem_bytes(sh, split, njp, tile) <= TMK.SMEM_LIMIT
+            for m in (1, 8, 64, 128, 2048):          # every row tile of the float32 plan
+                plan = TMK._narrow_plan(tuple(sh), m)
+                assert plan.smem <= TMK.SMEM_LIMIT, (name, m, plan)
             # training: dL/dx over W^T and the cores backward fit too; no
             # float16 kernel
             assert TMK.kernel_eligible(sh, train=True, dtype="bfloat16")
@@ -138,8 +138,9 @@ def test_hopper_gate_admits_every_bert_base_matrix():
 
 def test_hopper_gate_admits_mamba2_matrices():
     """mamba2-130m's in_proj (768 -> 3352, out factors (419, 2, 2, 2, 1)),
-    out_proj (1536 -> 768) and tied head: both orientations fit the forward
-    kernel's shared memory at both tiles, and the backward too."""
+    out_proj (1536 -> 768) and tied head: both orientations fit the float32
+    forward's (``csrc/mpo_linear.cu``) shared memory at every row tile, and
+    the backward too."""
     from repro_torch.core.layers import cores_to_list
     from repro_torch.models import mamba as TMB
     with torch.device("meta"):
@@ -152,9 +153,9 @@ def test_hopper_gate_admits_mamba2_matrices():
         t = [(d0, j, i, d1) for d0, i, j, d1 in s]
         for sh in (s, t):
             assert TMK.kernel_eligible(sh, dtype="bfloat16", train=True), (name, sh)
-            for tile in TMK.TILES:
-                split, njp = TMK._launch_plan(tuple(sh), tile)
-                assert TMK._smem_bytes(sh, split, njp, tile) <= TMK.SMEM_LIMIT
+            for m in (1, 8, 64, 128, 2048):
+                plan = TMK._narrow_plan(tuple(sh), m)
+                assert plan.smem <= TMK.SMEM_LIMIT, (name, m, plan)
 
 
 def test_hopper_gate_refuses_what_the_kernel_cannot_take():

@@ -161,7 +161,7 @@ def test_f32_eligibility_is_unchanged_and_narrow_shapes_keep_the_cuda_core_kerne
     for name, shapes in mats.items():
         for sh in (shapes, _swap(shapes)):
             assert TMK.kernel_eligible(sh, dtype="float32"), (arch, name, sh)
-            assert TMK._launch_plan(tuple(sh)) is not None
+            assert TMK._narrow_plan(tuple(sh), 8) is not None
             narrow = name in NARROW[(arch, smoke)]
             assert TMK.forward_kernel(sh, "float32") == ("cuda_core" if narrow else "mma"), (
                 arch, smoke, name, sh)
@@ -377,6 +377,137 @@ def test_cuda_stacked_forward_matches_plain(cuda, name, dtype):
             ws = TMK._mma_lib().mpo_linear_mma_workspace(dims, len(shapes), plan.split, m,
                                                          plan.splits, e, TMK.DTYPES[tdt])
             assert 4 * ws == e * plan.workspace
+
+
+# --------------------------------------------------------------------------
+# the float32 forward for the narrow shapes (csrc/mpo_linear.cu)
+# --------------------------------------------------------------------------
+
+
+def _port_shapes(arch, *path, smoke=False):
+    """One matrix's core shapes (stack dims dropped) in the port's config,
+    abstractly (no weights drawn)."""
+    cfg = configs.smoke_config(arch) if smoke else configs.get_config(arch)
+    with torch.device("meta"):
+        node = TModel.family_module(cfg).init(torch.Generator(), cfg)
+    for k in path:
+        node = node[k]
+    return tuple(tuple(c.shape[-4:]) for c in cores_to_list(node["cores"]))
+
+
+# the full-width matrices the card test holds csrc/mpo_linear.cu to, with the
+# rows it runs them at: every count of the issue's list for whisper-tiny's
+# (12000 = its encoder at 8 x 1500); 4352 (gemma2-27b's long prefill) in
+# place of 12000 where each of 47 row tiles would rebuild a W of 170 M
+# (gemma2-27b) to 778 M (qwen3-14b) values
+NARROW_CARD = {
+    "whisper-tiny attn": (("whisper-tiny", "encoder", "attn", "wq"), (2, 8, 64, 1024, 12000)),
+    "whisper-tiny w_up": (("whisper-tiny", "encoder", "mlp", "w_up"), (2, 8, 64, 1024, 12000)),
+    "whisper-tiny w_down": (("whisper-tiny", "encoder", "mlp", "w_down"),
+                            (2, 8, 64, 1024, 12000)),
+    "zamba2-7b wq": (("zamba2-7b", "shared_attn", "attn", "wq"), (2, 8, 64, 128, 1024)),
+    "gemma2-27b w_down": (("gemma2-27b", "layers", "mlp", "w_down"), (2, 8, 64, 1024, 4352)),
+    "qwen3-14b lm_head": (("qwen3-14b", "lm_head"), (2, 8, 64, 1024)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NARROW_CARD))
+def test_cuda_narrow_forward_matches_plain(cuda, name):
+    """``csrc/mpo_linear.cu`` at the full-width matrices that take it: one
+    launch a call and none of the tensor-core kernel or the plain version,
+    within ``chip_smoke.py``'s float32 tolerance of ``mpo_linear_plain``
+    (1e-4 of the largest output, grown as the root of I past 3072 terms:
+    the rounding of the f32 sums in another order), two launches
+    bit-identical, the plan's shared memory and workspace the CUDA
+    source's, the workspace below a quarter of the bf16 W."""
+    path, rows = NARROW_CARD[name]
+    shapes = _port_shapes(*path)
+    assert TMK.forward_kernel(shapes, "float32") == "cuda_core"
+    rng = np.random.default_rng(5)
+    i_dim = math.prod(c[1] for c in shapes)
+    j_dim = math.prod(c[2] for c in shapes)
+    sigma = (1.0 / i_dim / math.prod(c[3] for c in shapes[:-1])) ** (1 / (2 * len(shapes)))
+    cores = [torch.from_numpy((rng.standard_normal(s) * sigma).astype(np.float32)).to(cuda)
+             for s in shapes]
+    tol = 1e-4 * math.sqrt(max(i_dim, 3072) / 3072)
+    dims = (ctypes.c_int * (4 * len(shapes)))(*[d for s in shapes for d in s])
+    lib = TMK._lib()
+    for m in rows:
+        x = torch.randn(m, i_dim, generator=torch.Generator().manual_seed(m)).to(cuda)
+        before = (TMK.mpo_linear_cuda_core.launches, TMK.mpo_linear_mma.launches,
+                  TMK.mpo_linear_plain.calls)
+        y = TMK.mpo_linear(cores, x)
+        again = TMK.mpo_linear(cores, x)
+        torch.cuda.synchronize()
+        assert (TMK.mpo_linear_cuda_core.launches, TMK.mpo_linear_mma.launches,
+                TMK.mpo_linear_plain.calls) == (before[0] + 2, before[1], before[2])
+        assert torch.equal(y, again), (name, m)
+        plan = TMK._narrow_plan(shapes, m)
+        assert TMK.mpo_linear_cuda_core.workspace_bytes == plan.workspace
+        assert 4 * plan.workspace < 2 * i_dim * j_dim
+        assert lib.mpo_linear_fwd_smem(dims, len(shapes), plan.split, plan.bm, plan.ch,
+                                       plan.lq) == plan.smem
+        assert lib.mpo_linear_fwd_workspace(dims, len(shapes), plan.split, m, plan.splits,
+                                            1) == plan.workspace
+        ref = TMK.mpo_linear_plain(cores, x)
+        err = (y - ref).abs().max().item()
+        assert err <= tol * ref.abs().max().item(), (name, m, err)
+        assert y.dtype == torch.float32 and tuple(y.shape) == (m, j_dim)
+        del x, y, again, ref
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_narrow_forward_over_a_smoke_expert_stack(cuda):
+    """smoke phi3.5-moe's 4 experts' w_up (and its dL/dx, w_up^T) in one
+    launch: within 1e-4 of the plain version, each expert's rows bit-equal
+    to its matrix run alone, two launches bit-identical, counted as stacked
+    launches; the stack's workspace E times a matrix's."""
+    shapes = _port_shapes("phi3.5-moe-42b-a6.6b", "layers", "moe", "experts", "w_up",
+                          smoke=True)
+    e = configs.smoke_config("phi3.5-moe-42b-a6.6b").num_experts
+    assert e == 4
+    rng = np.random.default_rng(6)
+    for sh in (shapes, tuple(_swap(shapes))):
+        assert TMK.forward_kernel(sh, "float32") == "cuda_core"
+        i_dim = math.prod(c[1] for c in sh)
+        j_dim = math.prod(c[2] for c in sh)
+        cores = [torch.from_numpy((rng.standard_normal((e,) + c) * 0.4).astype(np.float32))
+                 .to(cuda) for c in sh]
+        dims = (ctypes.c_int * (4 * len(sh)))(*[d for c in sh for d in c])
+        for m in (1, 7, 28, 300):
+            x = torch.from_numpy(rng.standard_normal((e, m, i_dim)).astype(np.float32)).to(cuda)
+            launches, stacked = (TMK.mpo_linear_cuda_core.launches,
+                                 TMK.mpo_linear_cuda_core.stacked_launches)
+            y, again = TMK.mpo_linear(cores, x), TMK.mpo_linear(cores, x)
+            torch.cuda.synchronize()
+            assert TMK.mpo_linear_cuda_core.launches == launches + 2
+            assert TMK.mpo_linear_cuda_core.stacked_launches == stacked + 2
+            assert torch.equal(y, again) and tuple(y.shape) == (e, m, j_dim)
+            for k in range(e):
+                alone = TMK.mpo_linear([c[k].contiguous() for c in cores], x[k].contiguous())
+                assert torch.equal(y[k], alone), (m, k)
+            plan = TMK._narrow_plan(sh, m)
+            assert TMK._lib().mpo_linear_fwd_workspace(dims, len(sh), plan.split, m,
+                                                       plan.splits, e) == e * plan.workspace
+            ref = TMK.mpo_linear_plain(cores, x)
+            assert (y - ref).abs().max() <= 1e-4 * ref.abs().max(), m
+
+
+@pytest.mark.cuda
+def test_cuda_forward_raises_where_no_kernel_takes_the_shapes(cuda):
+    """No fallback: float32 cores whose every bond's R passes a block's
+    shared memory raise on the card, and neither kernel nor the plain
+    version runs."""
+    cores = [torch.zeros(1, 64, 64, 2048, device=cuda), torch.zeros(2048, 64, 64, 1, device=cuda)]
+    x = torch.zeros(4, 4096, device=cuda)
+    before = (TMK.mpo_linear_cuda_core.launches, TMK.mpo_linear_mma.launches,
+              TMK.mpo_linear_plain.calls)
+    with pytest.raises(ValueError, match="no float32 kernel"):
+        TMK.mpo_linear(cores, x)
+    assert (TMK.mpo_linear_cuda_core.launches, TMK.mpo_linear_mma.launches,
+            TMK.mpo_linear_plain.calls) == before
 
 
 # --------------------------------------------------------------------------
