@@ -311,11 +311,35 @@ Phases, each printing JSON lines; any failure exits non-zero:
    an exact tree made on the card, 2 LFA steps, one squeeze iteration
    against its float64 recount, served both ways under (c)'s gates, saved
    and restored with the same greedy tokens.
-16. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+16. autotune — the measured plans, from a cold verdict cache in a temporary
+   directory (``REPRO_TORCH_AUTOTUNE_CACHE``), measuring at the card's
+   default: (a) full-width bert-base (bf16) served factorized,
+   ``serve(8, 256, paged=True)`` from phase 3's prompts, 32 new tokens, and
+   2 LFA steps at phase 5's 16 x 128, each with the analytic plans and then
+   the tuned ones (same weights, same phase): every key raced once, each
+   ``kernel@`` candidate launching its kernel (and in ``train`` the cores
+   backward), no candidate or run calling a plain version, the runs
+   launching exactly what their plans name (the races' launches apart),
+   phase 3's gates on the output, tuned against analytic prefill logits
+   within ``PATH_TOL``; every verdict with each candidate's ms; prefill ms,
+   decode ms a step, LFA ms a step and peak memory both ways; (b) a fresh
+   tuner on the same file plans every key alike with no timing; (c) the
+   verdicts exported and imported into a second cache, ``Session.save``'s
+   ``autotune.json`` and its count, ``Session.restore`` under a fresh tuner
+   on an empty cache planning every key alike with no timing,
+   ``report()["autotune"]``; (d) mistral-nemo-12b at phase 10's factorized
+   depth (``TUNE_LLM_LAYERS``), ``serve(8, 640, paged=True)`` from 8 x 512
+   prompts, 16 new, analytic then cold-tuned: the verdicts, prefill and
+   decode ms and peak memory both ways, the launches as planned (a record:
+   no gate on which candidate wins).  Phases 2-15 run with
+   ``REPRO_TORCH_AUTOTUNE_MEASURE=0``: their plans, and the gates that name
+   them, are the analytic ones.
+17. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
    squeezed shapes' times are phase 6's records), the stacked forward, the
    stacked cores backward and flash at llava's geometry beside them, the
-   hybrid's and the encdec's cases with their launches on their paths.
-17. last line: ``{"ok": true, "device": {...}}``.
+   hybrid's and the encdec's cases with their launches on their paths
+   (phase 16's under ``autotune ...`` keys, the races' own launches apart).
+18. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -326,6 +350,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -703,14 +728,15 @@ def serve_plan(engine, params: dict, cfg, batch: int, prompt: int,
 
 
 def encdec_train_launches(engine, params: dict, cfg, batch: int, seq: int, dtype: str,
-                          steps: int) -> tuple[dict, dict]:
+                          steps: int, tied_head: bool = True) -> tuple[dict, dict]:
     """The kernel launches ``steps`` whisper fine-tuning steps of ``batch``
     x ``seq`` decoder tokens make where the train plan names the kernel:
     each use of such a matrix runs its forward once (twice in a layer that
     ``cfg.remat`` recomputes in the backward), its dL/dx over the
     i/j-swapped cores once and the cores backward once; the tied head E^T
-    at every decoder position.  Returns ``({matrix: uses a step}, {kernel:
-    launches})``."""
+    at every decoder position (none without ``tied_head``: a ``cls`` task
+    only looks the embedding up).  Returns ``({matrix: uses a step},
+    {kernel: launches})``."""
     from repro_torch.core import squeeze as SQ
     from repro_torch.core.layers import cores_to_list
     from repro_torch.kernels import mpo_linear as MK
@@ -718,6 +744,8 @@ def encdec_train_launches(engine, params: dict, cfg, batch: int, seq: int, dtype
     for path, cd in SQ.find_mpo_layers(params).items():
         shapes = tuple(tuple(c.shape[-4:]) for c in cores_to_list(cd))
         if path[0] == "embed":
+            if not tied_head:
+                continue
             shapes = tuple((d0, j, i, d1) for d0, i, j, d1 in shapes)      # E^T
             rows, uses, again = batch * seq, 1, 0
         else:
@@ -733,6 +761,406 @@ def encdec_train_launches(engine, params: dict, cfg, batch: int, seq: int, dtype
                        ("mpo_linear_bwd_cores", uses)):
             want[key] = want.get(key, 0) + n * steps
     return planned, want
+
+
+# the autotune phase (16): full-width bert-base, bf16, served from phase 3's
+# prompts and fine-tuned at phase 5's batch; mistral-nemo-12b at phase 10's
+# factorized depth from 8 x 512 prompts.  The tuner measures by default on
+# the card; phases 2-15 run with REPRO_TORCH_AUTOTUNE_MEASURE=0
+TUNE_LFA_STEPS, TUNE_PREFILLS = 2, 2         # LFA steps a run; prefills timed a run
+# each comparison runs in turns: analytic, tuned (the first: from a cold
+# cache, its races inside), tuned, analytic
+TUNE_TURNS = (False, True, True, False)
+TUNE_LLM, TUNE_LLM_LAYERS = "mistral-nemo-12b", 4
+
+
+def autotune_phase() -> dict:
+    """16. autotune — the measured plans on the card, from a cold cache in a
+    temporary directory.  Returns ``{kernel: {path: launches}}`` of the
+    planned launches of its runs (the races' own launches apart)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import Session
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import mpo_linear as MK
+
+    t_phase = time.perf_counter()
+    watched = ((MK.mpo_linear_mma, "launches"), (MK.mpo_linear_cuda_core, "launches"),
+               (MK.mpo_linear_bwd_cores, "launches"), (DA.flash_decode_attention, "launches"),
+               (MK.mpo_linear_plain, "calls"), (MK.mpo_linear_bwd_cores_plain, "calls"),
+               (DA.flash_decode_attention_plain, "calls"))
+    names = ("mpo_linear_fwd_mma", "mpo_linear_fwd", "mpo_linear_bwd_cores",
+             "flash_decode_attention", "mpo_linear_plain", "mpo_linear_bwd_cores_plain",
+             "flash_decode_attention_plain")
+    plains = names[4:]
+
+    def counts():
+        return {n: getattr(fn, attr) for n, (fn, attr) in zip(names, watched)}
+
+    def zero():
+        for fn, attr in watched:
+            setattr(fn, attr, 0)
+
+    # every race of the phase goes through this wrapper of the tuner's
+    # candidates: a key is measured at most once, each kernel@ candidate
+    # launches its kernel (and, in train, the cores backward), no candidate
+    # calls a plain version; the races' launches are summed apart
+    races, race_launches = {}, {n: 0 for n in names}
+    build = AT._candidates
+
+    def watch(key, label, thunk):
+        def run():
+            before = counts()
+            out = thunk()
+            torch.cuda.synchronize()
+            after = counts()
+            d = {n: after[n] - before[n] for n in names}
+            for n in names:
+                race_launches[n] += d[n]
+            if any(d[n] for n in plains):
+                fail(f"autotune: candidate {label} of {key} called a plain version: {d}")
+            if label.startswith("kernel@"):
+                need = [n for n in ("mpo_linear_fwd_mma", "mpo_linear_fwd") if d[n]]
+                if not need or (races[key]["phase"] == "train" and not d["mpo_linear_bwd_cores"]):
+                    fail(f"autotune: candidate {label} of {key} did not launch its kernel: {d}")
+                races[key]["kernel_launches"][label] = races[key]["kernel_launches"].get(
+                    label, 0) + sum(d[n] for n in names[:3])
+            return out
+        return run
+
+    def plan_vs_source(shapes, m, dtype, bm):
+        """The tile's plan against the CUDA source's shared memory and
+        workspace, where the kernel takes the tile."""
+        plan = MK.forward_plan(shapes, m, dtype, bm)
+        if plan is None:
+            return
+        dims, n = MK._dims(shapes), len(shapes)
+        if MK.forward_kernel(shapes, dtype) == "mma":
+            code = MK.DTYPES[getattr(torch, dtype)]
+            got = (MK._mma_lib().mpo_linear_mma_smem(dims, n, plan.split, bm, code),
+                   4 * MK._mma_lib().mpo_linear_mma_workspace(dims, n, plan.split, m,
+                                                              plan.splits, 1, code))
+        else:
+            got = (MK._lib().mpo_linear_fwd_smem(dims, n, plan.split, bm, plan.ch, plan.lq),
+                   MK._lib().mpo_linear_fwd_workspace(dims, n, plan.split, m, plan.splits, 1))
+        if got != (plan.smem, plan.workspace):
+            fail(f"autotune: the plan of {shapes} at {m} rows, tile {bm}: shared memory / "
+                 f"workspace {plan.smem} / {plan.workspace}, the CUDA source's {got}")
+
+    def candidates(shapes, tokens, phase, dtype, device):
+        key = AT.make_key(shapes, tokens, phase, dtype, device)
+        if key in races:
+            fail(f"autotune: key measured twice: {key}")
+        races[key] = {"shapes": [list(c) for c in shapes], "tokens": tokens, "phase": phase,
+                      "dtype": dtype, "kernel_launches": {}}
+        out = build(shapes, tokens, phase, dtype, device)
+        for label, _ in out:
+            if label.startswith("kernel@"):
+                bm = int(label.split("@")[1])
+                plan_vs_source(shapes, tokens, dtype, bm)
+                if phase == "train":             # dL/dx at the tile where it is taken
+                    plan_vs_source(tuple((a, j, i, b) for a, i, j, b in shapes), tokens,
+                                   dtype, bm)
+        return [(label, watch(key, label, thunk)) for label, thunk in out]
+
+    def analytic(on: bool):
+        """Measuring off (``on`` False) or the card's default (measuring)."""
+        if on:
+            os.environ.pop(AT.ENV_MEASURE, None)
+        else:
+            os.environ[AT.ENV_MEASURE] = "0"
+        E.clear_plan_cache()
+
+    def verdicts(tuner, what):
+        """Every verdict in the tuner's cache file, each candidate's ms."""
+        out = []
+        for key, ent in json.load(open(tuner.path))["entries"].items():
+            out.append(dict(key=key.split("|shapes=")[1], mode=ent["mode"],
+                            block_m=ent["block_m"],
+                            timings_ms={k: 1e3 * v for k, v in sorted(
+                                ent["timings"].items(), key=lambda kv: kv[1])},
+                            kernel_launches=races.get(key, {}).get("kernel_launches", {})))
+        emit(phase="autotune", step="verdicts", what=what, substrate=AT.substrate("cuda"),
+             verdicts=out)
+
+    def plans_of(engine):
+        """{key: (mode, block_m)} re-planned for every raced key."""
+        return {k: (p.mode, p.block_m) for k, p in (
+            (k, engine.plan(r["shapes"], r["tokens"], r["phase"], r["dtype"], "cuda"))
+            for k, r in races.items())}
+
+    def serve_timed(sess, what, ps, max_len, new_tokens, planned):
+        """Warm-up, then ``TUNE_PREFILLS`` prefills (the least time kept) and
+        ``new_tokens`` - 1 decode steps timed on the wall clock to
+        ``synchronize``, the launches zeroed just before the prefills and
+        the decode and read just after each, held to ``planned`` ({kernel:
+        [a prefill, a decode step]}); returns the record and the prefill
+        logits."""
+        handle = sess.serve(len(ps), max_len, paged=True, weight_cache=False)
+        handle.generate({"tokens": ps}, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        prefill_ms = []
+        for _ in range(TUNE_PREFILLS):
+            handle.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = handle.prefill({"tokens": ps})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prefill_ms.append(1e3 * (t1 - t0))
+        pre = counts()
+        zero()
+        tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        out, finite = [tok], bool(torch.isfinite(logits).all())
+        for _ in range(new_tokens - 1):
+            tok, step_logits = handle.decode(tok)
+            out.append(tok)
+            finite &= bool(torch.isfinite(step_logits).all())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dec = counts()
+        n_dec = new_tokens - 1
+        rec = dict(prefill_ms=min(prefill_ms), prefill_ms_runs=prefill_ms,
+                   decode_ms_per_step=1e3 * (t2 - t1) / n_dec,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   launches_in_prefills={k: pre[k] for k in names[:4]},
+                   launches_in_decode={k: dec[k] for k in names[:4]})
+        tokens = torch.cat(out, 1)
+        if not finite or tuple(tokens.shape) != (len(ps), new_tokens):
+            fail(f"autotune {what}: non-finite logits or tokens of shape {tuple(tokens.shape)}")
+        if any(pre[k] or dec[k] for k in plains) or pre["mpo_linear_fwd"] or \
+                dec["mpo_linear_fwd"]:
+            fail(f"autotune {what}: a plain version or csrc/mpo_linear.cu ran on the bf16 "
+                 f"path: {pre} {dec}")
+        want_pre = {k: v[0] * TUNE_PREFILLS for k, v in planned.items()}
+        want_dec = {k: v[1] * n_dec for k, v in planned.items()}
+        if pre["mpo_linear_fwd_mma"] != want_pre.get("mpo_linear_fwd_mma", 0) or \
+                dec["mpo_linear_fwd_mma"] != want_dec.get("mpo_linear_fwd_mma", 0):
+            fail(f"autotune {what}: the forward launched {pre['mpo_linear_fwd_mma']} in "
+                 f"{TUNE_PREFILLS} prefills and {dec['mpo_linear_fwd_mma']} in decode, the "
+                 f"plans name {want_pre} / {want_dec}")
+        sess._serve.clear()
+        return rec, logits.float()
+
+    def serve_turns(sess, arch, ps, max_len, new_tokens, batch, prompt):
+        """``serve_timed`` in ``TUNE_TURNS``, the plans each turn names held
+        to its launches (``serve_plan``; planning the cold turn races its
+        keys); the tuned turns' prefill logits within ``PATH_TOL`` of the
+        analytic ones'.  Returns {side: summary}."""
+        recs, logits = {}, {}
+        for n, on in enumerate(TUNE_TURNS):
+            analytic(on)
+            cold = on and not any(TUNE_TURNS[:n])
+            if cold and (not AT.should_measure("cuda") or AT.get_tuner().timing_runs):
+                fail("autotune: the tuner does not measure by default on the card, or the "
+                     "cache was not cold")
+            side = "tuned" if on else "analytic"
+            runs0, race0 = AT.get_tuner().timing_runs, dict(race_launches)
+            t0 = time.perf_counter()
+            modes, planned = serve_plan(sess.engine, sess.params, sess.cfg, batch, prompt,
+                                        "bfloat16")
+            planning_s = time.perf_counter() - t0
+            if not cold and AT.get_tuner().timing_runs != runs0:
+                fail(f"autotune {arch} {side} turn {n + 1}: planning measured again")
+            what = f"{arch} serve {side} (turn {n + 1})"
+            rec, logits[on] = serve_timed(sess, what, ps, max_len, new_tokens, planned)
+            rec.update(modes=modes, planning_s=planning_s, timing_runs=AT.get_tuner().timing_runs,
+                       keys_raced=len(races),
+                       race_launches={k: race_launches[k] - race0[k] for k in names[:3]})
+            recs.setdefault(side, []).append(rec)
+            for k in ("mpo_linear_fwd_mma", "flash_decode_attention"):
+                cell = by_path.setdefault(k, {})
+                cell[f"{arch} serve {side}"] = cell.get(f"{arch} serve {side}", 0) + (
+                    rec["launches_in_prefills"][k] + rec["launches_in_decode"][k])
+            emit(phase="autotune", step=what, arch=arch, batch=batch, prompt=prompt,
+                 new_tokens=new_tokens, **rec)
+            if on:
+                diff = (logits[True] - logits[False]).abs().max().item()
+                scale = logits[False].abs().max().item()
+                if diff > PATH_TOL * scale:
+                    fail(f"autotune {what}: prefill logits differ from the analytic ones' by "
+                         f"{diff} > {PATH_TOL} x {scale}")
+        out = {side: dict(prefill_ms=min(min(r["prefill_ms_runs"]) for r in rs),
+                          decode_ms_per_step=sum(r["decode_ms_per_step"] for r in rs) / len(rs),
+                          peak_mem_bytes=max(r["peak_mem_bytes"] for r in rs),
+                          turns=len(rs)) for side, rs in recs.items()}
+        emit(phase="autotune", step=f"{arch} serve, tuned against analytic", **out,
+             prefill_logits_max_abs_diff=diff, scale=scale, tol=PATH_TOL)
+        return out
+
+    def lfa_timed(sess, what, want, steps):
+        """``steps`` LFA steps at phase 5's batch from the weights in
+        ``start`` (every run from the same ones), launches zeroed just before
+        and read just after; with ``want`` ({kernel: launches} the train plans
+        name), the races' launches taken out, held to it."""
+        with torch.no_grad():
+            for k, v in sess.model.state_dict().items():
+                v.copy_(start[k])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        race0 = dict(race_launches)
+        t0 = time.perf_counter()
+        rep = sess.finetune(steps=steps, seed=SEED, mode="lfa", seq_len=TRAIN_SEQ,
+                            batch_size=TRAIN_BATCH, log_every=1)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = counts()
+        path = {k: got[k] - (race_launches[k] - race0[k]) for k in names}
+        losses = [h["loss"] for h in rep["history"]]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            fail(f"autotune {what}: losses {losses}")
+        if any(path[k] for k in plains) or path["mpo_linear_fwd"]:
+            fail(f"autotune {what}: a plain version or csrc/mpo_linear.cu ran: {path}")
+        if want is not None and any(path[k] != want.get(k, 0) for k in names[:3]):
+            fail(f"autotune {what}: launched {path}, the train plans name {want}")
+        return dict(ms_per_step=1e3 * sec / steps, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                    losses=losses, launches={k: path[k] for k in names[:3]},
+                    race_launches={k: race_launches[k] - race0[k] for k in names[:3]})
+
+    by_path = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_autotune_"))
+    AT._candidates = candidates
+    try:
+        os.environ[AT.ENV_CACHE] = str(tmp / "cache.json")
+        tuner = AT.reset_tuner()
+        # (a) full-width bert-base, bf16, factorized: analytic and measured
+        # plans in turns, serving and then LFA (its cls task: no vocabulary
+        # head in training)
+        sess = Session.init("bert-base", smoke=False, seed=SEED)
+        cfg, eng = sess.cfg, sess.engine
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)      # phase 3's
+        runs = {"bert-base serve": serve_turns(sess, "bert-base", prompts, MAX_LEN, NEW_TOKENS,
+                                               BATCH, PROMPT)}
+        serve_keys = len(races)
+        start = {k: v.clone() for k, v in sess.model.state_dict().items()}
+        analytic(False)
+        lfa_timed(sess, "bert-base finetune lfa (warm-up)", None, 1)
+        lfa = {}
+        for n, on in enumerate(TUNE_TURNS):
+            analytic(on)
+            cold = on and not any(TUNE_TURNS[:n])
+            side = "tuned" if on else "analytic"
+            what = f"bert-base finetune lfa {side} (turn {n + 1})"
+            plans = lambda: encdec_train_launches(eng, sess.params, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                                  "bfloat16", TUNE_LFA_STEPS,
+                                                  tied_head=sess.task == "lm")[1]
+            want = None if cold else plans()
+            rec = lfa_timed(sess, what, want, TUNE_LFA_STEPS)
+            if cold:          # the races ran inside; the plans they made, after
+                want = plans()
+                if any(rec["launches"][k] != want.get(k, 0) for k in rec["launches"]):
+                    fail(f"autotune {what}: launched {rec['launches']} besides the races, "
+                         f"the train plans name {want}")
+            rec["train_plans"] = want
+            lfa.setdefault(side, []).append(rec)
+            # one function of the same weights: the first step's loss within
+            # phase 3's tolerance of the analytic run's
+            base = lfa["analytic"][0]["losses"][0]
+            if not abs(rec["losses"][0] - base) <= PATH_TOL * abs(base):
+                fail(f"autotune {what}: the first step's loss {rec['losses'][0]} is not "
+                     f"within {PATH_TOL} of the analytic run's {base}")
+            for k in ("mpo_linear_fwd_mma", "mpo_linear_bwd_cores"):
+                cell = by_path.setdefault(k, {})
+                cell[f"bert-base finetune lfa {side}"] = (
+                    cell.get(f"bert-base finetune lfa {side}", 0) + rec["launches"][k])
+            emit(phase="autotune", step=what, arch="bert-base", batch=TRAIN_BATCH,
+                 seq_len=TRAIN_SEQ, steps=TUNE_LFA_STEPS, cold=cold, **rec)
+        runs["bert-base finetune lfa"] = {
+            side: dict(ms_per_step=[r["ms_per_step"] for r in rs],
+                       peak_mem_bytes=max(r["peak_mem_bytes"] for r in rs))
+            for side, rs in lfa.items()}
+        tuner = AT.get_tuner()
+        analytic(True)                      # the turns ended on the analytic plans
+        verdicts(tuner, "bert-base")
+        entries = json.load(open(tmp / "cache.json"))["entries"]
+        if not len(races) == len(entries) == tuner.stats()["keys_resolved"] or \
+                set(races) != set(entries):
+            fail(f"autotune: {len(races)} keys raced, {tuner.stats()['keys_resolved']} "
+                 f"resolved, {len(entries)} in the cache file")
+        measured_plans = plans_of(eng)
+        emit(phase="autotune", step="bert-base raced", keys=len(races), serve_keys=serve_keys,
+             train_keys=len(races) - serve_keys, timing_runs=tuner.timing_runs,
+             race_launches=dict(race_launches), cache_entries=len(entries))
+        # (b) a fresh tuner on the same file: the same plans, no timing
+        tuner = AT.reset_tuner()
+        analytic(True)
+        if plans_of(eng) != measured_plans or tuner.timing_runs:
+            fail(f"autotune: a fresh tuner planned {plans_of(eng)} with {tuner.timing_runs} "
+                 f"timing runs, the measuring one {measured_plans}")
+        emit(phase="autotune", step="fresh tuner, same file", keys=len(measured_plans),
+             timing_runs=tuner.timing_runs, identical=True)
+        # (c) shipped and restored: export, import into a second cache; the
+        # session saved (autotune.json) and restored under a fresh tuner on
+        # an empty cache
+        shipped = AT.export_cache(str(tmp / "ship" / "verdicts.json"))
+        os.environ[AT.ENV_CACHE] = str(tmp / "second.json")
+        AT.reset_tuner()
+        got = AT.import_cache(shipped["path"])
+        second = json.load(open(tmp / "second.json"))["entries"]
+        if shipped["exported"] != len(entries) or got["imported"] != len(entries) or \
+                second != entries:
+            fail(f"autotune: exported {shipped}, imported {got}: not the same verdicts")
+        t0 = time.perf_counter()
+        sess.save(str(tmp / "session"))
+        save_s = time.perf_counter() - t0
+        manifest = json.load(open(tmp / "session" / "session.json"))
+        saved = json.load(open(tmp / "session" / "autotune.json"))["entries"]
+        if manifest["autotune_entries"] != len(saved) or saved != entries:
+            fail(f"autotune: Session.save wrote {len(saved)} verdicts, counted "
+                 f"{manifest['autotune_entries']}, measured {len(entries)}")
+        os.environ[AT.ENV_CACHE] = str(tmp / "third.json")
+        tuner = AT.reset_tuner()
+        analytic(True)
+        t0 = time.perf_counter()
+        restored = Session.restore(str(tmp / "session"))
+        restore_s = time.perf_counter() - t0
+        again = plans_of(restored.engine)
+        report = restored.report().get("autotune")
+        if again != measured_plans or tuner.timing_runs or report is None or \
+                report["keys_resolved"] != len(entries):
+            fail(f"autotune: the restored session planned with {tuner.timing_runs} timing "
+                 f"runs, report {report}")
+        emit(phase="autotune", step="shipped and restored", exported=shipped["exported"],
+             imported=got["imported"], autotune_entries=manifest["autotune_entries"],
+             save_s=save_s, restore_s=restore_s, restored_timing_runs=tuner.timing_runs,
+             report=report, identical=True)
+        del sess, restored
+        torch.cuda.empty_cache()
+
+        # (d) mistral-nemo-12b at phase 10's factorized depth: cold-tuned,
+        # recorded beside the analytic plans (no gate on which mode wins)
+        from repro_torch import configs
+        os.environ[AT.ENV_CACHE] = str(tmp / "llm.json")
+        tuner = AT.reset_tuner()
+        lcfg = dataclasses.replace(configs.get_config(TUNE_LLM), num_layers=TUNE_LLM_LAYERS)
+        lsess = Session.init(lcfg, seed=SEED)
+        lprompts = np.random.default_rng(SEED + 10).integers(
+            0, lcfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)
+        races.clear()                       # a new cache: its keys raced anew
+        llm = f"{TUNE_LLM} ({TUNE_LLM_LAYERS} layers)"
+        runs[f"{llm} serve"] = serve_turns(lsess, llm, lprompts, LLM_MAX_LEN, LLM_NEW,
+                                           LLM_BATCH, LLM_PROMPT)
+        verdicts(tuner, TUNE_LLM)
+        emit(phase="autotune", step=f"{TUNE_LLM} raced", keys=len(races),
+             timing_runs=tuner.timing_runs, race_launches=dict(race_launches))
+        del lsess
+        torch.cuda.empty_cache()
+    finally:
+        AT._candidates = build
+        os.environ[AT.ENV_MEASURE] = "0"
+        os.environ.pop(AT.ENV_CACHE, None)
+        E.clear_plan_cache()
+        AT.reset_tuner()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="autotune", s=time.perf_counter() - t_phase, summary=runs)
+    return by_path
 
 
 def main() -> int:
@@ -761,6 +1189,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    # phases 2-15 hold the analytic plans (their gates name them); phase 16
+    # turns the autotuner's measuring back on
+    from repro_torch.kernels import autotune
+    os.environ[autotune.ENV_MEASURE] = "0"
 
     # ---- 1. device + build ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4639,7 +5071,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(phase="encdec", s=time.perf_counter() - w_t0)
 
-    # ---- 16. the kernels line: one entry per kernel and dtype ----
+    # ---- 16. the measured plans ----
+    for k, paths in autotune_phase().items():
+        for path, n in paths.items():
+            by_path.setdefault(k, {})[f"autotune {path}"] = n
+            path_launches[k] = path_launches.get(k, 0) + n
+
+    # ---- 17. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,

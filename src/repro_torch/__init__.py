@@ -9,11 +9,13 @@ and fine-tunes the dense family and serves the SSM family::
     handle = s.serve(8, 256, paged=True, weight_cache=False)
     tokens = handle.generate({"tokens": prompts}, num_tokens=32)
     m = Session.init("mamba2-130m", smoke=False)          # SSD-scan prefill
+    autotune.get_tuner().stats()       # the measured plans' verdicts, on the card
 """
 
 from repro_torch import configs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layers import MPOConfig
+from repro_torch.kernels import autotune
 from repro_torch.pipeline.session import ServeHandle, Session
 
-__all__ = ["Session", "ServeHandle", "MPOConfig", "ModelConfig", "configs"]
+__all__ = ["Session", "ServeHandle", "MPOConfig", "ModelConfig", "autotune", "configs"]

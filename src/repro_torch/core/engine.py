@@ -19,10 +19,13 @@ four ways:
 ``ExecutionPlan`` is one immutable, memoized decision per (core shapes,
 token count, phase, device type, dtype).  The device plays the part of the
 reference's ``interpret`` flag: a plan may resolve to ``kernel`` only for a
-CUDA device, as the reference allows it only when ``interpret`` is False, so
-on the CPU the port makes the reference's interpret-mode decisions exactly.
-Planning is analytic (FLOPs); measured autotuning comes with
-``kernels/autotune`` (ROADMAP.md, Queue 1 item 5).
+CUDA device, as the reference allows it only when ``interpret`` is False.
+``train`` and ``prefill`` ask the measured autotuner (``kernels.autotune``)
+first where it measures — for a CUDA device the process has, or wherever
+``REPRO_TORCH_AUTOTUNE_MEASURE=1`` — and take its mode and row tile
+(``block_m``); elsewhere, and with ``REPRO_TORCH_AUTOTUNE_MEASURE=0``,
+planning is analytic (FLOPs, then the kernels' gate), so on the CPU the
+port makes the reference's interpret-mode decisions exactly.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import layers, mpo
-from repro_torch.kernels.mpo_linear import kernel_eligible
+from repro_torch.kernels import autotune
+from repro_torch.kernels.mpo_linear import MPOLinearFn, kernel_eligible
 
 PHASES = ("train", "prefill", "decode")
 
@@ -98,18 +102,28 @@ class ExecutionPlan:
     flops_factorized: int          # per-token chain cost
     flops_dense: int               # per-token dense matmul cost
     flops_rebuild: int             # one-time cores -> W cost
+    block_m: int = 0               # kernel row tile (measured when tuned); 0: its plan's own
     device: str = "cpu"            # device type the plan was made for
     dtype: str = "float32"         # activation dtype the plan was sized for
+    tuned: bool = False            # mode and block_m came from a measurement
     reason: str = ""               # human-readable why (for tests/debug)
 
 
 def _decide(cfg, shapes: tuple, tokens: int, phase: str, device: str,
-            dtype: str) -> tuple[str, str]:
-    """(mode, reason) — the full planning decision."""
+            dtype: str) -> tuple[str, int, bool, str]:
+    """(mode, block_m, tuned, reason) — the full planning decision.
+
+    ``train`` and ``prefill`` first consult the measured autotuner where it
+    measures (``autotune.should_measure``); a kernel candidate that fails
+    raises out of planning, never hands the choice to another mode.  Else
+    the analytic FLOPs comparison and the kernels' gate decide.
+    ``decode``'s cached-vs-factorized choice stays analytic: it is a memory
+    policy (never resurrect a heavily compressed table as a dense W), not a
+    latency race."""
     if phase not in PHASES:
         raise ValueError(f"unknown phase {phase!r} (expected one of {PHASES})")
     if cfg.mode != "auto":
-        return cfg.mode, f"forced by cfg.mode={cfg.mode!r}"
+        return cfg.mode, 0, False, f"forced by cfg.mode={cfg.mode!r}"
     fact_tok = flops_factorized_per_token(shapes)
     dense_tok = flops_dense_per_token(shapes)
     rebuild = flops_reconstruct(shapes)
@@ -117,22 +131,27 @@ def _decide(cfg, shapes: tuple, tokens: int, phase: str, device: str,
         # the one-time rebuild happens at serving init (cache_weights) and is
         # amortized over the whole generation -> steady-state FLOPs decide
         if dense_tok < fact_tok:
-            return "cached", (f"dense {dense_tok} < factorized {fact_tok} "
-                              "FLOPs/token; rebuild amortized at cache init")
-        return "factorized", (f"factorized {fact_tok} <= dense {dense_tok} "
-                              "FLOPs/token; caching W would also cost I*J memory")
+            return "cached", 0, False, (f"dense {dense_tok} < factorized {fact_tok} "
+                                        "FLOPs/token; rebuild amortized at cache init")
+        return "factorized", 0, False, (f"factorized {fact_tok} <= dense {dense_tok} "
+                                        "FLOPs/token; caching W would also cost I*J memory")
+    if autotune.should_measure(device):
+        res = autotune.get_tuner().get(shapes, tokens, phase, dtype, device)
+        return res.mode, res.block_m, True, (
+            f"autotuned ({res.source}): {res.mode}@{res.block_m} fastest of "
+            f"{len(res.timings)} candidates")
     cost_fact = tokens * fact_tok
     cost_recon = rebuild + tokens * dense_tok
     if cost_fact < cost_recon:
-        return "factorized", (f"chain {cost_fact} < rebuild+dense "
-                              f"{cost_recon} FLOPs at {tokens} tokens")
+        return "factorized", 0, False, (f"chain {cost_fact} < rebuild+dense "
+                                        f"{cost_recon} FLOPs at {tokens} tokens")
     if device == "cuda" and kernel_eligible(shapes, dtype=dtype,
                                             train=phase == "train"):
         what = "fwd+bwd" if phase == "train" else "forward-only"
-        return "kernel", (f"dense-favored {what} phase on the card: fuse the "
-                          "rebuild on chip (analytic gate)")
-    return "reconstruct", (f"rebuild+dense {cost_recon} <= chain {cost_fact} "
-                           f"FLOPs at {tokens} tokens")
+        return "kernel", 0, False, (f"dense-favored {what} phase on the card: fuse the "
+                                    "rebuild on chip (analytic gate; not measured)")
+    return "reconstruct", 0, False, (f"rebuild+dense {cost_recon} <= chain {cost_fact} "
+                                     f"FLOPs at {tokens} tokens")
 
 
 def choose_mode(cfg, shapes: Sequence[tuple], tokens: int, phase: str, *,
@@ -145,20 +164,28 @@ def choose_mode(cfg, shapes: Sequence[tuple], tokens: int, phase: str, *,
                                 phase="prefill", device="cuda")
     """
     shapes = tuple(tuple(int(d) for d in s) for s in shapes)
-    return _decide(cfg, shapes, tokens, phase, torch.device(device).type,
-                   dtype_name(dtype))
+    mode, _, _, reason = _decide(cfg, shapes, tokens, phase, torch.device(device).type,
+                                 dtype_name(dtype))
+    return mode, reason
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(cfg, shapes: tuple, tokens: int, phase: str, device: str,
           dtype: str) -> ExecutionPlan:
-    mode, reason = _decide(cfg, shapes, tokens, phase, device, dtype)
+    mode, block_m, tuned, reason = _decide(cfg, shapes, tokens, phase, device, dtype)
     return ExecutionPlan(
         mode=mode, phase=phase, shapes=shapes, tokens=tokens,
         flops_factorized=flops_factorized_per_token(shapes),
         flops_dense=flops_dense_per_token(shapes),
         flops_rebuild=flops_reconstruct(shapes),
-        device=device, dtype=dtype, reason=reason)
+        block_m=block_m, device=device, dtype=dtype, tuned=tuned, reason=reason)
+
+
+def clear_plan_cache() -> None:
+    """Drop every memoized ``ExecutionPlan`` (needed after
+    ``autotune.reset_tuner`` or a change of ``REPRO_TORCH_AUTOTUNE_MEASURE``
+    for planning to consult the tuner again)."""
+    _plan.cache_clear()
 
 
 # --------------------------------------------------------------------------
@@ -208,13 +235,14 @@ class MPOEngine:
         Master weights stay f32 and are cast to the activation dtype at the
         point of use.  A dense ``{"w": ...}`` entry — a never-factorized
         matrix or a serving-time cached W — short-circuits before planning.
+        The ``kernel`` mode runs at the plan's row tile (``block_m``).
 
         A stack of E matrices of one shape (the experts of a MoE layer: cores
         ``(E, d0, i, j, d1)``, x ``(E, N, I)``) is planned per matrix at N
         tokens, as the reference's ``jax.vmap`` over the experts shows its
-        engine one matrix at a time, and all E run in one call of the planned
-        mode: on the card one forward launch, and in training one call of the
-        cores backward (``MPOLinearFn`` over the stack)."""
+        engine (and its tuner) one matrix at a time, and all E run in one call
+        of the planned mode: on the card one forward launch, and in training
+        one call of the cores backward (``MPOLinearFn`` over the stack)."""
         if "w" in params:
             w = params["w"].to(x.dtype)
             return x @ (w.T if transpose else w)
@@ -230,8 +258,8 @@ class MPOEngine:
             # the caller passed raw cores: re-decide as a one-shot forward
             plan = self.plan(shapes, tokens, "prefill", x.dtype, x.device)
         if plan.mode == "kernel":
-            from repro_torch.kernels.mpo_linear import MPOLinearFn
-            return MPOLinearFn.apply(x.contiguous(), *[c.contiguous() for c in cores])
+            return MPOLinearFn.apply(x.contiguous(), plan.block_m,
+                                     *[c.contiguous() for c in cores])
         if plan.mode == "factorized":
             return torch.vmap(mpo.apply_mpo)(cores, x) if lead else mpo.apply_mpo(cores, x)
         # "reconstruct" (or a forced "cached" over raw cores: contract now)

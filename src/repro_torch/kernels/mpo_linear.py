@@ -46,7 +46,10 @@ scratch would pass ``BWD_STACK_SCRATCH``.
 
 ``MPOLinearFn`` is the autograd function around them (the reference's
 ``_mpo_linear`` custom VJP): ``dL/dx`` is the forward over i/j-swapped
-cores, ``dL/dcores`` the backward kernel.  Each wrapper launches its kernel
+cores, ``dL/dcores`` the backward kernel.  The forwards take a row tile
+(``block_m``: ``MMA_BM``, ``NARROW_BM``) where the autotuner
+(``kernels/autotune.py``) has measured one, else their plan's own
+(``forward_plan``).  Each wrapper launches its kernel
 for CUDA tensors and takes its plain version only for CPU tensors.
 ``kernel_eligible`` is the engine's gate: it admits what the kernel of the
 activation dtype handles (the TPU's 8 x 128 tile alignment and 16 MiB VMEM
@@ -83,6 +86,7 @@ MMA_TERMS = {"bfloat16": (1, 2), "float32": (3, 3)}
 MMA_FIT_BM = {"bfloat16": 128, "float32": 64}
 MMA_SMS = 132                        # the H100's SMs: split I up to two waves
 SPLIT_M = 64                         # at most this many rows: I split across blocks
+MMA_BM = (16, 64, 128)               # the row tiles csrc/mpo_linear_mma.cu is built for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,18 +181,24 @@ def _mma_splits(i_dim: int, j_dim: int, m: int, bm: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def _mma_plan(shapes: tuple, m: int, dtype: str = "bfloat16") -> MmaPlan | None:
+def _mma_plan(shapes: tuple, m: int, dtype: str = "bfloat16", bm: int = 0) -> MmaPlan | None:
     """The tensor-core kernel's launch for these core shapes at ``m`` rows
     in this dtype, or None when it cannot take the shapes.  Rows: 16 up to
     16, 64 up to ``SPLIT_M``, else 128 (float32: 64 where 128 does not fit
-    shared memory)."""
+    shared memory).  A nonzero ``bm`` (one of ``MMA_BM``: the autotuner's
+    row tile) fixes the tile, None where its shared memory does not fit;
+    the splits of I are reckoned for it."""
     s = _mma_split(shapes, dtype)
     if s is None:
         return None
     g = _mma_geometry(shapes, s, dtype)
-    bm = 16 if m <= 16 else 64 if m <= SPLIT_M else 128
-    if _mma_smem_bytes(g, bm, dtype) > SMEM_LIMIT:
-        bm = 64
+    if bm:
+        if bm not in MMA_BM or _mma_smem_bytes(g, bm, dtype) > SMEM_LIMIT:
+            return None
+    else:
+        bm = 16 if m <= 16 else 64 if m <= SPLIT_M else 128
+        if _mma_smem_bytes(g, bm, dtype) > SMEM_LIMIT:
+            bm = 64
     i_dim = math.prod(c[1] for c in shapes)
     j_dim = math.prod(c[2] for c in shapes)
     splits = _mma_splits(i_dim, j_dim, m, bm)
@@ -359,7 +369,7 @@ def _narrow_splits(i_dim: int, m: int, blocks: int, nst: int, slots: int = 2 * M
 
 
 @functools.lru_cache(maxsize=4096)
-def _narrow_plan(shapes: tuple, m: int) -> NarrowPlan | None:
+def _narrow_plan(shapes: tuple, m: int, bm: int = 0) -> NarrowPlan | None:
     """``csrc/mpo_linear.cu``'s launch for these core shapes at ``m`` rows,
     or None when it cannot take the shapes.  Row tiles of 64 up to 64 rows,
     else 128 where that fits.  L groups of up to ``NARROW_LGROUPS`` stages'
@@ -373,19 +383,25 @@ def _narrow_plan(shapes: tuple, m: int) -> NarrowPlan | None:
     block rebuilds W once for its group, fewer groups rebuild less but fill
     fewer SMs, larger L groups stream the core rows fewer times but leave
     less room for resident W, and a group of more than one row tile moves
-    its partial sums between chunks."""
+    its partial sums between chunks.  A nonzero ``bm`` (one of
+    ``NARROW_BM``: the autotuner's row tile) fixes the row tile and the
+    rest is chosen for it as above; None where no launch fits at it."""
     s = _narrow_split(shapes)
-    if s is None:
+    if s is None or (bm and bm not in NARROW_BM):
         return None
     g1 = _narrow_geometry(shapes, s)
     i_dim = math.prod(c[1] for c in shapes)
     j_dim = math.prod(c[2] for c in shapes)
-    bm = 64 if m <= 64 or _narrow_smem_bytes(g1, 128) > SMEM_LIMIT else 128
+    tiles = (bm,) if bm else NARROW_BM
+    if not bm:
+        bm = 64 if m <= 64 or _narrow_smem_bytes(g1, 128) > SMEM_LIMIT else 128
     mtiles = -(-max(m, 1) // bm)
     nst = g1["nst"]
     geo = lambda k: _narrow_geometry(shapes, s, k)
     if mtiles == 1:
         fits = [k for k in NARROW_LGROUPS if k <= nst and _narrow_smem_bytes(geo(k), bm) <= SMEM_LIMIT]
+        if not fits:
+            return None
         two = [k for k in fits if _narrow_smem_bytes(geo(k), bm) <= SM_SMEM // 2 - 1024]
         g = geo(max(two or fits))
         smem = _narrow_smem_bytes(g, bm)
@@ -395,7 +411,7 @@ def _narrow_plan(shapes: tuple, m: int) -> NarrowPlan | None:
         return NarrowPlan(s, bm, 1, 1, g["lq"], splits, smem, ws, g["fast"], g["vec"])
     wst = 6 * NARROW_BK * NARROW_WP
     best = None
-    for bmc in NARROW_BM:                # row tile, L group, resident stages, row group
+    for bmc in tiles:                    # row tile, L group, resident stages, row group
         mt = -(-m // bmc)
         for k in NARROW_LGROUPS:
             if k > nst:
@@ -416,6 +432,8 @@ def _narrow_plan(shapes: tuple, m: int) -> NarrowPlan | None:
                 t = -(-blocks // slots) * (build + rg * (prod + (rmw if rg > 1 else 0.0)))
                 if best is None or t < best[0]:
                     best = (t, bmc, rg, c, smem, gk)
+    if best is None:
+        return None
     _, bm, rg, ch, smem, g = best
     return NarrowPlan(s, bm, rg, ch, g["lq"], 1, smem, 0, g["fast"], g["vec"])
 
@@ -427,6 +445,20 @@ def forward_kernel(shapes: Sequence[tuple], dtype: str) -> str | None:
     for float32 shapes it refuses but ``_narrow_split`` takes,
     ``"cuda_core"`` (``csrc/mpo_linear.cu``); else None."""
     return _route(tuple(tuple(int(d) for d in s) for s in shapes), dtype)
+
+
+def forward_plan(shapes: Sequence[tuple], m: int, dtype: str, block_m: int = 0):
+    """The launch plan of the forward ``forward_kernel`` names for these
+    core shapes at ``m`` rows (``MmaPlan`` or ``NarrowPlan``), at row tile
+    ``block_m`` when nonzero (else the kernel's own choice), or None where
+    that kernel cannot take them at that tile."""
+    shapes = tuple(tuple(int(d) for d in s) for s in shapes)
+    route = _route(shapes, dtype)
+    if route == "mma":
+        return _mma_plan(shapes, m, dtype, block_m)
+    if route == "cuda_core":
+        return _narrow_plan(shapes, m, block_m)
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -530,7 +562,8 @@ def _mma_lib() -> ctypes.CDLL:
     return lib
 
 
-def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor,
+               block_m: int = 0) -> torch.Tensor:
     """``y[..., J] = x[..., I] @ W(cores)`` without W in device memory.
 
     A stack of E matrices of one shape — 5-D cores ``(E, d0, i, j, d1)``,
@@ -541,9 +574,11 @@ def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     ``forward_kernel`` names: ``csrc/mpo_linear_mma.cu`` (``mpo_linear_mma``)
     in both dtypes, or for the float32 shapes its plan refuses
     ``csrc/mpo_linear.cu`` (``mpo_linear_cuda_core``); each wrapper counts
-    its launches, one a call, stacked or not.  Raises on anything the
-    kernels do not take: other devices or dtypes, mixed dtypes,
-    non-contiguous inputs, shapes neither takes."""
+    its launches, one a call, stacked or not.  ``block_m`` is the row tile
+    (the autotuner's verdict), 0 for the kernel's own plan.  Raises on
+    anything the kernels do not take: other devices or dtypes, mixed
+    dtypes, non-contiguous inputs, shapes neither takes, a row tile the
+    kernel is not built for or that does not fit."""
     cores = list(cores)
     if x.device.type == "cpu":
         return mpo_linear_plain(cores, x)
@@ -576,7 +611,7 @@ def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if route is None:
         raise ValueError(f"mpo_linear: no {dtype} kernel takes core shapes {shapes}")
     fn = mpo_linear_mma if route == "mma" else mpo_linear_cuda_core
-    return fn(cores, shapes, j_dim, m, x, n_stack)
+    return fn(cores, shapes, j_dim, m, x, n_stack, block_m)
 
 
 @functools.lru_cache(maxsize=None)
@@ -586,19 +621,19 @@ def _dims(shapes: tuple):
 
 
 def mpo_linear_cuda_core(cores: list, shapes: tuple, j_dim: int, m: int,
-                         x: torch.Tensor, n_stack: int = 1) -> torch.Tensor:
+                         x: torch.Tensor, n_stack: int = 1, block_m: int = 0) -> torch.Tensor:
     """Launches ``csrc/mpo_linear.cu`` (the float32 forward for the shapes
     the tensor-core plan of ``csrc/mpo_linear_mma.cu`` refuses; it runs on
     the tensor cores too) on the float32 inputs ``mpo_linear`` checked,
-    ``n_stack`` matrices of ``shapes`` at ``m`` rows each
-    (``mpo_linear_cuda_core.launches`` counts its launches,
-    ``.stacked_launches`` those over a stack of more than one matrix;
-    ``.workspace_bytes`` is the last call's scratch: the split partials,
-    never W)."""
-    plan = _narrow_plan(shapes, m)
+    ``n_stack`` matrices of ``shapes`` at ``m`` rows each, at row tile
+    ``block_m`` (0: the plan's own) (``mpo_linear_cuda_core.launches``
+    counts its launches, ``.stacked_launches`` those over a stack of more
+    than one matrix; ``.workspace_bytes`` is the last call's scratch: the
+    split partials, never W)."""
+    plan = _narrow_plan(shapes, m, block_m)
     if plan is None or x.dtype != torch.float32:
         raise ValueError(f"mpo_linear: csrc/mpo_linear.cu does not take {x.dtype} "
-                         f"core shapes {shapes}")
+                         f"core shapes {shapes} at row tile {block_m or 'of its plan'}")
     if n_stack * -(-m // (plan.bm * plan.rg)) > 65535:
         raise ValueError(f"mpo_linear: {n_stack} x {m} rows exceed the launch grid")
     y = torch.empty(*x.shape[:-1], j_dim, dtype=x.dtype, device=x.device)
@@ -623,18 +658,19 @@ mpo_linear_cuda_core.workspace_bytes = 0
 
 
 def mpo_linear_mma(cores: list, shapes: tuple, j_dim: int, m: int,
-                   x: torch.Tensor, n_stack: int = 1) -> torch.Tensor:
+                   x: torch.Tensor, n_stack: int = 1, block_m: int = 0) -> torch.Tensor:
     """Launches ``csrc/mpo_linear_mma.cu`` on the inputs ``mpo_linear``
     checked, in their dtype, ``n_stack`` matrices of ``shapes`` at ``m`` rows
-    each (``mpo_linear_mma.launches`` counts its launches,
+    each, at row tile ``block_m`` (0: the plan's own)
+    (``mpo_linear_mma.launches`` counts its launches,
     ``.stacked_launches`` those over a stack of more than one matrix;
     ``mpo_linear_mma.workspace_bytes`` is the last call's scratch: each
     matrix's R, P and split-I partials, never W)."""
     dtype = "float32" if x.dtype == torch.float32 else "bfloat16"
-    plan = _mma_plan(shapes, m, dtype)
+    plan = _mma_plan(shapes, m, dtype, block_m)
     if plan is None:
         raise ValueError(f"mpo_linear: the tensor-core kernel does not take {dtype} "
-                         f"core shapes {shapes}")
+                         f"core shapes {shapes} at row tile {block_m or 'of its plan'}")
     if n_stack * -(-m // plan.bm) > 65535:
         raise ValueError(f"mpo_linear: {n_stack} x {m} rows exceed the launch grid")
     y = torch.empty(*x.shape[:-1], j_dim, dtype=x.dtype, device=x.device)
@@ -1149,16 +1185,19 @@ class MPOLinearFn(torch.autograd.Function):
     """``x @ W(cores)`` through the kernels, differentiable — the reference's
     ``_mpo_linear`` custom VJP.  Saves only ``(cores, x)``; ``dL/dx`` is the
     forward kernel over the i/j-swapped cores (made contiguous), cast to x's
-    dtype, and ``dL/dcores`` the cores-backward kernel.  Only the gradients
-    autograd asks for are computed::
+    dtype, and ``dL/dcores`` the cores-backward kernel.  ``block_m`` is the
+    forward's row tile (0: its plan's own); ``dL/dx`` runs at it too where
+    the swapped cores' kernel takes that tile at dy's rows, else at its own
+    plan's.  Only the gradients autograd asks for are computed::
 
-        y = MPOLinearFn.apply(x, *cores)
+        y = MPOLinearFn.apply(x, block_m, *cores)
     """
 
     @staticmethod
-    def forward(ctx, x, *cores):
+    def forward(ctx, x, block_m, *cores):
         ctx.save_for_backward(*cores, x)
-        return mpo_linear(cores, x)
+        ctx.block_m = block_m
+        return mpo_linear(cores, x, block_m)
 
     @staticmethod
     def backward(ctx, dy):
@@ -1167,7 +1206,13 @@ class MPOLinearFn(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             swapped = [c.contiguous() for c in mpo.transpose_cores(cores)]
-            dx = mpo_linear(swapped, dy).to(x.dtype)
-        needs = list(ctx.needs_input_grad[1:])
+            bm = ctx.block_m
+            if bm and dy.device.type == "cuda":
+                rows = math.prod(dy.shape[1 if cores[0].dim() == 5 else 0:-1])
+                dtype = "float32" if dy.dtype == torch.float32 else "bfloat16"
+                if forward_plan([c.shape[-4:] for c in swapped], rows, dtype, bm) is None:
+                    bm = 0
+            dx = mpo_linear(swapped, dy, bm).to(x.dtype)
+        needs = list(ctx.needs_input_grad[2:])
         dcores = mpo_linear_bwd_cores(cores, x, dy, needs) if any(needs) else [None] * len(cores)
-        return (dx, *dcores)
+        return (dx, None, *dcores)

@@ -28,9 +28,13 @@ the latency/throughput summary as JSON; ``--replicas N`` serves it through
 an N-replica ``PoolRouter`` fleet (``--chaos kill-pool:1:40`` crashes a
 replica mid-replay: it fails over, is rebuilt and rejoins).
 
-``tune-export`` / ``tune-import`` (the autotuner's verdicts) exit with an
-error: the autotuner is ROADMAP.md, Queue 1 item 5, not yet ported; so is
-the reference's ``--strict-analysis`` (the static analysis, item 9).
+Fleet warm start (the autotuner's verdicts as a shippable artifact)::
+
+    repro-torch-pipeline tune-export PATH                pack this host's verdict cache
+    repro-torch-pipeline tune-import PATH [--overwrite]  merge an artifact into it
+
+The reference's ``--strict-analysis`` (the static analysis) is not ported
+(ROADMAP.md, Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -46,6 +50,31 @@ def _device_arg(ap: argparse.ArgumentParser):
     ap.add_argument("--device", default="cuda",
                     help="torch device the session runs on (default: the card; "
                          "'cpu' for a machine without one)")
+
+
+def _tune_main(argv) -> int:
+    """tune-export / tune-import: pack or merge the autotuner's verdict cache."""
+    cmd = argv[0]
+    ap = argparse.ArgumentParser(
+        prog=f"repro-torch-pipeline {cmd}",
+        description="Export this host's kernel-autotune verdicts as a "
+                    "fleet-shippable artifact, or merge such an artifact "
+                    "into the local cache (local verdicts win unless "
+                    "--overwrite).")
+    ap.add_argument("path", help="artifact path (a JSON verdict pack)")
+    if cmd == "tune-import":
+        ap.add_argument("--overwrite", action="store_true",
+                        help="imported verdicts replace local ones on key collisions")
+    args = ap.parse_args(argv[1:])
+    from repro_torch.kernels import autotune
+    if cmd == "tune-export":
+        res = autotune.export_cache(args.path)
+        print(f"[tune-export] {res['exported']} verdicts -> {res['path']}")
+    else:
+        res = autotune.import_cache(args.path, overwrite=args.overwrite)
+        print(f"[tune-import] {res['imported']} imported, {res['skipped']} skipped "
+              f"(local wins) -> {res['path']} ({res['total']} total)")
+    return 0
 
 
 def _replay_main(argv) -> int:
@@ -193,9 +222,7 @@ def _run(args) -> int:
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in ("tune-export", "tune-import"):
-        print(f"repro-torch-pipeline {argv[0]}: the kernel autotuner comes with "
-              "ROADMAP.md, Queue 1 item 5", file=sys.stderr)
-        return 2
+        return _tune_main(argv)
     if argv and argv[0] == "serve-replay":
         return _replay_main(argv)
 

@@ -57,6 +57,7 @@ from repro_torch.core import carry, convert, lightweight
 from repro_torch.core import squeeze as squeeze_mod
 from repro_torch.core.engine import engine_for
 from repro_torch.data.pipeline import SyntheticCLS, make_batch_fn
+from repro_torch.kernels import autotune
 from repro_torch.models import model as M
 from repro_torch.optim import optimizers, schedule
 from repro_torch.train.loop import LoopConfig, run_training
@@ -568,8 +569,9 @@ class Session:
 
     def report(self) -> dict:
         """Where the session is, what each stage cost, the compression
-        ratio rho (Eq. 5) over every factorized matrix, and the stats of
-        every ``ServePool`` the caller still holds (``serve_pools``)."""
+        ratio rho (Eq. 5) over every factorized matrix, the stats of every
+        ``ServePool`` the caller still holds (``serve_pools``), and the
+        autotuner's (``autotune``) once planning has consulted it."""
         out: dict[str, Any] = {
             "arch": self.cfg.name,
             "task": self.task,
@@ -595,6 +597,11 @@ class Session:
             # every still-alive ServePool this session built (weakly held;
             # stale-version pools included: their stats carry the version)
             out["serve_pools"] = [p.stats() for p in pools]
+        tuner = autotune.get_tuner()
+        if tuner.timing_runs or tuner.stats()["keys_resolved"]:
+            # the measured tuner was consulted in this process: where its
+            # verdicts live and what tuning this process paid for
+            out["autotune"] = tuner.stats()
         return out
 
 

@@ -12,6 +12,7 @@ together:
                                  step dirs, ``latest`` symlink, keep-2)
     <dir>/session.json           the manifest: config, stage, records,
                                  squeeze history, mask, weights version
+    <dir>/autotune.json          the autotuner's verdicts (``export_cache``)
 
 The layout, the manifest (format 1) and its keys are the reference's, so a
 session saved by either package restores in the other.  Write order is
@@ -21,9 +22,13 @@ previous complete session or the new one — the manifest names the weights
 step it belongs to, and the weights manager keeps the prior step until the
 new manifest is durable.
 
-The port has no autotuner yet (ROADMAP.md, Queue 1 item 5): ``save`` writes
-``"autotune_entries": 0`` and no ``autotune.json``, and ``restore`` leaves a
-reference directory's ``autotune.json`` unread (the tuner will merge it).
+``save`` exports the autotuner's verdicts beside the manifest
+(``"autotune_entries"`` counts them) and ``restore`` merges that file into
+the local verdict cache, local verdicts first, so a restored session plans
+without tuning again on the card that measured them.  Each package writes
+its own cache format (``kernels/autotune.CACHE_VERSION``) and its keys
+name their substrate, so a directory saved by the other package restores
+with nothing imported from its ``autotune.json``.
 
 Restore builds the model from the serialized config on the requested
 device and installs the saved tree with ``Model.set_tree`` (squeezed bonds
@@ -39,9 +44,11 @@ import os
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.lightweight import leaves
+from repro_torch.kernels import autotune
 from repro_torch.resilience.journal import event_from_json, event_to_json
 
 MANIFEST = "session.json"
+TUNE_FILE = "autotune.json"
 FORMAT = 1
 
 
@@ -87,6 +94,7 @@ def save_session(session, directory: str) -> str:
     mgr = CheckpointManager(os.path.join(directory, "weights"), keep=2,
                             async_save=False)
     mgr.save(step, session.params, extra_meta={"weights_version": step}, block=True)
+    tune = autotune.export_cache(os.path.join(directory, TUNE_FILE))
     manifest = {
         "format": FORMAT,
         "cfg": dataclasses.asdict(session.cfg),
@@ -100,7 +108,7 @@ def save_session(session, directory: str) -> str:
         # faithful (and JSON-native) encoding
         "mask": (None if session.mask is None
                  else [bool(x) for x in leaves(session.mask)]),
-        "autotune_entries": 0,
+        "autotune_entries": tune["exported"],
     }
     atomic_write_json(os.path.join(directory, MANIFEST), manifest)
     return directory
@@ -139,4 +147,7 @@ def restore_session(directory: str, cls=None, device=None):
     session.conversion_report = dict(manifest["conversion_report"])
     if manifest["mask"] is not None:
         session.mask = _unflatten_like(session.params, manifest["mask"])
+    tune_path = os.path.join(directory, TUNE_FILE)
+    if os.path.exists(tune_path):
+        autotune.import_cache(tune_path)
     return session

@@ -4,9 +4,14 @@ model forced through the fused-kernel mode.
 
 On the CPU the port must make the reference's interpret-mode decisions; for
 a CUDA device (planning is pure Python, no card needed) its kernel-or-not
-decisions must equal the reference's compiled (``interpret=False``) ones.
-Tolerance for values: float32 paths summed in another order, 2e-4 on the
-logits of a 2-layer smoke model (~1e-6 relative observed)."""
+decisions must equal the reference's compiled (``interpret=False``) ones,
+with every difference pinned by name.  These are the analytic plans: both
+packages' measured autotuners are off here (``REPRO_TORCH_AUTOTUNE_MEASURE``
+and ``REPRO_AUTOTUNE_MEASURE`` set to 0, on a card too), so the CUDA plans
+are the no-measurement fallback; on the card the port's tuner decides the
+``train`` and ``prefill`` plans by measurement, as the reference's does on
+a TPU.  Tolerance for values: float32 paths summed in another order, 2e-4
+on the logits of a 2-layer smoke model (~1e-6 relative observed)."""
 
 import dataclasses
 import functools
@@ -30,6 +35,16 @@ from repro_torch.kernels import mpo_linear as TMK
 from repro_torch.models import model as TModel
 
 torch.set_num_threads(1)   # pytest -n runs a test process a core: one intra-op thread each
+
+@pytest.fixture(autouse=True)
+def _analytic_plans(monkeypatch):
+    """No measured plan in either package: the analytic decisions compared."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_MEASURE", "0")
+    monkeypatch.setenv("REPRO_AUTOTUNE_MEASURE", "0")
+    TE.clear_plan_cache()
+    yield
+    TE.clear_plan_cache()
+
 
 ARCHS = ("bert-base", "qwen3-14b")
 MOE_VLM = ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b", "llava-next-34b")
@@ -181,6 +196,74 @@ def test_queue3_h_matrices_are_the_pinned_exception():
                               dtype="bfloat16")[0] == "reconstruct"
         assert TE.choose_mode(tcfg, sh, tokens, "prefill", device="cuda",
                               dtype="bfloat16")[0] == "kernel"
+
+
+# the dense, moe and vlm configurations' bf16 plans for the card against the
+# reference's compiled ones in all three phases (ROADMAP.md, Queue 3 H):
+# every difference by matrix, phase and rows, each the reference rebuilding
+# W (``reconstruct``) where the port fuses it (``kernel``).  The reasons:
+# the reference's gate wants J / j_1 (and, with ``train=True``, I / i_1)
+# to be a multiple of the TPU's 128 lanes and its backward to fit its VMEM
+# budget; Hopper's kernels have neither floor.  The rows: a decode's 8, a
+# fine-tuning batch's 2048 (16 x 128) and a prefill's 4096 (8 x 512); an
+# expert matrix at 32, 40 and 640 rows an expert (llama4-maverick's decode
+# and prefill capacity at batch 8, phi3.5-moe's prefill).  "embed" is the
+# vocabulary matrix in its own orientation (J = d_model), "embed_T" the
+# tied head E^T.  On the card these are the no-measurement fallback: with
+# the tuner measuring (its default there) each of these matrices is decided
+# by the race, as the reference's tuner decides them on a TPU.
+_ROWS, _BIG, _EXP = (8, 2048, 4096), (2048, 4096), (32, 40, 640)
+_ALL = ("train", "prefill", "decode")
+DENSE_H = {
+    "bert-base": {("embed", "train"): _BIG, ("embed_T", "train"): _BIG},
+    "albert-base": {},
+    "qwen3-14b": {**{(n, ph): _BIG for n in ("embed", "embed_T", "w_down") for ph in _ALL},
+                  **{(n, ph): _ROWS for n in ("w_gate", "w_up") for ph in _ALL},
+                  ("wq", "train"): _ROWS, ("wo", "train"): _ROWS},
+    "gemma2-27b": {(n, ph): _BIG for n in ("embed", "embed_T") for ph in _ALL},
+    "mistral-nemo-12b": {("w_down", "train"): _BIG, ("w_gate", "train"): _ROWS,
+                         ("w_up", "train"): _ROWS},
+    "nemotron-4-15b": {(n, ph): _BIG for n in ("embed", "embed_T", "lm_head") for ph in _ALL},
+    "phi3.5-moe-42b-a6.6b": {("experts/w_down", "train"): _EXP,
+                             **{(n, ph): _EXP for n in ("experts/w_gate", "experts/w_up")
+                                for ph in _ALL}},
+    "llama4-maverick-400b-a17b": {**{(n, "train"): _EXP for n in (
+                                      "experts/w_down", "experts/w_gate", "experts/w_up")},
+                                  **{("lm_head", ph): _BIG for ph in _ALL},
+                                  ("wq", "train"): _ROWS, ("wo", "train"): _ROWS},
+    "llava-next-34b": {("wq", "train"): _BIG, ("wo", "train"): _BIG},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(DENSE_H))
+def test_cuda_kernel_decisions_pin_every_difference_in_every_phase(arch):
+    """Every factorized matrix, bf16, in ``train``, ``prefill`` and
+    ``decode``: the port's analytic decision for the card equals the
+    reference's compiled one except at ``DENSE_H``'s named cases, each
+    ``reconstruct`` (reference) against ``kernel`` (port), where the port's
+    gate admits the shapes and the reference's refuses them.  The pinned
+    Queue 3 H matrices of the moe / vlm test are among them."""
+    tcfg = tconfigs.get_config(arch).mpo
+    jcfg = _jcfg(tcfg)
+    shapes = _matrix_shapes(jconfigs, arch, False)
+    seen = {}
+    for name, sh in shapes.items():
+        for tokens in _EXP if name.startswith("experts/") else _ROWS:
+            for phase in _ALL:
+                jm = _effective(JE.choose_mode, jcfg, sh, tokens, phase, interpret=False,
+                                dtype="bfloat16")
+                tm = _effective(TE.choose_mode, tcfg, sh, tokens, phase, device="cuda",
+                                dtype="bfloat16")
+                if jm != tm:
+                    assert (jm, tm) == ("reconstruct", "kernel"), (name, tokens, phase)
+                    seen.setdefault((name, phase), []).append(tokens)
+    assert {k: tuple(v) for k, v in seen.items()} == DENSE_H[arch]
+    for (name, phase), rows in DENSE_H[arch].items():
+        train = phase == "train"
+        assert TMK.kernel_eligible(shapes[name], dtype="bfloat16", train=train), name
+        assert not JMK.kernel_eligible(shapes[name], JE.DEFAULT_BLOCK_M, train=train), name
+    assert {(a, n) for a, n in QUEUE3_H if a == arch} <= {
+        (arch, n) for n, ph in DENSE_H[arch] if ph == "prefill"}
 
 
 # zamba2-7b's bf16 plans on the card against the reference's compiled ones,

@@ -30,14 +30,14 @@ def test_no_forbidden_import_statements():
                     bad.append((path.name, node.module))
     assert not bad, bad
     assert len(_port_files()) > 15
-    # the conversion, squeezing, persistence and serving front-end modules
-    # and the encdec family's are among the files checked
+    # the conversion, squeezing, persistence and serving front-end modules,
+    # the encdec family's and the autotuner are among the files checked
     names = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"core/convert.py", "core/squeeze.py", "core/mpo.py", "checkpoint/manager.py",
             "resilience/faults.py", "resilience/journal.py", "resilience/state.py",
             "pipeline/clock.py", "pipeline/scheduler.py", "pipeline/traffic.py",
             "pipeline/router.py", "pipeline/cli.py", "models/whisper.py",
-            "configs/whisper_tiny.py"} <= names
+            "configs/whisper_tiny.py", "kernels/autotune.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax_or_repro():

@@ -128,7 +128,7 @@ def test_mpo_linear_fn_over_a_stack_matches_vmapped_autograd():
     a = [torch.from_numpy(c).requires_grad_() for c in cores]
     b = [torch.from_numpy(c).requires_grad_() for c in cores]
     xa, xb = (torch.from_numpy(x).requires_grad_() for _ in range(2))
-    ya = TMK.MPOLinearFn.apply(xa, *a)
+    ya = TMK.MPOLinearFn.apply(xa, 0, *a)
     yb = torch.vmap(TM.apply_mpo)(b, xb)
     _close(ya.detach(), yb.detach())
     ga = torch.autograd.grad(ya, [xa, *a], torch.from_numpy(dy))

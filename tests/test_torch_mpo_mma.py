@@ -609,3 +609,73 @@ def test_cuda_stacked_bwd_cores_matches_plain(cuda, dtype, monkeypatch):
         ws = TMK._bwd_lib().mpo_linear_bwd_workspace(dims, len(shapes), plan.split,
                                                      plan.blocks // plan.cluster, e)
         assert 4 * ws == e * plan.workspace
+
+
+# the matrices the autotuner races the forward's row tiles at on the card:
+# the tensor-core route (bert-base's attention matrix and w_up, both dtypes)
+# and csrc/mpo_linear.cu (whisper-tiny's attention matrix, float32)
+TUNED_CARD = {"attn": (lambda: _matrices()["attn"], ("bfloat16", "float32")),
+              "w_up": (lambda: _matrices()["w_up"], ("bfloat16",)),
+              "whisper-tiny attn": (lambda: _port_shapes("whisper-tiny", "encoder", "attn",
+                                                         "wq"), ("float32",))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TUNED_CARD))
+def test_cuda_every_tuned_tile_matches_plain(cuda, name):
+    """Each row tile the autotuner races (``autotune._block_m_candidates``)
+    at 8, 100 and 2048 rows, forward and backward through ``MPOLinearFn``:
+    the forward within the forward's tolerance of the plain version (bf16
+    2^-7, float32 1e-4 of the largest output, grown as the root of I past
+    3072 terms), launched at that tile, its plan's shared memory and
+    workspace the CUDA source's; dL/dx (at the tile where the swapped
+    cores' kernel takes it) and the core gradients within the same
+    tolerance of the plain versions' (``mpo_linear_bwd_cores_plain``)."""
+    from repro_torch.kernels import autotune as TA
+    get, dtypes = TUNED_CARD[name]
+    shapes = tuple(tuple(s) for s in get())
+    i_dim = math.prod(c[1] for c in shapes)
+    j_dim = math.prod(c[2] for c in shapes)
+    dims = (ctypes.c_int * (4 * len(shapes)))(*[d for s in shapes for d in s])
+    rng = np.random.default_rng(9)
+    sigma = (1.0 / i_dim / math.prod(c[3] for c in shapes[:-1])) ** (1 / (2 * len(shapes)))
+    for dtype in dtypes:
+        tdt = getattr(torch, dtype)
+        tol = 2.0 ** -7 if dtype == "bfloat16" else 1e-4 * math.sqrt(max(i_dim, 3072) / 3072)
+        code = TMK.DTYPES[tdt]
+        cores = [torch.from_numpy((rng.standard_normal(s) * sigma).astype(np.float32))
+                 .to(cuda, tdt) for s in shapes]
+        route = TMK.forward_kernel(shapes, dtype)
+        for m in (8, 100, 2048):
+            tiles = TA._block_m_candidates(shapes, m, "train", dtype, "cuda")
+            assert tiles, (name, dtype, m)
+            x = torch.from_numpy(rng.standard_normal((m, i_dim)).astype(np.float32)).to(cuda, tdt)
+            dy = torch.from_numpy(rng.standard_normal((m, j_dim)).astype(np.float32)).to(cuda, tdt)
+            ref = TMK.mpo_linear_plain(cores, x).float()
+            dx_ref = TMK.mpo_linear_plain(TM.transpose_cores(cores), dy).float()
+            dc_ref = TMK.mpo_linear_bwd_cores_plain(cores, x, dy, [True] * len(cores))
+            for bm in tiles:
+                plan = TMK.forward_plan(shapes, m, dtype, bm)
+                assert plan.bm == bm
+                if route == "mma":
+                    smem = TMK._mma_lib().mpo_linear_mma_smem(dims, len(shapes), plan.split,
+                                                              bm, code)
+                    ws = 4 * TMK._mma_lib().mpo_linear_mma_workspace(
+                        dims, len(shapes), plan.split, m, plan.splits, 1, code)
+                else:
+                    smem = TMK._lib().mpo_linear_fwd_smem(dims, len(shapes), plan.split, bm,
+                                                          plan.ch, plan.lq)
+                    ws = TMK._lib().mpo_linear_fwd_workspace(dims, len(shapes), plan.split, m,
+                                                             plan.splits, 1)
+                assert (smem, ws) == (plan.smem, plan.workspace), (name, dtype, m, bm)
+                xs = x.clone().requires_grad_()
+                cs = [c.clone().requires_grad_() for c in cores]
+                y = TMK.MPOLinearFn.apply(xs, bm, *cs)
+                grads = torch.autograd.grad(y, (xs, *cs), dy)
+                torch.cuda.synchronize()
+                for got, want, what in ((y, ref, "y"), (grads[0], dx_ref, "dx"),
+                                        *((g, w, f"d core {k}") for k, (g, w) in
+                                          enumerate(zip(grads[1:], dc_ref)))):
+                    err = (got.float() - want.float()).abs().max().item()
+                    assert err <= tol * want.float().abs().max().item(), (
+                        name, dtype, m, bm, what, err)

@@ -225,8 +225,27 @@ def test_restore_defaults_to_the_card(sessions):
             TSession.restore(sessions["tdir"])
 
 
+def _tune_file(directory) -> dict:
+    """A saved directory's ``autotune.json`` and the manifest's count of it."""
+    import json
+    with open(os.path.join(directory, "autotune.json")) as f:
+        tune = json.load(f)
+    with open(os.path.join(directory, "session.json")) as f:
+        count = json.load(f)["autotune_entries"]
+    assert count == len(tune["entries"])
+    return tune
+
+
 def test_reference_session_restores_in_the_port(sessions):
+    """The reference's ``autotune.json`` (its own cache format) is there
+    and counted; the port's importer takes nothing from it."""
+    from repro.kernels import autotune as jautotune
+    from repro_torch.kernels import autotune as tautotune
     js = sessions["js"]
+    tune = _tune_file(sessions["jdir"])
+    assert tune["version"] == jautotune.CACHE_VERSION != tautotune.CACHE_VERSION
+    assert tautotune.import_cache(os.path.join(sessions["jdir"], "autotune.json"))[
+        "imported"] == 0
     r = TSession.restore(sessions["jdir"], device="cpu")
     want = jax_tree_to_torch(jax.tree.map(np.asarray, js.params))
     got = r.params
@@ -248,8 +267,15 @@ def test_reference_session_restores_in_the_port(sessions):
 
 
 def test_port_session_restores_in_the_reference(sessions):
+    """The port writes ``autotune.json`` in its own cache format, counted in
+    the manifest; the reference's importer takes nothing from it."""
+    from repro.kernels import autotune as jautotune
+    from repro_torch.kernels import autotune as tautotune
     ts = sessions["ts"]
-    assert not os.path.exists(os.path.join(sessions["tdir"], "autotune.json"))
+    tune = _tune_file(sessions["tdir"])
+    assert tune["version"] == tautotune.CACHE_VERSION != jautotune.CACHE_VERSION
+    assert jautotune.import_cache(os.path.join(sessions["tdir"], "autotune.json"))[
+        "imported"] == 0
     r = JSession.restore(sessions["tdir"])
     for a, b in zip(jax.tree.leaves(r.params), leaves(ts.params), strict=True):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())

@@ -288,7 +288,7 @@ def test_cli_serve_replay_on_the_cpu(capsys):
     assert out["router"]["trips"] == out["router"]["rebuilds"] == 1
 
 
-def test_cli_lifecycle_and_tune_commands(tmp_path, capsys):
+def test_cli_lifecycle_and_tune_commands(tmp_path, capsys, monkeypatch):
     args = ["--device", "cpu", "--steps", "2", "--tokens", "3",
             "--session-dir", str(tmp_path / "s")]
     assert cli.main(args) == 0
@@ -297,6 +297,17 @@ def test_cli_lifecycle_and_tune_commands(tmp_path, capsys):
     assert report["stage"] == "serve" and report["weights_version"] == 1
     assert cli.main(args) == 0                    # restored, not trained again
     assert "restored session" in capsys.readouterr().out
-    for cmd in ("tune-export", "tune-import"):
-        assert cli.main([cmd, str(tmp_path / "t.json")]) == 2
-        assert "ROADMAP.md, Queue 1 item 5" in capsys.readouterr().err
+    # the tuner's verdicts shipped and merged back (a cache of the test's own)
+    from repro_torch.kernels import autotune
+    cache = tmp_path / "cache.json"
+    autotune._write_cache(str(cache), {"k": {"mode": "factorized", "block_m": 0,
+                                             "timings": {}}})
+    monkeypatch.setenv(autotune.ENV_CACHE, str(cache))
+    autotune.reset_tuner()
+    assert cli.main(["tune-export", str(tmp_path / "t.json")]) == 0
+    assert "[tune-export] 1 verdicts" in capsys.readouterr().out
+    assert cli.main(["tune-import", str(tmp_path / "t.json")]) == 0
+    assert "[tune-import] 0 imported, 1 skipped" in capsys.readouterr().out
+    assert cli.main(["tune-import", str(tmp_path / "t.json"), "--overwrite"]) == 0
+    assert "[tune-import] 1 imported, 0 skipped" in capsys.readouterr().out
+    autotune.reset_tuner()

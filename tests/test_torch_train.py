@@ -178,9 +178,9 @@ def test_mpo_linear_fn_gradcheck_and_saved_tensors():
     cores = [torch.from_numpy(c).double().requires_grad_() for c in _cores((12, 18), 3, 4)]
     x = torch.randn(5, 12, dtype=torch.float64, generator=torch.Generator().manual_seed(0),
                     requires_grad=True)
-    assert torch.autograd.gradcheck(lambda x, *cs: TMK.MPOLinearFn.apply(x, *cs),
+    assert torch.autograd.gradcheck(lambda x, *cs: TMK.MPOLinearFn.apply(x, 0, *cs),
                                     (x, *cores), eps=1e-6, atol=1e-8)
-    y = TMK.MPOLinearFn.apply(x, *cores)
+    y = TMK.MPOLinearFn.apply(x, 0, *cores)
     saved = y.grad_fn.saved_tensors
     assert len(saved) == len(cores) + 1
     assert all(s.data_ptr() == t.data_ptr() and s.shape == t.shape
@@ -188,7 +188,7 @@ def test_mpo_linear_fn_gradcheck_and_saved_tensors():
     # only what autograd asks for: no dcores when the cores need none
     calls = TMK.mpo_linear_bwd_cores_plain.calls
     xx = x.detach().requires_grad_()
-    TMK.MPOLinearFn.apply(xx, *[c.detach() for c in cores]).sum().backward()
+    TMK.MPOLinearFn.apply(xx, 0, *[c.detach() for c in cores]).sum().backward()
     assert TMK.mpo_linear_bwd_cores_plain.calls == calls and xx.grad is not None
 
 
