@@ -334,12 +334,47 @@ Phases, each printing JSON lines; any failure exits non-zero:
    no gate on which candidate wins).  Phases 2-15 run with
    ``REPRO_TORCH_AUTOTUNE_MEASURE=0``: their plans, and the gates that name
    them, are the analytic ones.
-17. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+17. mesh — the port's mesh path (``parallel.spmd``) on the card, with the
+   analytic plans, over a one-rank NCCL world set up in-process and torn
+   down at the end: (a) full-width bert-base bf16 ``serve(8, 256,
+   paged=True, mesh=make_host_mesh(model=1))`` cached and factorized from
+   phase 3's prompts, 32 new tokens: the greedy tokens identical to the
+   same calls off the mesh, prefill logits within ``PATH_TOL``, every serve
+   and cache leaf a DTensor placed by the rules, the launches those of the
+   same calls off the mesh (flash decode, and factorized the MPO-linear
+   forward, launched), no plain call, prefill ms, decode ms a step and peak
+   memory on and off the mesh; (b) a float32 paged ``serve_pool(8, 160,
+   mesh=)`` over ``MESH_POOL_REQUESTS`` of phase 8's trace against batch-1
+   serial generation under phase 8's tie rule; (c) ``MESH_TRAIN_STEPS``
+   LFA steps at phase 5's 16 x 128 on mesh-placed parameters, plain and
+   under ``wrap_compression(kind="int8")``: losses within ``TRAIN_TOL`` of
+   the same steps off the mesh, central cores unchanged, the cores backward
+   launched as off the mesh; (d) mamba2-130m ``serve(8, 544, mesh=)`` from
+   8 x 512 prompts: the tokens and launches (the SSD scan) off the mesh;
+   (e) the production rules (FSDP + tensor-parallel) on (2, 4) and (4, 2)
+   meshes at bert-base's and qwen3-14b's wq, wk, w_up and w_down, drawn
+   alone: each model rank's local cores (cut by the rules' specs, FSDP
+   shards gathered as at use) through the MPO-linear forward (bert-base at
+   8 and 2048 rows, qwen3-14b at 8: the script passed 1100 s with 2048
+   there too) against its plain version — a matrix with no bf16 route is
+   recorded, as the engine plans it factorized — the columns (or partial sums) assembled
+   against the unsharded kernel, each shard's core shapes, route and ms;
+   and flash decode over bert-base's and qwen3-14b's pools split along the
+   in-page positions over ``model`` (2 and 4 ranks): each rank's block
+   through the kernel with its softmax statistics against its plain
+   version, the ranks merged against the unsplit kernel;
+   (f) ``launch.train.main(["--arch", "bert-base", "--steps", "3",
+   "--compress", "int8"])`` in-process: a finite loss.  Its launches join
+   the kernels line under ``mesh ...``.  A script can run it alone:
+   ``import chip_smoke``, ``repro_torch.kernels._build.build()``, then
+   ``chip_smoke.mesh_phase()``.
+18. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
    squeezed shapes' times are phase 6's records), the stacked forward, the
    stacked cores backward and flash at llava's geometry beside them, the
    hybrid's and the encdec's cases with their launches on their paths
-   (phase 16's under ``autotune ...`` keys, the races' own launches apart).
-18. last line: ``{"ok": true, "device": {...}}``.
+   (phase 16's under ``autotune ...`` keys, the races' own launches apart,
+   phase 17's under ``mesh ...``).
+19. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -1161,6 +1196,509 @@ def autotune_phase() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     emit(phase="autotune", s=time.perf_counter() - t_phase, summary=runs)
     return by_path
+
+
+# the mesh phase (17): one card is a mesh of (1, 1) over a one-rank NCCL
+# world set up in-process; the shard shapes of (2, 4) and (4, 2) meshes are
+# emulated rank by rank.  MESH_TRAIN_STEPS LFA steps at phase 5's batch;
+# MESH_POOL_REQUESTS of phase 8's trace through a float32 pool.
+MESH_TRAIN_STEPS, MESH_POOL_REQUESTS = 2, 16
+MESH_EMULATED = ((2, 4), (4, 2))
+# the rows each arch's shards run at: qwen3-14b's at 8 only, as the whole
+# script passed 1100 s of its 1200 s with 2048 there too
+MESH_ROWS = {"bert-base": (8, 2048), "qwen3-14b": (8,)}
+
+
+def mesh_phase() -> dict:
+    """17. mesh — the port's mesh path on the card (``parallel.spmd``):
+    (a) full-width bert-base bf16 served on ``make_host_mesh(model=1)``,
+    paged, cached and factorized, against the same calls off the mesh; (b) a
+    float32 paged pool on the mesh against batch-1 serial generation; (c)
+    LFA steps on mesh-placed parameters, plain and under int8 EF
+    compression, against the same steps off the mesh; (d) mamba2-130m served
+    on the mesh; (e) the MPO-linear forward on every shard shape the
+    production rules give (2, 4) and (4, 2) meshes at bert-base's and
+    qwen3-14b's layer matrices, each rank's shard against its plain version
+    and the assembled result against the unsharded kernel; (f)
+    ``launch.train.main`` in-process.  Runs with the analytic plans.
+    Returns ``{kernel: {path: launches}}`` of its paths."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import Session, configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import engine as E
+    from repro_torch.core import layers as L
+    from repro_torch.core import lightweight
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import mpo_linear as MK
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import train as LT
+    from repro_torch.models.model import build
+    from repro_torch.optim import optimizers
+    from repro_torch.optim.compress import wrap_compression
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel import spmd
+    from repro_torch.pipeline import traffic as TRF
+    from repro_torch.pipeline.clock import VirtualClock
+    from repro_torch.timing import device_ms
+    from repro_torch.train.steps import TrainState, make_train_step
+
+    t_phase = time.perf_counter()
+    os.environ[AT.ENV_MEASURE] = "0"
+    E.clear_plan_cache()
+    AT.reset_tuner()
+    watched = {"mpo_linear_fwd_mma": (MK.mpo_linear_mma, "launches"),
+               "mpo_linear_fwd": (MK.mpo_linear_cuda_core, "launches"),
+               "mpo_linear_bwd_cores": (MK.mpo_linear_bwd_cores, "launches"),
+               "flash_decode_attention": (DA.flash_decode_attention, "launches"),
+               "ssd_scan": (SSD.ssd_scan, "launches"),
+               "mpo_linear_plain": (MK.mpo_linear_plain, "calls"),
+               "mpo_linear_bwd_cores_plain": (MK.mpo_linear_bwd_cores_plain, "calls"),
+               "flash_decode_attention_plain": (DA.flash_decode_attention_plain, "calls"),
+               "ssd_scan_plain": (SSD.ssd_scan_plain, "calls")}
+    plains = [k for k in watched if k.endswith("_plain")]
+
+    def zero():
+        for fn, attr in watched.values():
+            setattr(fn, attr, 0)
+
+    def counts():
+        return {k: getattr(fn, attr) for k, (fn, attr) in watched.items()}
+
+    by_path: dict = {}
+
+    def fold(path, c):
+        for k, n in c.items():
+            if n and k not in plains:
+                by_path.setdefault(k, {})[f"mesh {path}"] = n
+
+    def no_plain(path, c):
+        if any(c[k] for k in plains):
+            fail(f"mesh {path}: a plain version ran on the card: {c}")
+
+    def placed_as_rules(what, tree, axes, mesh, rules):
+        """Every leaf a DTensor on ``mesh`` with the placements the rules give."""
+        want = S.tree_shardings(axes, tree, mesh, rules)
+        bad = []
+
+        def visit(t, w, path):
+            if isinstance(t, dict):
+                for k in t:
+                    visit(t[k], w[k], f"{path}/{k}")
+            elif not (spmd.is_dtensor(t) and t.device_mesh is mesh
+                      and tuple(t.placements) == tuple(w)):
+                bad.append(path)
+        visit(tree, want, "")
+        if bad:
+            fail(f"mesh {what}: leaves not placed by the rules: {bad[:8]}")
+
+    own_world = LM.ensure_world("cuda")
+    mesh = LM.make_host_mesh(model=1)
+    rules = S.head_safe_rules(S.make_rules(mesh), configs.get_config("bert-base"), mesh)
+    records = {}
+    try:
+        # (a) full-width bert-base, bf16, paged, cached and factorized
+        sess = Session.init("bert-base", smoke=False, seed=SEED)
+        prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, sess.cfg.vocab_size, (BATCH, PROMPT)).astype(np.int64))
+        serve_axes = sess.model.cache_weights(sess.params, axes=sess.axes)[1]
+        for wc in (True, False):
+            runs = {}
+            for on_mesh in (False, True):
+                kw = dict(paged=True, weight_cache=wc, mesh=mesh if on_mesh else None)
+                h = sess.serve(BATCH, MAX_LEN, **kw)
+                h.generate({"tokens": prompts}, 2)                      # warm-up
+                h.reset()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero()
+                t0 = time.perf_counter()
+                logits = h.prefill({"tokens": prompts})
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                c_pre = counts()
+                zero()
+                tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+                out = [tok]
+                for _ in range(NEW_TOKENS - 1):
+                    tok, _ = h.decode(tok)
+                    out.append(tok)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                c_dec = counts()
+                runs[on_mesh] = dict(tokens=torch.cat(out, 1).cpu(), logits=logits.float(),
+                                     pre=c_pre, dec=c_dec, prefill_ms=1e3 * (t1 - t0),
+                                     decode_ms_per_step=1e3 * (t2 - t1) / (NEW_TOKENS - 1),
+                                     peak_mem_bytes=torch.cuda.max_memory_allocated())
+                sess._serve.clear()                 # each run's peak its own
+                if on_mesh:
+                    placed_as_rules(f"serve weight_cache={wc}", h.params,
+                                    serve_axes if wc else sess.axes, mesh, rules)
+                    want = S.cache_sharding(h.cache, mesh, rules)
+                    if not all(spmd.is_dtensor(t) and tuple(t.placements) == tuple(want[k])
+                               for k, t in h.cache.items()):
+                        fail(f"mesh serve weight_cache={wc}: cache leaves not placed by "
+                             "cache_sharding")
+                del h
+                torch.cuda.empty_cache()
+            off, on = runs[False], runs[True]
+            diff = (on["logits"] - off["logits"]).abs().max().item()
+            scale = off["logits"].abs().max().item()
+            path = f"bert-base serve weight_cache={wc}"
+            rec = {k: {"off": off[k], "on": on[k]} for k in
+                   ("prefill_ms", "decode_ms_per_step", "peak_mem_bytes")}
+            emit(phase="mesh", step="serve", arch="bert-base", weight_cache=wc, paged=True,
+                 batch=BATCH, prompt=PROMPT, max_len=MAX_LEN, new_tokens=NEW_TOKENS,
+                 mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                 tokens_identical=bool(torch.equal(on["tokens"], off["tokens"])),
+                 prefill_logits_max_abs_diff=diff, scale=scale, tol=PATH_TOL,
+                 launches_per_prefill={"on": on["pre"], "off": off["pre"]},
+                 launches_decode={"on": on["dec"], "off": off["dec"]}, **rec)
+            records[path] = rec
+            if not torch.equal(on["tokens"], off["tokens"]) or diff > PATH_TOL * scale:
+                fail(f"mesh {path}: tokens or prefill logits differ from the same call off "
+                     f"the mesh (logits by {diff} of {scale})")
+            for c_on, c_off in ((on["pre"], off["pre"]), (on["dec"], off["dec"])):
+                no_plain(path, c_on)
+                if c_on != c_off:
+                    fail(f"mesh {path}: launches {c_on} differ from the plan's {c_off}")
+            if on["dec"]["flash_decode_attention"] == 0 or (
+                    not wc and (on["pre"]["mpo_linear_fwd_mma"] == 0
+                                or on["dec"]["mpo_linear_fwd_mma"] == 0)):
+                fail(f"mesh {path}: flash decode or the MPO-linear forward never launched")
+            fold(path, {k: on["pre"][k] + on["dec"][k] for k in watched})
+        del sess
+        torch.cuda.empty_cache()
+
+        emit(phase="mesh", step="serve done", s=time.perf_counter() - t_phase)
+        # (b) a float32 paged pool on the mesh against batch-1 serial generation
+        fsess = Session.init("bert-base", smoke=False, seed=SEED, dtype="float32")
+        trace = TRF.make_trace(POOL_REQUESTS, 8.0, seed=SEED, prompt_len=(16, 128),
+                               max_new=(8, 32), vocab_size=30720)[:MESH_POOL_REQUESTS]
+        h1 = fsess.serve(1, POOL_MAX_LEN, paged=True, page_size=POOL_PAGE)
+        serial = []
+        for r in trace:
+            h1.reset()
+            logits = h1.prefill({"tokens": r.prompt[None]})[:, -1]
+            steps, tok = [logits], torch.argmax(logits, -1)[:, None].to(torch.int32)
+            toks = [tok]
+            for _ in range(r.max_new_tokens - 1):
+                tok, lg = h1.decode(tok)
+                toks.append(tok)
+                steps.append(lg[:, -1])
+            serial.append((torch.cat(toks, 1)[0].cpu().numpy(),
+                           torch.cat(steps, 0).float().cpu()))
+        del h1
+        zero()
+        clock = VirtualClock()
+        pool = fsess.serve_pool(POOL_SLOTS, POOL_MAX_LEN, paged=True, page_size=POOL_PAGE,
+                                mesh=mesh, clock=clock)
+        report = TRF.replay(pool, trace, clock=clock)
+        c = counts()
+        no_plain("bert-base float32 pool", c)
+        if c["flash_decode_attention"] == 0:
+            fail("mesh bert-base float32 pool: flash decode never launched")
+        ties, equal = [], 0
+        for rid, (rec_, (ref, lg)) in enumerate(zip(report.records, serial)):
+            toks = rec_["tokens"]
+            if np.array_equal(toks, ref):
+                equal += 1
+                continue
+            d = np.nonzero(toks[:min(len(toks), len(ref))] != ref[:min(len(toks), len(ref))])[0]
+            if d.size == 0:
+                fail(f"mesh pool: request {rid} has {len(toks)} tokens, serial {len(ref)}")
+            top2 = lg[int(d[0])].topk(2).values
+            margin, scale = (top2[0] - top2[1]).item(), lg[int(d[0])].abs().max().item()
+            ties.append({"request": rid, "step": int(d[0]), "margin": margin})
+            if not margin <= F32_TIE * scale:
+                fail(f"mesh pool: request {rid} differs from serial generation at step "
+                     f"{int(d[0])}, top-2 margin {margin} > {F32_TIE} x {scale}")
+        st = pool.stats()
+        emit(phase="mesh", step="pool", arch="bert-base", dtype="float32", slots=POOL_SLOTS,
+             max_len=POOL_MAX_LEN, requests=len(trace), equal=equal, ties=ties,
+             completed=report.summary["completed"], mesh_stats=st["mesh"],
+             launches={k: v for k, v in c.items() if v})
+        if report.summary["completed"] != len(trace) or st["mesh"] != {"data": 1, "model": 1}:
+            fail(f"mesh pool: {report.summary}, mesh {st['mesh']}")
+        fold("bert-base float32 pool", c)
+        del pool, fsess
+        torch.cuda.empty_cache()
+
+        emit(phase="mesh", step="pool done", s=time.perf_counter() - t_phase)
+        # (c) LFA steps on mesh-placed parameters, plain and int8-compressed
+        cfg = configs.get_config("bert-base")
+        bf = make_batch_fn(cfg, ShapeConfig("mesh", "train", TRAIN_SEQ, TRAIN_BATCH))
+        batches = [{k: torch.as_tensor(v).cuda() for k, v in bf(i).items()}
+                   for i in range(MESH_TRAIN_STEPS)]
+        for compress in (None, "int8"):
+            runs = {}
+            for on_mesh in (False, True):
+                model = build(cfg, seed=SEED)
+                params = model.tree()
+                if on_mesh:
+                    params = S.place_tree(params, S.tree_shardings(model.axes, params, mesh,
+                                                                   rules), mesh)
+                    placed_as_rules("train params", params, model.axes, mesh, rules)
+                mask = lightweight.trainable_mask(params, mode="lfa")
+                opt = optimizers.adamw(2e-3, mask=mask)
+                if compress:
+                    opt = wrap_compression(opt, kind=compress, mask=mask)
+                central0 = {k: spmd.local(v).clone() for k, v in
+                            _central_leaves(params).items()}
+                state = TrainState(params, opt.init(params))
+                step = make_train_step(model, opt)
+                losses, ms = [], []
+                zero()
+                for b in batches:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, met = step(state, b)
+                    losses.append(float(met["loss"]))
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                c = counts()
+                moved = [k for k, v in _central_leaves(state.params).items()
+                         if not torch.equal(spmd.local(v), central0[k])]
+                runs[on_mesh] = dict(losses=losses, ms=ms, c=c, moved=moved)
+                del model, params, state
+            off, on = runs[False], runs[True]
+            what = f"bert-base lfa {compress or 'plain'}"
+            emit(phase="mesh", step="train", arch="bert-base", compress=compress,
+                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses={"off": off["losses"],
+                                                           "on": on["losses"]},
+                 step_ms={"off": off["ms"], "on": on["ms"]}, tol=TRAIN_TOL,
+                 launches={k: v for k, v in on["c"].items() if v})
+            if not all(np.isfinite(on["losses"])) or not np.allclose(
+                    on["losses"], off["losses"], rtol=TRAIN_TOL, atol=0):
+                fail(f"mesh {what}: losses {on['losses']} vs off the mesh {off['losses']}")
+            if on["moved"] or off["moved"]:
+                fail(f"mesh {what}: central cores changed: {on['moved'][:4]}")
+            no_plain(what, on["c"])
+            if on["c"]["mpo_linear_bwd_cores"] == 0 or on["c"] != off["c"]:
+                fail(f"mesh {what}: launches {on['c']} vs the plan's {off['c']}")
+            fold(what, on["c"])
+        torch.cuda.empty_cache()
+
+        emit(phase="mesh", step="train done", s=time.perf_counter() - t_phase)
+        # (d) mamba2-130m, full width, on the mesh
+        msess = Session.init("mamba2-130m", smoke=False, seed=SEED)
+        mprompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, msess.cfg.vocab_size, (MAMBA_BATCH, MAMBA_PROMPT)).astype(np.int64))
+        runs = {}
+        for on_mesh in (False, True):
+            h = msess.serve(MAMBA_BATCH, MAMBA_MAX_LEN, mesh=mesh if on_mesh else None)
+            h.generate({"tokens": mprompts}, 2)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            t0 = time.perf_counter()
+            out = h.generate({"tokens": mprompts}, NEW_TOKENS)
+            torch.cuda.synchronize()
+            runs[on_mesh] = dict(tokens=out.cpu(), c=counts(), s=time.perf_counter() - t0,
+                                 peak=torch.cuda.max_memory_allocated())
+            msess._serve.clear()
+            if on_mesh and not (spmd.is_dtensor(h.cache)
+                                and tuple(h.cache.placements) == tuple(
+                                    S.cache_sharding(h.cache, mesh, rules))):
+                fail("mesh mamba2-130m: the state is not placed by cache_sharding")
+            del h
+            torch.cuda.empty_cache()
+        off, on = runs[False], runs[True]
+        emit(phase="mesh", step="serve", arch="mamba2-130m", batch=MAMBA_BATCH,
+             prompt=MAMBA_PROMPT, new_tokens=NEW_TOKENS,
+             tokens_identical=bool(torch.equal(on["tokens"], off["tokens"])),
+             generate_s={"off": off["s"], "on": on["s"]},
+             peak_mem_bytes={"off": off["peak"], "on": on["peak"]},
+             launches={k: v for k, v in on["c"].items() if v})
+        no_plain("mamba2-130m serve", on["c"])
+        if not torch.equal(on["tokens"], off["tokens"]) or on["c"]["ssd_scan"] == 0 \
+                or on["c"] != off["c"]:
+            fail(f"mesh mamba2-130m: tokens differ or launches {on['c']} vs {off['c']}")
+        fold("mamba2-130m serve", on["c"])
+        del msess
+        torch.cuda.empty_cache()
+
+        emit(phase="mesh", step="mamba done", s=time.perf_counter() - t_phase)
+        # (e) every shard shape of (2, 4) and (4, 2) meshes, rank by rank
+        shards = []
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+        for arch in MESH_ROWS:
+            acfg = configs.get_config(arch)
+            gen = torch.Generator().manual_seed(SEED)
+            d, hd = acfg.d_model, acfg.num_heads * acfg.head_dim
+            kvd = acfg.num_kv_heads * acfg.head_dim
+            with L.annotating():
+                mats = {"wq": L.init_linear(gen, d, hd, cfg=acfg.mpo, kind="attn",
+                                            out_axis="qkv", sharded_out=True),
+                        "wk": L.init_linear(gen, d, kvd, cfg=acfg.mpo, kind="attn",
+                                            out_axis="kv_qkv", sharded_out=True),
+                        "w_up": L.init_linear(gen, d, acfg.d_ff, cfg=acfg.mpo, kind="ffn",
+                                              out_axis="ffn", sharded_out=True),
+                        "w_down": L.init_linear(gen, acfg.d_ff, d, cfg=acfg.mpo, kind="ffn",
+                                                in_axis="ffn", sharded_in=True)}
+            for shape in MESH_EMULATED:
+                standin = _MeshShape(shape)
+                prules = S.head_safe_rules(S.make_rules(standin, fsdp=True), acfg, standin)
+                for mname, lin in mats.items():
+                    names = list(lin["cores"])
+                    cores = [lin["cores"][n].value.cuda().to(torch.bfloat16)
+                             for n in L.core_names(len(names))]
+                    axes = [lin["cores"][n].axes for n in L.core_names(len(names))]
+                    specs = [S.spec_for(a, tuple(c.shape), prules, standin)
+                             for a, c in zip(axes, cores)]
+                    i_dim = math.prod(c.shape[1] for c in cores)
+                    for rows in MESH_ROWS[arch]:
+                        x = torch.randn(rows, i_dim, generator=gen).cuda().to(torch.bfloat16)
+                        if MK.forward_kernel(tuple(tuple(c.shape) for c in cores),
+                                             "bfloat16") is None:
+                            # no bf16 route for the whole matrix: the engine
+                            # plans it factorized; its shards are recorded
+                            shards.append({"arch": arch, "matrix": mname, "mesh": list(shape),
+                                           "rows": rows, "route": None})
+                            continue
+                        whole = MK.mpo_linear(cores, x)
+                        parts, roles = [], None
+                        for r in range(shape[1]):
+                            local, role = [], None
+                            for k, (c, sp) in enumerate(zip(cores, specs)):
+                                dim = next((j for j, e in enumerate(sp) if e == "model"
+                                            or (isinstance(e, tuple) and "model" in e)), None)
+                                if dim is None:          # FSDP shards are gathered at use
+                                    local.append(c)
+                                    continue
+                                n = c.shape[dim] // shape[1]
+                                local.append(c.narrow(dim, r * n, n).contiguous())
+                                role = "col" if dim == 2 else "row"
+                            xr = x
+                            if role == "row":
+                                n = i_dim // shape[1]
+                                xr = x[:, r * n:(r + 1) * n].contiguous()
+                            shapes = tuple(tuple(c.shape) for c in local)
+                            route = MK.forward_kernel(shapes, "bfloat16")
+                            if route is None:
+                                fail(f"mesh shard {arch} {mname} {shape} rank {r}: the whole "
+                                     f"matrix has a bf16 route, its shard {shapes} none")
+                            y = MK.mpo_linear(local, xr)
+                            ref = MK.mpo_linear_plain(local, xr)
+                            err = (y.float() - ref.float()).abs().max().item()
+                            scale = ref.float().abs().max().item()
+                            ms = device_ms(lambda: MK.mpo_linear(local, xr), flush, 3)
+                            if not (err <= TOL["bfloat16"] * scale and torch.isfinite(y).all()):
+                                fail(f"mesh shard {arch} {mname} {shape} rank {r} rows {rows}: "
+                                     f"err {err} > {TOL['bfloat16']} x {scale}")
+                            parts.append(y)
+                            roles = role
+                            shards.append({"arch": arch, "matrix": mname, "mesh": list(shape),
+                                           "model_rank": r, "rows": rows, "role": role,
+                                           "core_shapes": [list(s) for s in shapes],
+                                           "route": route, "ms": ms, "max_abs_err": err})
+                        if roles == "col":          # the ranks' column blocks
+                            y = torch.cat(parts, -1)
+                        elif roles == "row":        # the ranks' partial sums
+                            y = torch.stack([p.float() for p in parts]).sum(0)
+                        else:                       # no model shard: each rank the whole
+                            y = parts[0]
+                        err = (y.float() - whole.float()).abs().max().item()
+                        scale = whole.float().abs().max().item()
+                        if not err <= 2 * TOL["bfloat16"] * scale:
+                            fail(f"mesh assembled {arch} {mname} {shape} rows {rows}: err "
+                                 f"{err} > {2 * TOL['bfloat16']} x {scale}")
+                        shards[-1]["assembled_err"] = err
+        emit(phase="mesh", step="shards", cases=len(shards), shards=shards,
+             s=time.perf_counter() - t_phase)
+
+        # (e) flash decode over a pool whose in-page positions are spread
+        # over `model` (the rules' paged layout on (4, 2) and (2, 4)): each
+        # model rank's block through the kernel with its softmax statistics,
+        # against its plain version, and merged as spmd.combine_softmax
+        # merges the ranks, against the unsplit kernel
+        splits = []
+        b, ps, mp = 8, 16, 16
+        for arch in MESH_ROWS:
+            acfg = configs.get_config(arch)
+            kvh, dh = acfg.num_kv_heads, acfg.head_dim
+            gen = torch.Generator().manual_seed(SEED)
+            q = torch.randn(b, kvh, acfg.num_heads // kvh, dh, generator=gen)
+            q = q.cuda().to(torch.bfloat16)
+            kp, vp = (torch.randn(b * mp, ps, kvh, dh, generator=gen).cuda().to(torch.bfloat16)
+                      for _ in range(2))
+            table = torch.randperm(b * mp, generator=gen).reshape(b, mp).int().cuda()
+            lengths = torch.randint(129, 161, (b,), generator=gen).int().cuda()
+            bias = torch.where(torch.arange(mp * ps, device="cuda")[None] < lengths[:, None],
+                               0.0, DA.MASK_VALUE).float().contiguous()
+            whole = DA.flash_decode_attention(q, kp, vp, table, lengths, bias)
+            scale = whole.float().abs().max().item()
+            for m in sorted({shape[1] for shape in MESH_EMULATED}):
+                lps = ps // m
+                lens = (((lengths + ps - 1) // ps) * lps).int()
+                parts, ranks = [], []
+                for r in range(m):
+                    blk = slice(r * lps, (r + 1) * lps)
+                    args = (q, kp[:, blk].contiguous(), vp[:, blk].contiguous(), table, lens,
+                            bias.unflatten(-1, (mp, ps))[..., blk].flatten(-2).contiguous())
+                    o, mx, l = DA.flash_decode_attention(*args, stats=True)
+                    ro, rmx, rl = DA.flash_decode_attention_plain(*args, stats=True)
+                    errs = {"out": (o.float() - ro.float()).abs().max().item(),
+                            "m": (mx - rmx).abs().max().item(),
+                            "l": ((l - rl).abs() / rl.clamp(min=1.0)).max().item()}
+                    if not (errs["out"] <= TOL["bfloat16"] * scale and errs["m"] <= 1e-3
+                            * max(1.0, rmx.abs().max().item()) and errs["l"] <= 1e-3):
+                        fail(f"mesh split decode {arch} model {m} rank {r}: {errs}")
+                    ms = device_ms(lambda: DA.flash_decode_attention(*args, stats=True),
+                                   flush, 3)
+                    parts.append((o, mx, l))
+                    ranks.append({"rank": r, "ms": ms, **errs})
+                big = torch.stack([mx for _, mx, _ in parts]).amax(0)
+                num = sum(o.float() * l * torch.exp(mx - big) for o, mx, l in parts)
+                den = sum(l * torch.exp(mx - big) for _, mx, l in parts)
+                err = ((num / den.clamp(min=1e-30)) - whole.float()).abs().max().item()
+                if not err <= 2 * TOL["bfloat16"] * scale:
+                    fail(f"mesh split decode {arch} model {m}: merged err {err} > "
+                         f"{2 * TOL['bfloat16']} x {scale}")
+                splits.append({"arch": arch, "model": m, "slots": b, "page_size": ps,
+                               "local_page_size": lps, "kv": kvh, "merged_err": err,
+                               "ranks": ranks})
+        emit(phase="mesh", step="split decode", cases=splits, s=time.perf_counter() - t_phase)
+
+        # (f) the training CLI in-process on the same world
+        zero()
+        _, hist = LT.main(["--arch", "bert-base", "--steps", "3", "--compress", "int8"])
+        c = counts()
+        loss = hist[-1]["loss"] if hist else float("nan")
+        emit(phase="mesh", step="launch.train", final_loss=loss,
+             launches={k: v for k, v in c.items() if v})
+        if not np.isfinite(loss):
+            fail(f"mesh launch.train: final loss {loss}")
+        no_plain("launch.train", c)
+        fold("launch.train bert-base int8", c)
+    finally:
+        if own_world:
+            dist.destroy_process_group()
+    emit(phase="mesh", s=time.perf_counter() - t_phase)
+    return by_path
+
+
+class _MeshShape:
+    """A ("data", "model") mesh's shape without devices behind it — what
+    the rule and spec functions read."""
+
+    def __init__(self, shape):
+        self.mesh_dim_names = ("data", "model")
+        self.shape = tuple(shape)
+
+
+def _central_leaves(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_central_leaves(v, f"{prefix}{k}/"))
+        elif k == "central":
+            out[prefix + k] = v
+    return out
 
 
 def main() -> int:
@@ -5077,7 +5615,16 @@ def main() -> int:
             by_path.setdefault(k, {})[f"autotune {path}"] = n
             path_launches[k] = path_launches.get(k, 0) + n
 
-    # ---- 17. the kernels line: one entry per kernel and dtype ----
+    # ---- 17. meshes ----
+    for k, paths in mesh_phase().items():
+        for path, n in paths.items():
+            if k == "flash_decode_attention" and "float32" in path:
+                f32_flash[path] = n                 # the float32 entry's launches
+                continue
+            by_path.setdefault(k, {})[path] = n
+            path_launches[k] = path_launches.get(k, 0) + n
+
+    # ---- 18. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,

@@ -28,6 +28,15 @@ Durability contract (exercised by ``tests/test_torch_resilience.py`` with
   at interpreter exit (``atexit``) so a clean shutdown never truncates a
   checkpoint.
 
+Trees on a mesh (DTensor leaves, ``parallel.sharding``) are saved from the
+whole tensors — every rank gathers, rank 0 writes — so the files are the
+same as one device's, and ``restore`` puts them back on the template's
+placements, or on other ones (``shardings=``): a checkpoint saved under one
+layout restores onto another.  The directory must be one that every rank
+sees (a shared filesystem on more than one host); ``latest_step`` and
+``restore`` are called on every rank and read only what rank 0 has
+finished writing.
+
 ``save`` snapshots the tree into host memory before it returns, as a COPY:
 the optimizers write the parameters in place, and on the CPU a tensor's
 ``.numpy()`` shares its storage, so a writer thread holding a view would
@@ -81,9 +90,28 @@ def _walk(tree, prefix=""):
         yield from _walk(v, f"{prefix}/{k}" if prefix else k)
 
 
+def _is_dtensor(leaf) -> bool:
+    from repro_torch.parallel.spmd import is_dtensor
+    return is_dtensor(leaf)
+
+
+def _in_group() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or a process with none."""
+    import torch.distributed as dist
+    return not _in_group() or dist.get_rank() == 0
+
+
 def _host_copy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:        # npz has no bf16; exact widening
             t = t.float()
         return t.to("cpu", copy=True).numpy()
@@ -112,6 +140,12 @@ def _unflatten_into(template, arrays: dict[str, np.ndarray], device=None):
             if node is None:
                 return None
             a = arrays[prefix]
+            if _is_dtensor(node):                 # back onto the template's placements
+                from repro_torch.parallel.sharding import place
+                whole = torch.from_numpy(np.ascontiguousarray(a)).to(
+                    device=node.to_local().device if device is None else device,
+                    dtype=node.dtype)
+                return place(whole, node.device_mesh, node.placements)
             if isinstance(node, torch.Tensor):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(
                     device=node.device if device is None else device, dtype=node.dtype)
@@ -188,6 +222,8 @@ class CheckpointManager:
         self.wait()  # never two writers (same step dir -> corruption race);
         # also surfaces the PREVIOUS async save's failure before this one
         # silently papers over it
+        if not _writes():
+            return
         if self.async_save and not block:
             self._thread = threading.Thread(
                 target=self._write_guarded, args=(step, arrays, meta),
@@ -267,6 +303,18 @@ class CheckpointManager:
         return sorted(out)
 
     def latest_step(self) -> int | None:
+        """The restore point (see ``_latest_step``).  Under a process group
+        every rank calls it: rank 0 finishes its own write first, then sends
+        the step it finds, so every rank resumes from the same one."""
+        self.wait()
+        if not _in_group():
+            return self._latest_step()
+        import torch.distributed as dist
+        box = [self._latest_step() if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _latest_step(self) -> int | None:
         """The restore point: the step the ``latest`` symlink names, when it
         points at an intact checkpoint — crash-consistency comes from the
         symlink being flipped only AFTER a full write, so a step dir that
@@ -286,18 +334,34 @@ class CheckpointManager:
                                                 "arrays.npz"))]
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None, template, device=None):
+    def restore(self, step: int | None, template, device=None, shardings=None,
+                mesh=None):
         """``(tree, meta)`` of checkpoint ``step`` (the latest when None) in
         ``template``'s structure: new tensors, shapes from the arrays,
         dtypes from the template, on ``device`` (each template leaf's own
-        when None)."""
-        step = step if step is not None else self.latest_step()
+        when None).  A DTensor template leaf comes back on its placements;
+        ``shardings`` (a placement tree, ``parallel.sharding.tree_shardings``)
+        with ``mesh`` places the restored tree on that mesh instead — the
+        elastic re-layout.  Under a process group every rank calls it, and
+        rank 0's write of the step is done before any rank reads it (the
+        directory is one that every rank sees: rank 0 alone writes)."""
+        if step is None:
+            step = self.latest_step()
+        elif _in_group():
+            import torch.distributed as dist
+            self.wait()
+            dist.barrier()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step}", "arrays.npz")
         with np.load(path) as z:
             arrays = {k: z[k] for k in z.files}
         tree = _unflatten_into(template, arrays, device)
+        if shardings is not None:
+            if mesh is None:
+                raise ValueError("restore(shardings=...) needs the mesh they are on")
+            from repro_torch.parallel.sharding import place_tree
+            tree = place_tree(tree, shardings, mesh)
         meta_path = os.path.join(self.dir, f"step_{step}", "meta.json")
         with open(meta_path) as f:
             meta = json.load(f)

@@ -243,6 +243,8 @@ class MPOEngine:
         engine (and its tuner) one matrix at a time, and all E run in one call
         of the planned mode: on the card one forward launch, and in training
         one call of the cores backward (``MPOLinearFn`` over the stack)."""
+        if _on_mesh(params):
+            return self._mesh_linear(params, x, transpose=transpose, phase=phase)
         if "w" in params:
             w = params["w"].to(x.dtype)
             return x @ (w.T if transpose else w)
@@ -265,6 +267,35 @@ class MPOEngine:
         # "reconstruct" (or a forced "cached" over raw cores: contract now)
         return mpo.matmul_reconstruct(x, cores)
 
+    def _mesh_linear(self, params: dict, x: torch.Tensor, *, transpose: bool,
+                     phase: str) -> torch.Tensor:
+        """``linear`` over a matrix on a mesh (``parallel.spmd``): the
+        planned mode runs on the rank's block of W, planned at the block's
+        shapes; x is whole and the same on every rank, and so is the
+        result.  A ``j`` (output) shard is column-parallel: the blocks'
+        columns are gathered over ``model``.  An ``i`` (input) shard is
+        row-parallel: x's matching slice goes in and the partial sums are
+        added over ``model``.  FSDP leaves (the central core's bond) are
+        gathered first; a matrix with no ``model`` shard runs whole.  The
+        cores the ranks share enter through ``spmd.copy``: each rank's block
+        adds its part to their gradients, summed over ``model``."""
+        from repro_torch.parallel import spmd
+        role, mesh = _tp_role(params)
+        local = {k: ({n: _whole(c) for n, c in v.items()} if k == "cores" else _whole(v))
+                 for k, v in params.items()}
+        if role is None:
+            return self.linear(local, x, transpose=transpose, phase=phase)
+        if "cores" in local:
+            local["cores"] = {n: c if spmd.model_dim(params["cores"][n]) is not None
+                              else spmd.copy(c, mesh) for n, c in local["cores"].items()}
+        if transpose:
+            role = "row" if role == "col" else "col"
+        if role == "col":
+            y = self.linear(local, spmd.copy(x, mesh), transpose=transpose, phase=phase)
+            return spmd.gather(y, -1, mesh)
+        y = self.linear(local, spmd.split(x, -1, mesh), transpose=transpose, phase=phase)
+        return spmd.reduce(y, mesh)
+
     def logits(self, params: dict, h: torch.Tensor, *,
                phase: str = "train") -> torch.Tensor:
         """Tied-embedding output head: ``h @ E^T``."""
@@ -275,12 +306,36 @@ class MPOEngine:
         """Row lookup ``W[ids, :]`` — dense take or the factorized chain.
         ``phase`` is accepted for interface uniformity: a lookup has one
         realization, so no plan is consulted."""
+        if _on_mesh(params):
+            return self._mesh_embedding(params, ids, dtype=dtype, phase=phase)
         if "w" in params:
             w = params["w"] if dtype is None else params["w"].to(dtype)
             return w[ids.long()]
         return mpo.embed_lookup(self._prepare_cores(params, dtype), ids)
 
-    def cache_weights(self, params, *, dtype=None):
+    def _mesh_embedding(self, params: dict, ids: torch.Tensor, *, dtype, phase: str):
+        """``embedding`` on a mesh: a dense table spread over ``model``
+        along the vocabulary looks up the ids of the rank's rows (zeros
+        elsewhere) and sums over ``model``; anything else is gathered of its
+        FSDP shards and looked up whole."""
+        from repro_torch.parallel import spmd
+        role, mesh = _tp_role(params)
+        if role is None:
+            local = {k: ({n: _whole(c) for n, c in v.items()} if k == "cores" else _whole(v))
+                     for k, v in params.items()}
+            return self.embedding(local, ids, dtype=dtype, phase=phase)
+        if "w" not in params or role != "row":
+            raise NotImplementedError("a factorized embedding is replicated over "
+                                      "`model` (layers.init_embedding)")
+        w = params["w"]
+        lo, hi = spmd.local_range(w, w.dim() - 2)
+        wl = spmd.local(w) if dtype is None else spmd.local(w).to(dtype)
+        ids = ids.long()
+        mine = (ids >= lo) & (ids < hi)
+        rows = wl[torch.where(mine, ids - lo, 0)] * mine[..., None].to(wl.dtype)
+        return spmd.reduce(rows, mesh)
+
+    def cache_weights(self, params, *, dtype=None, axes=None):
         """One-time densification at serving init (next to the KV cache).
 
         Returns a new params tree where every factorized matrix whose decode
@@ -293,16 +348,89 @@ class MPOEngine:
         layer's float32 W.  W rounded to
         the activation dtype here has the bits the cast at every use
         (``linear``, ``embedding``) would give it.  The result is a SNAPSHOT:
-        re-run after any core mutation."""
-        if not isinstance(params, dict):
-            return params
-        if "cores" in params:
-            cores = layers.cores_to_list(params["cores"])
-            shapes = tuple(tuple(c.shape[-4:]) for c in cores)
-            if self.plan(shapes, 1, "decode").mode != "cached":
-                return params
-            return {"w": mpo.reconstruct_stacked(cores, dtype)}
-        return {k: self.cache_weights(v, dtype=dtype) for k, v in params.items()}
+        re-run after any core mutation.
+
+        With ``axes`` (the logical-axis tree, ``layers.axes_for``) returns
+        ``(params, axes)``: a dense W inherits its cores' tensor-parallel
+        layout (``_dense_axes_from_cores``), so ``parallel.sharding`` places
+        it where the cores' shards lived."""
+        def visit(node, ax):
+            if not isinstance(node, dict):
+                return node, ax
+            if "cores" in node:
+                cores = layers.cores_to_list(node["cores"])
+                shapes = tuple(tuple(c.shape[-4:]) for c in cores)
+                if self.plan(shapes, 1, "decode").mode != "cached":
+                    return node, ax
+                w = {"w": mpo.reconstruct_stacked(cores, dtype)}
+                if ax is None:
+                    return w, None
+                names = layers.core_names(len(cores))
+                return w, {"w": _dense_axes_from_cores([ax["cores"][n] for n in names])}
+            pairs = {k: visit(v, None if ax is None else ax[k]) for k, v in node.items()}
+            return ({k: p for k, (p, _) in pairs.items()},
+                    None if ax is None else {k: a for k, (_, a) in pairs.items()})
+
+        new_params, new_axes = visit(params, axes)
+        return new_params if axes is None else (new_params, new_axes)
+
+
+def _dense_axes_from_cores(core_axes: Sequence[tuple]) -> tuple:
+    """Logical axes of the contracted dense W, inherited from its cores.
+
+    Each core's trailing four legs are (bond, i, j, bond); W's in/out dims
+    take the first non-``None`` name found on any core's i/j leg (at most one
+    core carries the tensor-parallel annotation).  Leading stacked dims
+    (layers, experts) keep their names.  Bond-leg names (the central core's
+    FSDP ``"bond"``) do not survive: the bond dim is contracted away."""
+    lead = tuple(core_axes[0][:-4])
+    in_axis = next((a[-3] for a in core_axes if a[-3] is not None), None)
+    out_axis = next((a[-2] for a in core_axes if a[-2] is not None), None)
+    return lead + (in_axis, out_axis)
+
+
+def _on_mesh(params: dict) -> bool:
+    """Whether a matrix's leaves are DTensors (it sits on a mesh)."""
+    from repro_torch.parallel.spmd import is_dtensor
+    leaf = params["w"] if "w" in params else next(iter(params["cores"].values()))
+    return is_dtensor(leaf)
+
+
+def _whole(t):
+    """A matrix leaf for the local computation: a ``model``-sharded DTensor
+    as its local block, anything else whole (FSDP shards gathered)."""
+    from repro_torch.parallel import spmd
+    if not spmd.is_dtensor(t):
+        return t
+    return spmd.local(t) if spmd.model_dim(t) is not None else spmd.localize(t)
+
+
+def _tp_role(params: dict):
+    """("col" | "row" | None, mesh) of a matrix on a mesh: which of W's
+    dims its ``model`` shard cuts — the output (j) or the input (i).  Only
+    core 0's legs (``shard_leg="first"``) give each rank a contiguous block
+    of W."""
+    from repro_torch.parallel import spmd
+    if "w" in params:
+        named = [("w", params["w"])]
+    else:
+        named = list(params["cores"].items())
+    for name, t in named:
+        if not spmd.is_dtensor(t):
+            continue
+        d = spmd.model_dim(t)
+        if d is None:
+            continue
+        if name not in ("w", "c0"):
+            raise NotImplementedError(
+                f"core {name!r} is sharded over `model`: only core 0's legs "
+                "(shard_leg='first') give each rank a block of W")
+        i_leg = t.dim() - (2 if name == "w" else 3)
+        if d < i_leg:
+            raise NotImplementedError("a matrix stack spread over `model` (expert "
+                                      "parallelism) comes with ROADMAP.md, Queue 1 item 8b")
+        return ("row" if d == i_leg else "col"), t.device_mesh
+    return None, None
 
 
 @functools.lru_cache(maxsize=None)

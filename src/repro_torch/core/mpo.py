@@ -506,6 +506,8 @@ def init_cores(gen: torch.Generator, spec: MPOSpec, *, scale: float | None = Non
     the per-core std is ``(var_W / prod(bonds)) ** (1 / (2n))``.  Drawn
     from ``gen`` on its device (the CPU's generator in the models' default
     init); the caller moves them."""
+    if torch.get_default_device().type == "meta":      # shapes only
+        return [torch.empty(s, dtype=dtype) for s in spec.core_shapes()]
     var_w = (scale ** 2) if scale is not None else 1.0 / spec.in_dim
     prod_bonds = math.prod(spec.bonds()) if spec.n > 1 else 1.0
     sigma = (var_w / prod_bonds) ** (1.0 / (2 * spec.n))
@@ -516,6 +518,8 @@ def randn(shape, gen: torch.Generator, dtype=torch.float32) -> torch.Tensor:
     """``torch.randn`` from ``gen``: on the card for a card's generator; a
     CPU generator's draw goes to the default device, so that under
     ``torch.device("meta")`` an init builds its shapes and draws nothing."""
+    if torch.get_default_device().type == "meta":
+        return torch.empty(shape, dtype=dtype)
     kw = {} if gen.device.type == "cpu" else {"device": gen.device}
     return torch.randn(shape, generator=gen, dtype=dtype, **kw)
 

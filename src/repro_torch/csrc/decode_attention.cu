@@ -35,7 +35,10 @@
 // splits in split order (no atomics: two launches give the same bits) and
 // divides once.  A split that owns no page contributes m = -inf, l = 0; a
 // slot of length 0 writes zeros (the _TINY guard).  With S = 1 the split
-// kernel writes the output itself.
+// kernel writes the output itself.  Where the caller passes `ml`, the pass
+// that writes the output also writes each head's softmax statistics (m, l)
+// in f32 (m = 0 where the head saw no key), so that outputs over disjoint key
+// sets merge: a pool whose in-page positions are spread over a mesh.
 //
 // What bounds it.  Decode attention is memory bound: the least work is one
 // read of the slot's K and V pages, q, the bias row, and one write of the
@@ -106,8 +109,8 @@ __global__ void __launch_bounds__(FT)
 split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
              const int* __restrict__ table, const int* __restrict__ lengths,
              const float* __restrict__ bias, T* __restrict__ out, float* __restrict__ ws,
-             int KV, int G, int Dh, int P, int ps, int MP, int S, int kt, float scale,
-             float softcap) {
+             float* __restrict__ ml, int KV, int G, int Dh, int P, int ps, int MP, int S,
+             int kt, float scale, float softcap) {
   constexpr int CE = VEC ? 16 / (int)sizeof(T) : 1;   // elements a chunk
   extern __shared__ __align__(16) unsigned char smem[];
   const int bh = blockIdx.x, split = blockIdx.y;
@@ -235,6 +238,11 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
       const int e = tid + r * FT;
       if (e < GD) repro::st(out, qoff + e, acc[r] / fmaxf(lrun[e / Dh], TINY));
     }
+    if (ml != nullptr)
+      for (int g = tid; g < G; g += FT) {
+        ml[((long)bh * G + g) * 2] = mrun[g] == -INFINITY ? 0.f : mrun[g];
+        ml[((long)bh * G + g) * 2 + 1] = lrun[g];
+      }
     return;
   }
   float* wb = ws + ((long)bh * S + split) * (2 * G + GD);   // m[G], l[G], acc[G * Dh]
@@ -255,7 +263,8 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
 // issue their loads together.
 template <typename T>
 __global__ void __launch_bounds__(FT)
-combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int G, int Dh, int S) {
+combine_kernel(const float* __restrict__ ws, T* __restrict__ out, float* __restrict__ ml,
+               int G, int Dh, int S) {
   extern __shared__ float cs[];
   float* wgt = cs;              // [S][G]: m_s, then e^(m_s - M)
   float* lsum = cs + S * G;     // [G]
@@ -275,6 +284,10 @@ combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int G, int Dh,
       L = fmaf(wb[s * stride + G + g], f, L);
     }
     lsum[g] = L;
+    if (ml != nullptr) {
+      ml[((long)blockIdx.x * G + g) * 2] = M == -INFINITY ? 0.f : M;
+      ml[((long)blockIdx.x * G + g) * 2 + 1] = L;
+    }
   }
   __syncthreads();
   for (int e = threadIdx.x; e < GD; e += FT) {
@@ -288,36 +301,37 @@ combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int G, int Dh,
 
 template <typename T, bool VEC>
 int launch_split(const void* q, const void* kp, const void* vp, const int* table,
-                 const int* lengths, const float* bias, void* out, float* ws, int B, int KV,
-                 int G, int Dh, int P, int ps, int MP, int S, int kt, float scale,
-                 float softcap, cudaStream_t stream) {
+                 const int* lengths, const float* bias, void* out, float* ws, float* ml,
+                 int B, int KV, int G, int Dh, int P, int ps, int MP, int S, int kt,
+                 float scale, float softcap, cudaStream_t stream) {
   const size_t smem = split_smem(G, Dh, kt, sizeof(T));
   cudaError_t err = repro::allow_smem(split_kernel<T, VEC>, smem);
   if (err != cudaSuccess) return (int)err;
   split_kernel<T, VEC><<<dim3(B * KV, S), FT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), table,
-      lengths, bias, static_cast<T*>(out), ws, KV, G, Dh, P, ps, MP, S, kt, scale, softcap);
+      lengths, bias, static_cast<T*>(out), ws, ml, KV, G, Dh, P, ps, MP, S, kt, scale, softcap);
   int rc = (int)cudaGetLastError();
   if (rc || S == 1) return rc;
   const size_t csmem = sizeof(float) * ((size_t)S * G + G);
   err = repro::allow_smem(combine_kernel<T>, csmem);
   if (err != cudaSuccess) return (int)err;
-  combine_kernel<T><<<B * KV, FT, csmem, stream>>>(ws, static_cast<T*>(out), G, Dh, S);
+  combine_kernel<T><<<B * KV, FT, csmem, stream>>>(ws, static_cast<T*>(out), ml, G, Dh, S);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const int* table, const int* lengths,
-           const float* bias, void* out, float* ws, int B, int KV, int G, int Dh, int P,
-           int ps, int MP, int S, int kt, float scale, float softcap, cudaStream_t stream) {
+           const float* bias, void* out, float* ws, float* ml, int B, int KV, int G, int Dh,
+           int P, int ps, int MP, int S, int kt, float scale, float softcap,
+           cudaStream_t stream) {
   // 16-byte chunks: whole chunks a row, aligned pages
   const bool vec = (Dh * sizeof(T)) % 16 == 0 &&
                    ((reinterpret_cast<uintptr_t>(kp) | reinterpret_cast<uintptr_t>(vp)) & 15) == 0;
   if (vec)
-    return launch_split<T, true>(q, kp, vp, table, lengths, bias, out, ws, B, KV, G, Dh, P, ps,
-                                 MP, S, kt, scale, softcap, stream);
-  return launch_split<T, false>(q, kp, vp, table, lengths, bias, out, ws, B, KV, G, Dh, P, ps,
-                                MP, S, kt, scale, softcap, stream);
+    return launch_split<T, true>(q, kp, vp, table, lengths, bias, out, ws, ml, B, KV, G, Dh, P,
+                                 ps, MP, S, kt, scale, softcap, stream);
+  return launch_split<T, false>(q, kp, vp, table, lengths, bias, out, ws, ml, B, KV, G, Dh, P,
+                                ps, MP, S, kt, scale, softcap, stream);
 }
 
 template <typename T>
@@ -429,26 +443,28 @@ int launch_serial(const void* q, const void* kp, const void* vp, const int* tabl
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out alike).  softcap <= 0: none.
 
 // S splits of each slot's pages, kt keys a tile; ws: S > 1 needs
-// B * KV * S * (2 * G + G * Dh) floats.  Returns cudaGetLastError() after the
-// launches (0 = launched).
+// B * KV * S * (2 * G + G * Dh) floats; ml: null, or (B, KV, G, 2) floats that
+// receive each head's (m, l).  Returns cudaGetLastError() after the launches
+// (0 = launched).
 extern "C" int flash_decode_attention(const void* q, const void* kp, const void* vp,
                                       const void* table, const void* lengths, const void* bias,
-                                      void* out, void* ws, int B, int KV, int G, int Dh, int P,
-                                      int ps, int MP, int S, int kt, float scale, float softcap,
-                                      int dtype, void* stream) {
+                                      void* out, void* ws, void* ml, int B, int KV, int G,
+                                      int Dh, int P, int ps, int MP, int S, int kt, float scale,
+                                      float softcap, int dtype, void* stream) {
   if (G * Dh > FT * MAXR || S < 1 || kt < 1 || kt > KT || B * KV < 1)
     return (int)cudaErrorInvalidValue;
   const int* tb = static_cast<const int*>(table);
   const int* ln = static_cast<const int*>(lengths);
   const float* bs = static_cast<const float*>(bias);
   float* w = static_cast<float*>(ws);
+  float* st_ml = static_cast<float*>(ml);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, kp, vp, tb, ln, bs, out, w, B, KV, G, Dh, P, ps, MP, S, kt, scale,
-                         softcap, st);
+    return launch<float>(q, kp, vp, tb, ln, bs, out, w, st_ml, B, KV, G, Dh, P, ps, MP, S, kt,
+                         scale, softcap, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, kp, vp, tb, ln, bs, out, w, B, KV, G, Dh, P, ps, MP, S, kt,
-                                 scale, softcap, st);
+    return launch<__nv_bfloat16>(q, kp, vp, tb, ln, bs, out, w, st_ml, B, KV, G, Dh, P, ps, MP,
+                                 S, kt, scale, softcap, st);
   return (int)cudaErrorInvalidValue;
 }
 

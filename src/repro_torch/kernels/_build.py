@@ -108,6 +108,19 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def refuse_dtensor(where: str, *tensors) -> None:
+    """Raise ``TypeError`` if any of ``tensors`` is a DTensor: a kernel reads
+    raw pointers (``launch``), and a DTensor's would be its local block's
+    with the global shape's meaning — silently wrong.  Mesh code hands the
+    wrappers local shards (``parallel.spmd``)."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{where}: got a DTensor; kernels take local shards "
+                        "(DTensor.to_local())")
+
+
 def launch(name: str, x: torch.Tensor, call) -> None:
     """``call(stream)`` with tensor ``x``'s device current and its current
     stream (the C entry points launch on the current device); raises when it

@@ -81,10 +81,11 @@ def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
 
 
 def flash_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, bias,
-                                 *, softcap: float | None = None):
+                                 *, softcap: float | None = None, stats: bool = False):
     """The plain version: gathered pages and one f32 softmax over the keys
     of each slot's first ``ceil(length / page_size)`` pages — the result the
-    kernel's online softmax gives, summed in another order."""
+    kernel's online softmax gives, summed in another order (with ``stats``
+    its max score and normalizer too, as the kernel gives them)."""
     flash_decode_attention_plain.calls += 1
     b, kv, g, dh = q.shape
     ps = k_pages.shape[1]
@@ -100,8 +101,9 @@ def flash_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, bias,
     m = s.amax(-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     w = torch.exp(s - m)
-    l = w.sum(-1, keepdim=True).clamp(min=_TINY)
-    return (torch.einsum("bkgs,bskd->bkgd", w, v) / l).to(q.dtype)
+    l = w.sum(-1, keepdim=True)
+    out = (torch.einsum("bkgs,bskd->bkgd", w, v) / l.clamp(min=_TINY)).to(q.dtype)
+    return (out, m, l) if stats else out
 
 
 flash_decode_attention_plain.calls = 0
@@ -112,7 +114,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     i32, f32 = ctypes.c_int, ctypes.c_float
     lib.flash_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [i32] * 9 + [f32, f32, i32, ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [i32] * 9 + [f32, f32, i32, ctypes.c_void_p])
     lib.flash_decode_attention.restype = i32
     lib.flash_decode_attention_serial.argtypes = (
         [ctypes.c_void_p] * 7 + [i32] * 7 + [f32, f32, i32, ctypes.c_void_p])
@@ -153,7 +155,7 @@ def _check(q, k_pages, v_pages, page_table, lengths, bias):
 
 
 def flash_decode_attention(q, k_pages, v_pages, page_table, lengths, bias,
-                           *, softcap: float | None = None):
+                           *, softcap: float | None = None, stats: bool = False):
     """Single-token flash decoding over paged KV.
 
     q:          (B, KV, G, Dh)   — grouped query heads (H = KV * G)
@@ -162,33 +164,40 @@ def flash_decode_attention(q, k_pages, v_pages, page_table, lengths, bias,
     lengths:    (B,) int32       — valid keys per slot (<= MP * ps)
     bias:       (B, MP * ps) f32 — additive mask (0 keep / MASK_VALUE drop)
 
-    Returns (B, KV, G, Dh) in q's dtype.  CUDA tensors launch the kernel
+    Returns (B, KV, G, Dh) in q's dtype; with ``stats`` also the f32
+    softmax statistics (B, KV, G, 1) of each head, its max score ``m``
+    (0 where it has no key) and normalizer ``l`` = sum exp(s - m), so that
+    outputs over disjoint key sets merge (``parallel.spmd.combine_softmax``
+    of ``out * l``: a pool split over the mesh).  CUDA tensors launch the kernel
     (``flash_decode_attention.launches`` counts the launches; the splits'
     workspace comes from ``torch.empty``); CPU tensors take
     ``flash_decode_attention_plain``.  An active ``flash-raise`` fault plan
     raises first, on either device."""
+    _build.refuse_dtensor("flash_decode_attention", q, k_pages, v_pages, page_table,
+                          lengths, bias)
     faults.check_flash()
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, k_pages, v_pages, page_table,
-                                            lengths, bias, softcap=softcap)
+                                            lengths, bias, softcap=softcap, stats=stats)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_attention: unsupported device {q.device}")
     _check(q, k_pages, v_pages, page_table, lengths, bias)
     b, kv, g, dh = q.shape
     p, ps = k_pages.shape[:2]
     out = torch.empty_like(q)
+    ml = torch.empty((b, kv, g, 2), dtype=torch.float32, device=q.device) if stats else None
     if b * kv == 0:
-        return out
+        return (out, ml[..., :1], ml[..., 1:]) if stats else out
     mp = page_table.shape[1]
     plan = _flash_plan(b, kv, g, dh, ps, mp)
     ws = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
     _build.launch("flash_decode_attention", q, lambda stream: _lib().flash_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), bias.data_ptr(), out.data_ptr(), ws.data_ptr(), b, kv, g, dh, p,
-        ps, mp, plan.splits, plan.kt, 1.0 / math.sqrt(dh), float(softcap or 0.0),
-        DTYPES[q.dtype], stream))
+        lengths.data_ptr(), bias.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        ml.data_ptr() if stats else None, b, kv, g, dh, p, ps, mp, plan.splits, plan.kt,
+        1.0 / math.sqrt(dh), float(softcap or 0.0), DTYPES[q.dtype], stream))
     flash_decode_attention.launches += 1
-    return out
+    return (out, ml[..., :1], ml[..., 1:]) if stats else out
 
 
 flash_decode_attention.launches = 0

@@ -579,6 +579,7 @@ def mpo_linear(cores: Sequence[torch.Tensor], x: torch.Tensor,
     anything the kernels do not take: other devices or dtypes, mixed
     dtypes, non-contiguous inputs, shapes neither takes, a row tile the
     kernel is not built for or that does not fit."""
+    _build.refuse_dtensor("mpo_linear", x, *cores)
     cores = list(cores)
     if x.device.type == "cpu":
         return mpo_linear_plain(cores, x)
@@ -1115,6 +1116,7 @@ def mpo_linear_bwd_cores(cores: Sequence[torch.Tensor], x: torch.Tensor,
     call's scratch and ``.launch_sets`` its launch sets.  CPU tensors take
     ``mpo_linear_bwd_cores_plain``.  Raises on anything the kernel does not
     take."""
+    _build.refuse_dtensor("mpo_linear_bwd_cores", x, dy, *cores)
     cores = list(cores)
     needs = [True] * len(cores) if needs is None else [bool(k) for k in needs]
     if x.device.type == "cpu":
@@ -1195,6 +1197,7 @@ class MPOLinearFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, block_m, *cores):
+        _build.refuse_dtensor("MPOLinearFn", x, *cores)
         ctx.save_for_backward(*cores, x)
         ctx.block_m = block_m
         return mpo_linear(cores, x, block_m)

@@ -510,6 +510,7 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int):
     ``ssd_scan_bwd``.  Raises on anything the kernel does not take: other
     devices or dtypes, strided inputs, a chunk above 128, N above 128, P
     above 64."""
+    _build.refuse_dtensor("ssd_scan", x, dt, a_log, b, c, d_skip)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a_log, b, c, d_skip)):
         return SSDScanFn.apply(x, dt, a_log, b, c, d_skip, chunk)
     return _forward(x, dt, a_log, b, c, d_skip, chunk)[:2]
@@ -530,6 +531,7 @@ def ssd_scan_bwd(x, dt, a_log, b, c, d_skip, dy, d_final, fws, chunk: int):
     counted once in ``ssd_scan_bwd.launches``; CPU tensors take
     ``ssd_scan_bwd_plain`` (``fws`` unused).  Raises on what the kernel
     does not take (``ssd_scan``'s limits) and on a scratch of another size."""
+    _build.refuse_dtensor("ssd_scan_bwd", x, dt, a_log, b, c, d_skip, dy)
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, a_log, b, c, d_skip, dy, d_final, chunk)
     if x.device.type != "cuda":
@@ -581,6 +583,7 @@ class SSDScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, a_log, b, c, d_skip, chunk):
+        _build.refuse_dtensor("SSDScanFn", x, dt, a_log, b, c, d_skip)
         y, state, fws = _forward(x, dt, a_log, b, c, d_skip, chunk)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)

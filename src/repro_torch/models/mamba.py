@@ -26,6 +26,7 @@ from repro_torch.core import layers as L
 from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.kernels.ssd_scan import segsum, ssd_decode_step  # noqa: F401  (the reference's names)
 from repro_torch.models import nn
+from repro_torch.parallel import spmd
 
 # --------------------------------------------------------------------------
 # SSD core
@@ -71,12 +72,12 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return {
         "norm": nn.init_rmsnorm(d),
         "in_proj": L.init_linear(gen, d, proj_out, cfg=cfg.mpo, kind="ffn",
-                                 sharded_out=True),
+                                 out_axis="ffn", sharded_out=True),
         "out_proj": L.init_linear(gen, di, d, cfg=cfg.mpo, kind="ffn",
-                                  sharded_in=True, scale=di ** -0.5),
-        "a_log": torch.zeros(h),
-        "d_skip": torch.ones(h),
-        "dt_bias": torch.zeros(h),
+                                  in_axis="ffn", sharded_in=True, scale=di ** -0.5),
+        "a_log": L.annot(torch.zeros(h), (None,)),
+        "d_skip": L.annot(torch.ones(h), (None,)),
+        "dt_bias": L.annot(torch.zeros(h), (None,)),
         "out_norm": nn.init_rmsnorm(di),
     }
 
@@ -94,7 +95,7 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
 def apply_mamba_block(params, x, cfg: ModelConfig, *, state=None,
                       decode: bool = False, phase: str = "train"):
     """Returns ``(y, new_state)``.  ``decode=True`` -> single-token recurrence
-    from ``state`` (B, H, N, P)."""
+    from ``state`` (B, H, N, P), which it advances in place and returns."""
     bsz = x.shape[0]
     di, h, p = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     res = x
@@ -107,13 +108,42 @@ def apply_mamba_block(params, x, cfg: ModelConfig, *, state=None,
         y, new_state = ssd_chunked(xs, dt, params["a_log"], b, c, params["d_skip"],
                                    cfg.ssm_chunk)
     else:
-        new_state, y = ssd_decode_step(state, xs[:, 0], dt[:, 0], params["a_log"],
-                                       b[:, 0], c[:, 0], params["d_skip"])
-        y = y[:, None]
+        y = _decode_step(state, xs[:, 0], dt[:, 0], params["a_log"], b[:, 0], c[:, 0],
+                         params["d_skip"])[:, None]
+        new_state = state
     y = y.reshape(bsz, -1, di)
     y = nn.apply_rmsnorm(params["out_norm"], y) * F.silu(z.float()).to(y.dtype)
     out = L.apply_linear(params["out_proj"], y, cfg=cfg.mpo, phase=phase)
     return res + out.to(res.dtype), new_state
+
+
+def _decode_step(state, x_t, dt_t, a_log, b_t, c_t, d_skip):
+    """``ssd_decode_step`` with ``state`` advanced in place; returns y
+    (B, H, P).  On a mesh the state is spread as
+    ``parallel.sharding.cache_spec`` lays it out (batch over ``data``, N —
+    else H — over ``model``): each rank advances its own block and reads y
+    from it, an N split sums the partial reads over ``model``, then the
+    heads and rows are gathered.  A plain state is its own block."""
+    sl = spmd.local(state)
+    (b0, b1), (h0, h1), (n0, n1) = (spmd.local_range(state, d) for d in range(3))
+    da = torch.exp(-torch.exp(a_log.float()) * dt_t.float())[b0:b1, h0:h1]
+    xw = (x_t.float() * dt_t[..., None])[b0:b1, h0:h1]
+    new = sl * da[..., None, None] + torch.einsum("bn,bhp->bhnp",
+                                                  b_t.float()[b0:b1, n0:n1], xw)
+    sl.copy_(new)
+    y = torch.einsum("bn,bhnp->bhp", c_t.float()[b0:b1, n0:n1], new)
+    if spmd.sharded_over(state, 2, "model"):
+        y = spmd.reduce(y, state.device_mesh)
+    y = y + x_t.float()[b0:b1, h0:h1] * d_skip[h0:h1][None, :, None]
+    if spmd.sharded_over(state, 1, "model"):
+        y = spmd.gather(y, 1, state.device_mesh)
+    return spmd.gather_batch(y, 0, state).to(x_t.dtype)
+
+
+def _write_state(dst, new):
+    """``dst.copy_(new)``; on a mesh the rank's block of ``new``."""
+    idx = tuple(slice(*spmd.local_range(dst, d)) for d in range(dst.dim()))
+    spmd.local(dst).copy_(new[idx])
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, *, device=None) -> torch.Tensor:
@@ -193,7 +223,7 @@ def prefill(params, batch, state, cfg: ModelConfig, *, phase="prefill"):
     for i in range(cfg.num_layers):
         x, final_state = apply_mamba_block(nn.index_layer(params["layers"], i), x, cfg,
                                            phase=phase)
-        state[i].copy_(final_state)
+        _write_state(state[i], final_state)
     x = nn.apply_rmsnorm(params["final_norm"], x)
     return L.apply_logits(params["embed"], x[:, -1:], cfg=cfg.mpo, phase=phase), state
 
@@ -203,8 +233,7 @@ def decode_step(params, tokens, state, cfg: ModelConfig, *, phase="decode"):
     (logits (B, 1, V), state)."""
     x = _embed(params, tokens, cfg, phase)
     for i in range(cfg.num_layers):
-        x, new_state = apply_mamba_block(nn.index_layer(params["layers"], i), x, cfg,
-                                         state=state[i], decode=True, phase=phase)
-        state[i].copy_(new_state)
+        x, _ = apply_mamba_block(nn.index_layer(params["layers"], i), x, cfg,
+                                 state=state[i], decode=True, phase=phase)
     x = nn.apply_rmsnorm(params["final_norm"], x)
     return L.apply_logits(params["embed"], x, cfg=cfg.mpo, phase=phase), state

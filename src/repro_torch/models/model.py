@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import engine_for
+from repro_torch.core.layers import axes_for
 from repro_torch.models import mamba, transformer, whisper, zamba
 
 # family -> module of its init / forward / serving functions: every family
@@ -110,6 +111,13 @@ class Model(_Tree):
         self.device = dev
         self.mod = mod
 
+    @property
+    def axes(self) -> dict:
+        """The logical-axis tree of the parameters (the reference's
+        ``model.init_params(key)[1]``), which ``parallel.sharding`` maps
+        onto a mesh; from the config alone (``layers.axes_for``)."""
+        return axes_for(self.cfg)
+
     def forward(self, batch: dict, phase: str = "train", **kw) -> torch.Tensor:
         """Logits; the transformer families take ``with_aux=True`` for
         ``(logits, MoE load-balance loss)``."""
@@ -181,11 +189,13 @@ class Model(_Tree):
         self._install(tree, self.device)
         return self
 
-    def cache_weights(self, params: dict) -> dict:
+    def cache_weights(self, params: dict, *, axes=None):
         """Serving-time weight cache: contract decode-``cached`` matrices to
         dense W once, in the config's activation dtype (see
-        ``MPOEngine.cache_weights``)."""
-        return engine_for(self.cfg.mpo).cache_weights(params, dtype=self.cfg.torch_dtype)
+        ``MPOEngine.cache_weights``).  With ``axes`` returns ``(params,
+        axes)``: the dense W inherits its cores' tensor-parallel layout."""
+        return engine_for(self.cfg.mpo).cache_weights(params, dtype=self.cfg.torch_dtype,
+                                                      axes=axes)
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import layers as L
 from repro_torch.core.layers import MPOConfig
 from repro_torch.core.mpo import randn
 from repro_torch.models import nn
@@ -24,9 +25,10 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int, num_experts: int,
              act: str, mpo: MPOConfig) -> dict:
     """``{"router": {"w": (D, E) f32}, "experts": init_mlp stacked on E}``
     under the reference's key paths."""
-    router = {"w": (d_model ** -0.5) * randn((d_model, num_experts), gen)}
+    router = {"w": L.annot((d_model ** -0.5) * randn((d_model, num_experts), gen),
+                           ("embed", "expert"))}
     experts = nn.stack_layers(lambda g: nn.init_mlp(g, d_model, d_ff, act, mpo), gen,
-                              num_experts)
+                              num_experts, axis="expert")
     return {"router": router, "experts": experts}
 
 

@@ -63,7 +63,8 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         params["projector"] = L.init_linear(gen, cfg.frontend_dim, cfg.d_model, cfg=L.DENSE)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_linear(gen, cfg.d_model, cfg.vocab_size,
-                                          cfg=cfg.mpo, kind="embed", sharded_out=True)
+                                          cfg=cfg.mpo, kind="embed", out_axis="vocab",
+                                          sharded_out=True)
     if cfg.num_classes:
         params["cls_head"] = L.init_linear(gen, cfg.d_model, cfg.num_classes,
                                            cfg=L.DENSE)

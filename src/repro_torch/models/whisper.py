@@ -56,8 +56,10 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     ``enc_norm`` and ``final_norm``."""
     return {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, cfg=cfg.mpo),
-        "enc_pos": 0.02 * randn((cfg.frontend_len, cfg.d_model), gen),
-        "dec_pos": 0.02 * randn((cfg.max_pos, cfg.d_model), gen),
+        "enc_pos": L.annot(0.02 * randn((cfg.frontend_len, cfg.d_model), gen),
+                           (None, "embed")),
+        "dec_pos": L.annot(0.02 * randn((cfg.max_pos, cfg.d_model), gen),
+                           (None, "embed")),
         "encoder": nn.stack_layers(lambda g: init_enc_layer(g, cfg), gen, cfg.num_enc_layers),
         "decoder": nn.stack_layers(lambda g: init_dec_layer(g, cfg), gen, cfg.num_layers),
         "enc_norm": nn.init_layernorm(cfg.d_model),

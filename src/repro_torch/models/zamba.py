@@ -87,7 +87,8 @@ def _stack(cfg: ModelConfig, params, x, *, positions, mask, cache=None, decode=F
                 state = cache["ssm"][i]
                 x, new_state = mamba.apply_mamba_block(layer, x, cfg, state=state,
                                                        decode=decode, phase=phase)
-                state.copy_(new_state)
+                if not decode:                     # a decode advances it in place
+                    state.copy_(new_state)
             elif cfg.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(body, x, layer, use_reentrant=False)
             else:

@@ -1,1 +1,2 @@
-"""Masked optimizers and learning-rate schedules (the port of ``repro.optim``)."""
+"""Masked optimizers, learning-rate schedules and error-feedback gradient
+compression (the port of ``repro.optim``)."""

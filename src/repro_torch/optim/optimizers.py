@@ -45,6 +45,17 @@ def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
+def _replicated_like(p, t: torch.Tensor):
+    """``t`` as ``p`` holds a factored statistic: on ``p``'s mesh,
+    replicated, when ``p`` is a DTensor."""
+    from repro_torch.parallel.spmd import is_dtensor
+    if not is_dtensor(p):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = p.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
 def _apply(params, grads, inner, mask, upd) -> Any:
     """Run ``upd(p, g, s) -> (new_p, new_s)`` over the trainable leaves,
     write ``new_p`` into ``p`` (the callers run under ``no_grad``) and
@@ -67,10 +78,8 @@ def adamw(lr: Callable | float, *, b1=0.9, b2=0.999, eps=1e-8,
 
     def init(params):
         m = _mask_tree(params, mask)
-        inner = tree_map(lambda p, t: {"mu": torch.zeros(p.shape, dtype=state_dtype,
-                                                         device=p.device),
-                                       "nu": torch.zeros(p.shape, dtype=state_dtype,
-                                                         device=p.device)}
+        inner = tree_map(lambda p, t: {"mu": torch.zeros_like(p, dtype=state_dtype),
+                                       "nu": torch.zeros_like(p, dtype=state_dtype)}
                          if t else None, params, m)
         return OptState(0, inner)
 
@@ -116,9 +125,10 @@ def adafactor(lr: Callable | float, *, eps=1e-30, clip=1.0, mask=None,
                 return None
             z = dict(dtype=torch.float32, device=p.device)
             if p.dim() >= 2:
-                return {"vr": torch.zeros(p.shape[:-1], **z),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
-            return {"v": torch.zeros(p.shape, **z)}
+                return {"vr": _replicated_like(p, torch.zeros(p.shape[:-1], **z)),
+                        "vc": _replicated_like(p, torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                                              **z))}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
 
         return OptState(0, tree_map(one, params, m))
 
@@ -157,8 +167,7 @@ def sgdm(lr: Callable | float, *, momentum=0.9, mask=None) -> Optimizer:
     def init(params):
         m = _mask_tree(params, mask)
         return OptState(0, tree_map(
-            lambda p, t: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            if t else None, params, m))
+            lambda p, t: torch.zeros_like(p, dtype=torch.float32) if t else None, params, m))
 
     @torch.no_grad()
     def update(grads, state, params):

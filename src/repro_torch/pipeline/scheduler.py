@@ -92,6 +92,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.parallel import spmd
 from repro_torch.pipeline.clock import WallClock
 from repro_torch.resilience import faults
 from repro_torch.train.steps import make_serve_steps
@@ -168,7 +169,8 @@ class ServePool:
     """
 
     def __init__(self, model, params, slots: int, max_len: int, *,
-                 weight_cache: bool = True, mesh=None, version: int = 0,
+                 weight_cache: bool = True, mesh=None, rules=None, axes=None,
+                 version: int = 0,
                  paged: bool = False, page_size: int = 16,
                  pool_pages: int | None = None, admission_retry_limit: int = 1000,
                  guard_logits: bool = True, prefill_chunk: int | None = None,
@@ -180,9 +182,6 @@ class ServePool:
                 f"{family!r} decode still tracks one shared position per cache "
                 "segment (or needs a non-token frontend at admission), so slots "
                 "cannot sit at independent offsets")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded ServePool comes with ROADMAP.md, Queue 1 item 8")
         if paged and family == "ssm":
             raise ValueError("paged KV cache requires an attention KV "
                              "cache; family 'ssm' has none")
@@ -216,20 +215,28 @@ class ServePool:
         # step (one chunk per decode step while tenants are live)
         self._continuous = prefill_chunk is not None or bucket_prompts
         self.device = model.device
+        self.mesh = mesh
         t0 = time.perf_counter()
         self._prefill1, self._decode, init_pool, self._chunk1 = make_serve_steps(
-            model, weight_cache=weight_cache, paged=paged, page_size=page_size,
-            pool_pages=pool_pages)
-        self._reset_cache = model.reset_cache
+            model, weight_cache=weight_cache, mesh=mesh, rules=rules, axes=axes,
+            paged=paged, page_size=page_size, pool_pages=pool_pages)
         with torch.no_grad():
             self._sparams, self._cache = init_pool(params, slots, max_len)
             if paged:
                 # park every slot at the capacity sentinel: idle rows neither
                 # write pages nor allocate from the shared pool until a
                 # tenant is adopted into them
-                self._cache["pos"].fill_(self._capacity())
+                self._local(self._cache)["pos"].fill_(self._capacity())
             cache_kw = {"paged": True, "page_size": page_size} if paged else {}
             self._cache1 = model.init_cache(1, max_len, **cache_kw)
+            if mesh is not None:
+                # the admission cache on the mesh by the pool's rules
+                from repro_torch.parallel import sharding as S
+                rules1 = S.head_safe_rules(S.make_rules(mesh) if rules is None else rules,
+                                           model.cfg, mesh)
+                self._cache1 = S.place_tree(
+                    self._cache1, S.cache_sharding(self._cache1, mesh, rules1), mesh)
+        self._model_reset = model.reset_cache
         self._sync()
         self.init_seconds = time.perf_counter() - t0
         self._requests: dict[int, Request] = {}
@@ -264,6 +271,16 @@ class ServePool:
         self._decode_seconds = 0.0
         self._admit_seconds = 0.0
 
+    def _local(self, cache):
+        """The cache as the host bookkeeping touches it: on a mesh every
+        leaf's local block (``parallel.spmd.cache_views``; the integer
+        leaves are replicated, so each rank holds them whole)."""
+        return cache if self.mesh is None else spmd.cache_views(cache, all_leaves=True)
+
+    def _reset_cache(self, cache):
+        self._model_reset(self._local(cache))
+        return cache
+
     def _sync(self):
         """Wait for the card, so a host clock read after it times the work
         (a no-op on the CPU)."""
@@ -287,14 +304,18 @@ class ServePool:
         else:                                        # the ssm state tensor
             pairs = [(self._cache, cache1)]
         for pc, oc in pairs:                         # every leaf is (layers, batch, ...)
-            pc[:, slot].copy_(oc[:, 0])
+            # on a mesh: the rank that owns the slot's row copies its block
+            # (the batch-1 cache's other dims are split as the pool's)
+            lo, hi = spmd.local_range(pc, 1)
+            if lo <= slot < hi:
+                spmd.local(pc)[:, slot - lo].copy_(spmd.local(oc)[:, 0])
 
     def _adopt_paged(self, cache1, slot: int, n: int):
         """Pop one pool page per tenant page in use off each layer's free-list
         stack, copy the page data, and point the slot's table row at the new
         physical pages (the reference's ``_adopt_paged_fn``).  Every layer
         holds ``ceil(n / page_size)`` tenant pages, a prefix of its row."""
-        c = self._cache
+        c, cache1 = self._local(self._cache), self._local(cache1)
         used = -(-n // self.page_size)
         layers = c["pos"].shape[0]
         lidx = torch.arange(layers, device=self.device)[:, None]
@@ -313,7 +334,7 @@ class ServePool:
         onto each layer's free list in table order, clear the table row, park
         the position at the sentinel (the reference's ``_free_slot_fn``).
         No host sync: the pushed entries are placed by a gather."""
-        c = self._cache
+        c = self._local(self._cache)
         fl, fc = c["free_list"], c["free_count"]
         row = c["page_table"][:, slot]               # (layers, MP) view
         valid = row >= 0
@@ -548,7 +569,7 @@ class ServePool:
             # (paged: only ceil(real/ps) pages — padding pages never reach
             # the pool), and decode overwrites the padded KV at position
             # ``real_len`` before anything attends it
-            st["cache"]["pos"].fill_(int(req.prompt.size))
+            self._local(st["cache"])["pos"].fill_(int(req.prompt.size))
             self._complete_admission(req, st["slot"], st["first"], st["cache"])
         self._sync()
         self._admit_seconds += time.perf_counter() - t0
@@ -774,7 +795,7 @@ class ServePool:
         page_pool = None
         if self.paged:
             pages = self._total_pages
-            used = pages - int(self._cache["free_count"][0])
+            used = pages - int(self._local(self._cache)["free_count"][0])
             page_pool = {"pages": pages, "used": used,
                          "reserved": self._reserved_pages,
                          "page_size": self.page_size,
@@ -789,7 +810,8 @@ class ServePool:
             "flash_fallbacks": 0,          # the port's flash kernel never falls back
             "slots": self.slots,
             "max_len": self.max_len,
-            "mesh": None,
+            "mesh": None if self.mesh is None else
+            dict(zip(self.mesh.mesh_dim_names, self.mesh.shape)),
             "submitted": self._next_rid,
             "completed": self._completed,
             "pending": self.pending,

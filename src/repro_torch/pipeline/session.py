@@ -39,6 +39,12 @@ many tenants through one continuously batched ``ServePool``
 ``PoolRouter`` (``pipeline.router``) that retries, trips, rebuilds and
 sheds.  The session's device is the card unless the caller passes
 ``device="cpu"``; there is no silent move to the CPU.
+
+``serve(mesh=)`` and ``serve_pool(mesh=)`` place the serving snapshot and
+the cache on a ``DeviceMesh`` by the session's logical-axis tree
+(``axes``, kept by ``init``, ``from_dense`` and ``restore``) and the rules
+of ``parallel.sharding`` (dense and ssm families; the others raise, ROADMAP
+Queue 1 item 8b); every rank runs the same calls and gets the same tokens.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from repro_torch.data.pipeline import SyntheticCLS, make_batch_fn
 from repro_torch.kernels import autotune
 from repro_torch.models import model as M
 from repro_torch.optim import optimizers, schedule
+from repro_torch.parallel import spmd
 from repro_torch.train.loop import LoopConfig, run_training
 from repro_torch.train.steps import (TrainState, lm_loss, make_cls_loss,
                                      make_serve_steps, make_train_step)
@@ -87,15 +94,17 @@ class ServeHandle:
     """
 
     def __init__(self, model: M.Model, params, batch_size: int, max_len: int, *,
-                 weight_cache: bool = True, version: int = 0, paged: bool = False,
-                 page_size: int = 16):
+                 weight_cache: bool = True, version: int = 0, mesh=None, rules=None,
+                 axes=None, paged: bool = False, page_size: int = 16):
         self.batch_size, self.max_len = batch_size, max_len
         self.weight_cache = weight_cache
         self.version = version
+        self.mesh = mesh
         self.paged = paged
         self.device = model.device
         self._prefill, self._decode, self._init_serve, _ = make_serve_steps(
-            model, weight_cache=weight_cache, paged=paged, page_size=page_size)
+            model, weight_cache=weight_cache, mesh=mesh, rules=rules, axes=axes,
+            paged=paged, page_size=page_size)
         self._reset_cache = model.reset_cache
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -107,7 +116,7 @@ class ServeHandle:
     @torch.no_grad()
     def reset(self) -> "ServeHandle":
         """Rewind the (in-place updated) cache to its empty initial state."""
-        self._reset_cache(self.cache)
+        self._reset_cache(spmd.cache_views(self.cache, all_leaves=True))
         return self
 
     def _tensor(self, x) -> torch.Tensor:
@@ -141,10 +150,6 @@ class ServeHandle:
         return torch.cat(out, dim=1)
 
 
-def _not_yet(what: str, item: str):
-    raise NotImplementedError(f"{what} comes with ROADMAP.md, Queue 1 {item}")
-
-
 def _refuse_expert_stacks(cfg: ModelConfig, what: str, why: str):
     """The moe family's experts are (L, E) stacks, which the reference's
     Algorithm 1 and 2 cannot take: raise ``why`` before any work."""
@@ -162,9 +167,12 @@ class Session:
         print(s.report())
     """
 
-    def __init__(self, cfg: ModelConfig, model: M.Model):
+    def __init__(self, cfg: ModelConfig, model: M.Model, axes=None):
         self.cfg = cfg
         self.model = model
+        # the logical-axis tree (layers.axes_for) that places the weights
+        # on a mesh; a session built raw without it cannot serve on one
+        self.axes = axes
         self.engine = engine_for(cfg.mpo)
         self.stage = "init"
         self._records: list[StageRecord] = []
@@ -207,7 +215,7 @@ class Session:
             cfg = dataclasses.replace(cfg, **overrides)
         t0 = time.perf_counter()
         model = M.build(cfg, seed=seed, device=device, init_device=init_device)
-        s = cls(cfg, model)
+        s = cls(cfg, model, model.axes)
         s._record("init", t0, {"params": lightweight.count_params(s.params)})
         return s
 
@@ -229,7 +237,7 @@ class Session:
                                      dense_params)
         with torch.no_grad():
             model.set_tree(convert.convert_dense_to_mpo(dense, model.tree()))
-        s = cls(cfg, model)
+        s = cls(cfg, model, model.axes)
         if report:
             s.conversion_report = convert.conversion_error(dense, s.params)
         errs = s.conversion_report
@@ -238,7 +246,7 @@ class Session:
         return s
 
     def serve_pool(self, slots: int, max_len: int, *, weight_cache: bool = True,
-                   mesh=None, paged: bool = False, page_size: int = 16,
+                   mesh=None, rules=None, paged: bool = False, page_size: int = 16,
                    pool_pages: int | None = None, admission_retry_limit: int = 1000,
                    guard_logits: bool = True, prefill_chunk: int | None = None,
                    bucket_prompts: bool = False, bucket_min: int = 8, clock=None):
@@ -264,11 +272,15 @@ class Session:
             outputs = pool.run()            # {rid: token ids}
         """
         from repro_torch.pipeline.scheduler import ServePool  # lazy
-        if mesh is not None:
-            _not_yet("Session.serve_pool(mesh=...)", "item 8")
+        if mesh is not None and self.axes is None:
+            raise ValueError(
+                "Session.serve_pool(mesh=...) needs the logical-axis tree; "
+                "build the session via Session.init/from_dense")
         t0 = time.perf_counter()
         pool = ServePool(self.model, self.params, slots, max_len,
-                         weight_cache=weight_cache, version=self._version, paged=paged,
+                         weight_cache=weight_cache, mesh=mesh, rules=rules,
+                         axes=self.axes if mesh is not None else None,
+                         version=self._version, paged=paged,
                          page_size=page_size, pool_pages=pool_pages,
                          admission_retry_limit=admission_retry_limit,
                          guard_logits=guard_logits, prefill_chunk=prefill_chunk,
@@ -543,25 +555,45 @@ class Session:
     # ---- serve ----
 
     def serve(self, batch_size: int, max_len: int, *, weight_cache: bool = True,
-              mesh=None, paged: bool = False, page_size: int = 16) -> ServeHandle:
+              mesh=None, rules=None, paged: bool = False,
+              page_size: int = 16) -> ServeHandle:
         """Serving handle for the CURRENT weights.  The one-time
         ``init_serve`` (KV cache + cached-W contraction) runs only when no
-        handle exists for this (batch, max_len, weight_cache, paged,
-        page_size) at the current weights version; a cached handle is
-        returned reset."""
-        if mesh is not None:
-            _not_yet("Session.serve(mesh=...)", "item 8")
+        handle exists for this (batch, max_len, weight_cache, mesh, rules,
+        paged, page_size) at the current weights version; a cached handle is
+        returned reset.
+
+        ``mesh`` (a ``DeviceMesh``, ``launch.mesh.make_host_mesh``) places
+        the serving snapshot and the cache on it by the logical-axis rules
+        (``make_serve_steps(mesh=...)``; ``rules`` overrides
+        ``parallel.sharding.make_rules(mesh)``); every rank runs the same
+        calls and gets the same tokens.  Example::
+
+            mesh = make_host_mesh(model=1)              # one card
+            handle = session.serve(8, 256, paged=True, mesh=mesh)
+        """
+        if mesh is not None and self.axes is None:
+            raise ValueError(
+                "Session.serve(mesh=...) needs the logical-axis tree; this "
+                "session was constructed without one (Session(cfg, model)) — "
+                "build it via Session.init/from_dense, or pass axes to the "
+                "constructor")
         t0 = time.perf_counter()
-        key = (batch_size, max_len, weight_cache, paged, page_size)
+        rules_key = None if rules is None else tuple(sorted(rules.items()))
+        key = (batch_size, max_len, weight_cache, mesh, rules_key, paged, page_size)
         h = self._serve.get(key)
         if h is not None:
             return h.reset()
         handle = ServeHandle(self.model, self.params, batch_size, max_len,
                              weight_cache=weight_cache, version=self._version,
+                             mesh=mesh, rules=rules,
+                             axes=self.axes if mesh is not None else None,
                              paged=paged, page_size=page_size)
         self._serve[key] = handle
         self._record("serve", t0, {"batch": batch_size, "max_len": max_len,
                                    "weight_cache": weight_cache, "paged": paged,
+                                   "mesh": None if mesh is None else
+                                   dict(zip(mesh.mesh_dim_names, mesh.shape)),
                                    "init_seconds": handle.init_seconds})
         return handle
 

@@ -139,7 +139,7 @@ def restore_session(directory: str, cls=None, device=None):
     mgr = CheckpointManager(os.path.join(directory, "weights"), async_save=False)
     params, _ = mgr.restore(manifest["weights_step"], model.tree())
     model.set_tree(params)
-    session = cls(cfg, model)
+    session = cls(cfg, model, model.axes)
     session.stage = manifest["stage"]
     session._version = int(manifest["weights_version"])
     session._records = [StageRecord(**r) for r in manifest["stages"]]

@@ -6,12 +6,22 @@ backward when ``cfg.remat``), loss, backward over EVERY parameter leaf (as
 reference's), then the masked optimizer, which updates the parameters in
 place.  Every MPO matmul inside runs through the engine's ``train``-phase
 plan; on the card that is the fused MPO-linear kernels, forward and
-backward (``kernels.mpo_linear.MPOLinearFn``).  Mesh-sharded serving comes
-with meshes (ROADMAP.md, Queue 1 item 8).
+backward (``kernels.mpo_linear.MPOLinearFn``).
+
+On a mesh (``parallel.spmd``) both run over DTensors placed by
+``parallel.sharding``: ``make_train_step`` spreads the batch rows over the
+batch axes (``batch_sharding``: data parallelism, each rank runs its own
+rows and the gradients are summed over those axes), differentiates into
+DTensor parameters and the optimizers update them in place; ``make_serve_steps(
+mesh=, rules=, axes=)`` places the serving snapshot and the cache by the
+rules and returns logits and tokens as plain tensors, the same on every
+rank, for the host loop.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -22,6 +32,8 @@ from repro_torch.data.pipeline import IGNORE
 from repro_torch.models import transformer
 from repro_torch.models.model import Model, differentiable
 from repro_torch.optim.optimizers import Optimizer, OptState
+from repro_torch.parallel import spmd
+from repro_torch.parallel.ctx import maybe_mesh, sequence_parallel
 
 
 class TrainState(NamedTuple):
@@ -82,25 +94,59 @@ def lm_loss(model: Model, params, batch):
 def make_train_step(model: Model, optimizer: Optimizer,
                     loss_fn: Callable | None = None):
     """``train_step(state, batch) -> (state, metrics)``; ``batch`` holds
-    tensors on the model's device."""
+    tensors on the model's device, every row on every rank.  On a mesh each
+    rank runs the rows ``batch_sharding`` gives it (over the batch axes);
+    the loss is the mean of the ranks' losses, and the metrics are averaged
+    over them (``tokens`` summed)."""
     loss_fn = loss_fn or (lambda p, b: lm_loss(model, p, b))
 
     def train_step(state: TrainState, batch):
         flat = list(leaves(state.params))
-        with differentiable(flat):
-            loss, metrics = loss_fn(state.params, batch)
-            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        mesh = flat[0].device_mesh if spmd.is_dtensor(flat[0]) else None
+        axes, n = (), 1
+        if mesh is not None:
+            from repro_torch.parallel import sharding as S
+            batch, axes = spmd.take_rows(batch, S.batch_sharding(batch, mesh,
+                                                                  S.make_rules(mesh)), mesh)
+            n = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
+        with differentiable(flat), maybe_mesh(mesh), \
+                sequence_parallel(mesh is not None and model.cfg.parallelism == "sp"):
+            # on a mesh the model runs on the ranks' shards (parallel.spmd)
+            loss, metrics = loss_fn(spmd.localize(state.params, axes) if mesh
+                                    else state.params, batch)
+            grads = torch.autograd.grad(loss / n, flat, allow_unused=True)
+        if axes:
+            spmd.sum_grads(grads, flat, axes, mesh)
         # a detached (frozen) leaf gets no gradient: zero, as stop_gradient gives
         grads = {id(p): torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)}
         grads = tree_map(lambda p: grads[id(p)], state.params)
-        opt_state = optimizer.update(grads, state.opt_state, state.params)
+        with _replicate_scalars(mesh):
+            opt_state = optimizer.update(grads, state.opt_state, state.params)
         with torch.no_grad():
-            gnorm = torch.sqrt(sum(g.float().square().sum() for g in leaves(grads)))
+            gnorm = torch.sqrt(sum(_whole(g.float().square().sum()) for g in leaves(grads)))
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in metrics.items()}
+        if axes:                                   # the ranks' mean (tokens: their sum)
+            sums = {k: spmd.all_sum(v, mesh, axes) for k, v in metrics.items()
+                    if isinstance(v, torch.Tensor)}
+            metrics.update({k: v if k == "tokens" else v / n for k, v in sums.items()})
         return TrainState(state.params, opt_state), dict(metrics, grad_norm=gnorm)
 
     return train_step
+
+
+def _whole(t):
+    """A DTensor scalar (a sum over shards) as a plain tensor."""
+    return t.full_tensor() if spmd.is_dtensor(t) else t
+
+
+def _replicate_scalars(mesh):
+    """On a mesh: let the optimizers' plain scalar tensors (bias
+    corrections, step counts) meet DTensor leaves as replicated values."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 def make_eval_step(model: Model, loss_fn: Callable | None = None):
@@ -134,6 +180,10 @@ def make_cls_loss(cfg):
 # --------------------------------------------------------------------------
 
 
+# the families whose serving and training run on a mesh
+MESH_FAMILIES = ("dense", "ssm")
+
+
 class ServeSteps(NamedTuple):
     """The serving step bundle ``make_serve_steps`` returns.  Unpacks like
     the reference's (``prefill, decode, init_serve, chunk = ...``);
@@ -147,6 +197,7 @@ class ServeSteps(NamedTuple):
 
 
 def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
+                     rules: dict | None = None, axes=None,
                      paged: bool = False, page_size: int = 16,
                      pool_pages: int | None = None) -> ServeSteps:
     """``ServeSteps(prefill, decode, init_serve, prefill_chunk)`` for
@@ -179,10 +230,26 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
     Every step updates ``cache`` in place.  ``pool_pages`` oversubscribes
     the paged pool below ``batch * max_pages`` (only behind ``ServePool``'s
     page-reservation admission).
+
+    Mesh-sharded serving (``mesh=`` a ``DeviceMesh``, optional ``rules=``,
+    required ``axes=``, the logical-axis tree ``model.axes``): the rules
+    pass through ``head_safe_rules``; ``init_serve`` contracts the weight
+    cache with ``cache_weights(axes=...)`` so each dense W inherits its
+    cores' tensor-parallel layout, and places the snapshot
+    (``parallel.sharding.tree_shardings``: matrices that stay factorized
+    keep per-core placements, never a replicated dense table) and the cache
+    (``cache_sharding``: batch over ``data``, the sequence over ``model`` —
+    the flash-decoding layout; integer leaves replicated) as DTensors, each
+    rank cutting its own blocks (a snapshot, as above).  The steps run
+    under ``maybe_mesh(mesh)`` on the rank's shards (``parallel.spmd``) and
+    return logits and next tokens as plain tensors, the same on every rank;
+    ``prefill_chunk`` runs under the mesh too.  Example::
+
+        mesh = make_host_mesh(model=2, device_type="cpu")   # 4 ranks: (2, 2)
+        prefill, decode, init_serve, _ = make_serve_steps(
+            model, mesh=mesh, axes=model.axes)
+        sparams, cache = init_serve(model.tree(), 8, 128)
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded serving comes with ROADMAP.md, "
-                                  "Queue 1 item 8")
     cache_kw = {"paged": True, "page_size": page_size} if paged else {}
     if paged and pool_pages is not None:
         cache_kw["pool_pages"] = pool_pages
@@ -209,4 +276,41 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
         def prefill_chunk_step(params, batch, cache):
             return chunk(params, batch, cache, phase="prefill")
 
-    return ServeSteps(prefill_step, decode_step, init_serve, prefill_chunk_step)
+    if mesh is None:
+        return ServeSteps(prefill_step, decode_step, init_serve, prefill_chunk_step)
+
+    from repro_torch.parallel import sharding as S
+
+    if model.cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"serving the {model.cfg.family!r} family on a mesh (expert parallelism, "
+            "its caches) comes with ROADMAP.md, Queue 1 item 8b; on a mesh: "
+            f"{MESH_FAMILIES}")
+    if axes is None:
+        raise ValueError(
+            "make_serve_steps(mesh=...) needs axes= (the logical-axis tree "
+            "from model.axes / layers.axes_for) to place the serving params on "
+            "the mesh")
+    rules = S.make_rules(mesh) if rules is None else rules
+    # never let a K/V projection shard split head_dim across ranks
+    rules = S.head_safe_rules(rules, model.cfg, mesh)
+
+    def init_serve_mesh(params, batch: int, max_len: int):
+        cache = model.init_cache(batch, max_len, **cache_kw)
+        if weight_cache:
+            serve_params, serve_axes = model.cache_weights(params, axes=axes)
+        else:
+            serve_params, serve_axes = params, axes
+        placed = S.place_tree(serve_params, S.tree_shardings(serve_axes, serve_params, mesh,
+                                                             rules), mesh)
+        return placed, S.place_tree(cache, S.cache_sharding(cache, mesh, rules), mesh)
+
+    def on_mesh(step):
+        def run(params, batch, cache):
+            with maybe_mesh(mesh):
+                out = step(spmd.localize(params), batch, spmd.cache_views(cache))
+            return (*out[:-1], cache)              # the cache was updated in place
+        return run
+
+    return ServeSteps(on_mesh(prefill_step), on_mesh(decode_step), init_serve_mesh,
+                      None if prefill_chunk_step is None else on_mesh(prefill_chunk_step))

@@ -31,13 +31,16 @@ def test_no_forbidden_import_statements():
     assert not bad, bad
     assert len(_port_files()) > 15
     # the conversion, squeezing, persistence and serving front-end modules,
-    # the encdec family's and the autotuner are among the files checked
+    # the encdec family's, the autotuner and the mesh modules are among the
+    # files checked
     names = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"core/convert.py", "core/squeeze.py", "core/mpo.py", "checkpoint/manager.py",
             "resilience/faults.py", "resilience/journal.py", "resilience/state.py",
             "pipeline/clock.py", "pipeline/scheduler.py", "pipeline/traffic.py",
             "pipeline/router.py", "pipeline/cli.py", "models/whisper.py",
-            "configs/whisper_tiny.py", "kernels/autotune.py"} <= names
+            "configs/whisper_tiny.py", "kernels/autotune.py", "parallel/sharding.py",
+            "parallel/ctx.py", "parallel/spmd.py", "launch/mesh.py", "launch/train.py",
+            "optim/compress.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax_or_repro():

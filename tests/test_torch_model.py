@@ -263,16 +263,20 @@ def test_report_and_later_stages(pair):
     # finetune, from_dense, squeeze, persistence and the serving front end
     # are ported (tests/test_torch_train.py, tests/test_torch_lifecycle.py,
     # tests/test_torch_persistence.py, tests/test_torch_serve_pool.py,
-    # tests/test_torch_router.py); serving over a mesh raises naming its
-    # ROADMAP.md item
+    # tests/test_torch_router.py), and serving over a mesh
+    # (tests/test_torch_mesh.py), which a session built without the
+    # logical-axis tree refuses, as the reference's does
     fresh = TSession.init(ts.cfg, device="cpu")
     rep = fresh.finetune(steps=1, seq_len=8, batch_size=2)
     assert {"trainable", "reduction", "loss_first", "loss_final", "history"} <= set(rep)
     assert fresh.report()["stage"] == "finetune"
-    for call in (lambda: ts.serve(2, 16, mesh=object()),
-                 lambda: ts.serve_pool(2, 16, mesh=object()),
-                 lambda: ts.serve_fleet(2, 2, 16, mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 8"):
+    assert ts.axes == ts.model.axes
+    raw = TSession(ts.cfg, ts.model)
+    standin = type("Mesh", (), {"mesh_dim_names": ("data", "model"), "shape": (1, 1)})()
+    for call in (lambda: raw.serve(2, 16, mesh=standin),
+                 lambda: raw.serve_pool(2, 16, mesh=standin),
+                 lambda: raw.serve_fleet(2, 2, 16, mesh=standin)):
+        with pytest.raises(ValueError, match="logical-axis tree"):
             call()
 
 

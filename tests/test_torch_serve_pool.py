@@ -310,8 +310,11 @@ def test_pool_submit_and_knob_validation(pair):
         stub = types.SimpleNamespace(cfg=types.SimpleNamespace(family=family))
         with pytest.raises(NotImplementedError, match=match):
             ServePool(stub, {}, 2, MAX_LEN)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 8"):
-        ServePool(ts.model, ts.params, 2, MAX_LEN, mesh=object())
+    # a pool on a mesh needs the logical-axis tree (tests/test_torch_mesh.py
+    # runs pools on meshes)
+    standin = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
+    with pytest.raises(ValueError, match="axes="):
+        ServePool(ts.model, ts.params, 2, MAX_LEN, mesh=standin)
 
 
 def test_pool_incremental_stepping_and_late_submit(pair, serial, draw):
