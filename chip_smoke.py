@@ -368,19 +368,42 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the kernels line under ``mesh ...``.  A script can run it alone:
    ``import chip_smoke``, ``repro_torch.kernels._build.build()``, then
    ``chip_smoke.mesh_phase()``.
-18. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
+18. analysis — the static analysis (``repro_torch.analysis``) and the dry
+   run (``launch.dryrun``) against the card.  Their CPU work runs in a
+   process of its own at the lowest priority from phase 1's build on, with
+   no card visible (``analysis_static``); the phase collects it: (a)
+   ``repro-torch-lint``'s sweep — every config at 1x1, 1x4 and 2x4, the
+   sharding, kernel and trace families, and the compiler's register report
+   of the libraries this run built — with zero errors, and each kernel's
+   registers, spill stores and blocks an SM printed; (b)
+   ``Session.report()["analysis"]`` of phase 5's full-width bert-base
+   session (saved there, restored on the card here): clean, no ``error``
+   key, its seconds; (c) the cached and the factorized bert-base decode
+   step of ``serve(8, 256, paged=True)`` on the card inside the linter's
+   ``HostTransferMode`` and under ``torch.cuda.set_sync_debug_mode("warn")``:
+   host syncs, cross-device copies and sync warnings equal to what
+   ``trace/host-transfer`` counts for the same step on fake CPU tensors;
+   (d) the dry run of bert-base's LFA step at phase 5's 16 x 128 on a
+   (1, 1) fake world: its roofline terms and predicted step seconds beside
+   the step time phase 5 measured, the prediction at most 1.05x the
+   measurement (a floor above the measurement means a wrong count).  A
+   script can run it alone: ``import chip_smoke``,
+   ``repro_torch.kernels._build.build()``, then
+   ``chip_smoke.analysis_phase()``.
+19. ``{"kernels": [...]}`` — one entry per kernel and dtype of the paths (the
    squeezed shapes' times are phase 6's records), the stacked forward, the
    stacked cores backward and flash at llava's geometry beside them, the
    hybrid's and the encdec's cases with their launches on their paths
    (phase 16's under ``autotune ...`` keys, the races' own launches apart,
    phase 17's under ``mesh ...``).
-19. last line: ``{"ok": true, "device": {...}}``.
+20. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import dataclasses
 import json
@@ -1691,6 +1714,208 @@ class _MeshShape:
         self.shape = tuple(shape)
 
 
+# phase 18: the roofline's predicted step may pass the measured one by this
+# factor (a floor above the measurement means the count is wrong), and the
+# most the phase waits for its CPU half
+ANALYSIS_SLACK, ANALYSIS_WAIT_S = 1.05, 900.0
+
+
+def analysis_static(out: str) -> None:
+    """18's CPU half, run in a process of its own with no card visible
+    (``start_analysis_static``): the linter's sweep (every config at 1x1,
+    1x4 and 2x4; sharding, kernel and trace; the compiler's register report
+    of the libraries built), the fake-tensor host-transfer counts of
+    bert-base's cached and factorized decode step at ``serve(BATCH,
+    MAX_LEN, paged=True)`` after a ``PROMPT``-token prefill, and the dry run
+    of bert-base's LFA step at phase 5's 16 x 128 on a (1, 1) fake world.
+    Writes one JSON object to ``out``."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch import configs
+    from repro_torch.analysis import cli as LC
+    from repro_torch.analysis import summarize
+    from repro_torch.analysis import trace_lint as TLINT
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    res = {}
+    t0 = time.perf_counter()
+    found = LC.run_lint(sorted(configs.ARCHS), LC.parse_meshes("1x1,1x4,2x4"),
+                        {"sharding", "kernel", "trace"}, ptxas=True)
+    res["lint_s"] = time.perf_counter() - t0
+    res["lint"] = summarize(found)
+    res["lint_errors"] = [f.format() for f in found if f.severity == "error"]
+    res["registers"] = [dataclasses.asdict(f) for f in found if f.check == "kernel/registers"]
+    t0 = time.perf_counter()
+    cfg = configs.get_config("bert-base")
+    res["transfers"] = {str(wc): TLINT.decode_transfers(cfg, weight_cache=wc, paged=True,
+                                                        batch=BATCH, prompt=PROMPT,
+                                                        max_len=MAX_LEN)
+                        for wc in (True, False)}
+    res["transfers_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["dryrun"] = dryrun.run_cell("bert-base", ShapeConfig("lfa_16x128", "train", TRAIN_SEQ,
+                                                             TRAIN_BATCH),
+                                    mesh_shape=(1, 1), verbose=False)
+    res["dryrun_s"] = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump(res, f, default=str)
+
+
+def start_analysis_static(tmp: Path):
+    """Start ``analysis_static`` in a process of its own, at the lowest
+    priority and with no card visible; returns ``(process, output path,
+    log path)``.  The process is killed at exit if it still runs."""
+    out, log = tmp / "analysis_static.json", tmp / "analysis_static.log"
+    code = (f"import os, sys; os.nice(19); sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.analysis_static({str(out)!r})")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), stdout=fh,
+                                stderr=subprocess.STDOUT,
+                                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, log
+
+
+def analysis_phase(session_dir: str | None = None, train_ms: float | None = None,
+                   static=None) -> None:
+    """18. analysis — the static analysis and the dry run against the card
+    (the module docstring's phase 18).  ``session_dir``: phase 5's saved
+    session and ``train_ms`` its measured ms a step; ``static``: the
+    running ``start_analysis_static`` job.  Alone (all None) it starts the
+    job, builds the session and measures two LFA steps itself."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch import Session
+    from repro_torch.analysis import trace_lint as TLINT
+
+    t_phase = time.perf_counter()
+    tmp = None
+    try:
+        if static is None:
+            tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_analysis_"))
+            static = start_analysis_static(tmp)
+        if session_dir is None:
+            sess = Session.init("bert-base", smoke=False, seed=SEED)
+            ft = dict(mode="lfa", seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH)
+            sess.finetune(steps=1, seed=SEED + 1, **ft)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.finetune(steps=2, seed=SEED, **ft)
+            torch.cuda.synchronize()
+            train_ms = 1e3 * (time.perf_counter() - t0) / 2
+            restore_s = None
+        else:
+            t0 = time.perf_counter()
+            sess = Session.restore(session_dir)
+            restore_s = time.perf_counter() - t0
+
+        # (b) the session's report
+        t0 = time.perf_counter()
+        ana = sess.report()["analysis"]
+        report_s = time.perf_counter() - t0
+        emit(phase="analysis", step="report", arch="bert-base", stage=sess.stage,
+             restore_s=restore_s, report_s=report_s,
+             **{k: ana.get(k) for k in ("errors", "warnings", "info", "by_check", "clean",
+                                        "meshes", "error")})
+        if "error" in ana or not ana.get("clean") or ana.get("errors"):
+            fail(f"analysis: Session.report()['analysis'] of bert-base is not clean: {ana}")
+
+        # (c) the decode step on the card, counted as the linter counts it
+        rng = np.random.default_rng(SEED)
+        prompts = torch.as_tensor(rng.integers(0, 1000, (BATCH, PROMPT)).astype(np.int32),
+                                  device="cuda")
+        card = {}
+        for wc in (True, False):
+            h = sess.serve(BATCH, MAX_LEN, paged=True, weight_cache=wc)
+            h.reset()
+            logits = h.prefill({"tokens": prompts})
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            tok, _ = h.decode(tok)                 # plans memoized before the counted step
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    _, mode = TLINT.run_step(h.decode, tok)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            # (set_sync_debug_mode's own notice that it is a prototype is no sync)
+            card[wc] = dict(mode.transfers(), sync_warnings=sum(
+                "called a synchronizing" in str(w.message) for w in caught),
+                which=dict(mode.syncs + mode.copies))
+        del h, sess
+        torch.cuda.empty_cache()
+
+        # the CPU half
+        proc, out, log = static
+        try:
+            proc.wait(timeout=max(1.0, ANALYSIS_WAIT_S - (time.perf_counter() - t_phase)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail(f"analysis: the static job did not finish within {ANALYSIS_WAIT_S} s")
+        if proc.returncode != 0 or not out.exists():
+            fail(f"analysis: the static job exited {proc.returncode}:\n"
+                 f"{log.read_text()[-4000:]}")
+        res = json.loads(out.read_text())
+        waited_s = time.perf_counter() - t_phase
+
+        # (a) the sweep
+        emit(phase="analysis", step="lint", configs="all", meshes=["1x1", "1x4", "2x4"],
+             families=["sharding", "kernel", "trace"], ptxas=True, s=res["lint_s"],
+             **{k: res["lint"][k] for k in ("errors", "warnings", "info", "by_check")})
+        for f in res["registers"]:
+            emit(phase="analysis", step="registers", severity=f["severity"],
+                 kernel=f["location"], message=f["message"])
+        if res["lint"]["errors"] or res["lint_errors"]:
+            fail(f"analysis: the linter reports errors: {res['lint_errors'][:10]}")
+        if not any(f["severity"] == "info" for f in res["registers"]):
+            fail("analysis: no register report was read from this run's builds")
+
+        # (c) card against the fake-tensor trace
+        for wc in (True, False):
+            fake = res["transfers"][str(wc)]
+            emit(phase="analysis", step="host transfers", arch="bert-base",
+                 weight_cache=wc, card=card[wc], fake_cpu=fake, fake_s=res["transfers_s"])
+            if (card[wc]["syncs"], card[wc]["copies"], card[wc]["sync_warnings"]) != \
+                    (fake["syncs"], fake["copies"], fake["syncs"]):
+                fail(f"analysis: bert-base decode (weight_cache={wc}) on the card counts "
+                     f"{card[wc]}, the fake-tensor trace {fake}")
+
+        # (d) the dry run's roofline beside phase 5's measured step
+        dr = res["dryrun"]
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[0]
+        predicted_ms = 1e3 * dr["step_s"]
+        emit(phase="analysis", step="dryrun", arch="bert-base", mesh=dr["mesh"],
+             batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, s=res["dryrun_s"],
+             flops_per_device=dr["flops_per_device"], bytes_per_device=dr["bytes_per_device"],
+             bytes_written_per_device=dr["bytes_written_per_device"],
+             collective_bytes=dr["collective_bytes"],
+             peak_bytes_per_device=dr["peak_bytes_per_device"], model_flops=dr["model_flops"],
+             compute_ms=1e3 * dr["compute_s"], memory_ms=1e3 * dr["memory_s"],
+             collective_ms=1e3 * dr["collective_s"], dominant=dr["dominant"],
+             predicted_ms=predicted_ms, measured_ms=train_ms,
+             predicted_over_measured=predicted_ms / train_ms, nvidia_smi=smi)
+        if not dr["flops_per_device"] > 0 or not predicted_ms <= ANALYSIS_SLACK * train_ms:
+            fail(f"analysis: the dry run predicts {predicted_ms} ms a step, above "
+                 f"{ANALYSIS_SLACK} x the measured {train_ms} ms (or counts no FLOPs)")
+        if any(dr["collective_bytes"].values()):
+            fail(f"analysis: collective bytes at (1, 1): {dr['collective_bytes']}")
+        emit(phase="analysis", s=time.perf_counter() - t_phase, waited_s=waited_s,
+             static_s=res["lint_s"] + res["transfers_s"] + res["dryrun_s"])
+    finally:
+        if static is not None and static[0].poll() is None:
+            static[0].kill()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _central_leaves(tree, prefix="") -> dict:
     out = {}
     for k, v in tree.items():
@@ -1746,6 +1971,11 @@ def main() -> int:
          ptxas={n: [ln.strip() for ln in _build.build_log(n).splitlines()
                     if "registers" in ln or "spill" in ln]
                 for n in _build.sources()})
+
+    # phase 18's CPU half runs beside the card's phases from here on
+    ana_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_analysis_"))
+    atexit.register(shutil.rmtree, ana_tmp, True)
+    static_job = start_analysis_static(ana_tmp)
 
     gen = torch.Generator().manual_seed(SEED)
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -2614,6 +2844,7 @@ def main() -> int:
     by_path["mpo_linear_fwd_mma"]["bert-base finetune lfa"] = tl["mpo_linear_fwd_mma"]
     path_launches["mpo_linear_bwd_cores"] = tl["mpo_linear_bwd_cores"]
     by_path["mpo_linear_bwd_cores"] = {"bert-base finetune lfa": tl["mpo_linear_bwd_cores"]}
+    tsess.save(str(ana_tmp / "phase5"))        # phase 18 restores it
     del tsess
 
     # (c) the float32 smoke model in the kernel mode: card vs CPU
@@ -5624,7 +5855,10 @@ def main() -> int:
             by_path.setdefault(k, {})[path] = n
             path_launches[k] = path_launches.get(k, 0) + n
 
-    # ---- 18. the kernels line: one entry per kernel and dtype ----
+    # ---- 18. the static analysis and the dry run against the card ----
+    analysis_phase(str(ana_tmp / "phase5"), 1e3 * train_s / TRAIN_STEPS, static_job)
+
+    # ---- 19. the kernels line: one entry per kernel and dtype ----
     fk = results[("flash", "path", "bfloat16")]
     entry = lambda name, route, source, replaces, rec, case, launches, **kw: dict(
         name=name, route=route, source=source, replaces=replaces, launches=launches,

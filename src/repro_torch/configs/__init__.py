@@ -5,7 +5,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig, scaled_down
+from repro_torch.configs.base import SHAPES, ModelConfig, scaled_down
 
 # arch id -> module name, under the reference's ids: every one of its archs
 ARCHS = {
@@ -25,6 +25,10 @@ ARCHS = {
 }
 
 
+# the dry run's assigned architectures: all but the paper's own subjects
+ASSIGNED = [a for a in ARCHS if a not in ("albert-base", "bert-base")]
+
+
 def get_config(name: str, **overrides) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; the port has {sorted(ARCHS)}")
@@ -34,3 +38,17 @@ def get_config(name: str, **overrides) -> ModelConfig:
 
 def smoke_config(name: str, **overrides) -> ModelConfig:
     return scaled_down(get_config(name), **overrides)
+
+
+def cells(include_skipped: bool = False):
+    """All assigned (arch, shape name, skip) dry-run cells, as the
+    reference's: ``long_500k`` needs sub-quadratic attention, so only the
+    SSM and hybrid archs run it (the others are yielded with skip=True
+    when asked)."""
+    for arch in ASSIGNED:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            skip = shape.name == "long_500k" and not cfg.subquadratic
+            if skip and not include_skipped:
+                continue
+            yield arch, shape.name, skip

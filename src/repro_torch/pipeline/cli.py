@@ -33,8 +33,9 @@ Fleet warm start (the autotuner's verdicts as a shippable artifact)::
     repro-torch-pipeline tune-export PATH                pack this host's verdict cache
     repro-torch-pipeline tune-import PATH [--overwrite]  merge an artifact into it
 
-The reference's ``--strict-analysis`` (the static analysis) is not ported
-(ROADMAP.md, Queue 1 item 9).
+The report carries the static analysis of the session's trees
+(``analysis``); ``--strict-analysis`` exits 1 when it has errors
+(``repro-torch-lint`` runs the full sweep).
 """
 
 from __future__ import annotations
@@ -215,7 +216,10 @@ def _run(args) -> int:
         batch = sample_batch(session.cfg, args.batch, args.prompt_len)
         ids = handle.generate(batch, args.tokens)
         print(f"[repro-torch-pipeline] sample ids: {ids[0].tolist()}")
-    print(json.dumps(session.report(), indent=2, default=float))
+    report = session.report()
+    print(json.dumps(report, indent=2, default=float))
+    if args.strict_analysis and report.get("analysis", {}).get("errors"):
+        return 1
     return 0
 
 
@@ -256,6 +260,10 @@ def main(argv=None):
     ap.add_argument("--chaos", action="append", default=[], metavar="SPEC",
                     help="inject a deterministic fault (repeatable); grammar in "
                          "resilience.faults.FaultPlan.parse")
+    ap.add_argument("--strict-analysis", action="store_true",
+                    help="exit nonzero if the report's static-analysis summary contains "
+                         "errors (repro-torch-lint runs the full sweep; this gates just "
+                         "this session's trees)")
     ap.add_argument("--verbose", action="store_true")
     _device_arg(ap)
     args = ap.parse_args(argv)

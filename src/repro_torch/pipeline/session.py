@@ -602,8 +602,10 @@ class Session:
     def report(self) -> dict:
         """Where the session is, what each stage cost, the compression
         ratio rho (Eq. 5) over every factorized matrix, the stats of every
-        ``ServePool`` the caller still holds (``serve_pools``), and the
-        autotuner's (``autotune``) once planning has consulted it."""
+        ``ServePool`` the caller still holds (``serve_pools``), the
+        autotuner's (``autotune``) once planning has consulted it, and the
+        static analysis of the live trees (``analysis``:
+        ``analysis.session_summary``; ``{"error": ...}`` if it raised)."""
         out: dict[str, Any] = {
             "arch": self.cfg.name,
             "task": self.task,
@@ -634,6 +636,15 @@ class Session:
             # the measured tuner was consulted in this process: where its
             # verdicts live and what tuning this process paid for
             out["autotune"] = tuner.stats()
+        # the static analysis over the LIVE trees (sharding placement at
+        # the abstract mesh sweep, kernel budgets at the current core shapes:
+        # bonds a squeeze truncated are re-checked).  Never allowed to break
+        # a report.
+        from repro_torch.analysis import session_summary    # lazy: report stays cheap
+        try:
+            out["analysis"] = session_summary(self.cfg, self.params, self.axes)
+        except Exception as e:  # pragma: no cover - defensive
+            out["analysis"] = {"error": f"{type(e).__name__}: {e}"}
         return out
 
 

@@ -31,8 +31,8 @@ def test_no_forbidden_import_statements():
     assert not bad, bad
     assert len(_port_files()) > 15
     # the conversion, squeezing, persistence and serving front-end modules,
-    # the encdec family's, the autotuner and the mesh modules are among the
-    # files checked
+    # the encdec family's, the autotuner, the mesh modules, the static
+    # analysis and the dry run are among the files checked
     names = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"core/convert.py", "core/squeeze.py", "core/mpo.py", "checkpoint/manager.py",
             "resilience/faults.py", "resilience/journal.py", "resilience/state.py",
@@ -40,7 +40,10 @@ def test_no_forbidden_import_statements():
             "pipeline/router.py", "pipeline/cli.py", "models/whisper.py",
             "configs/whisper_tiny.py", "kernels/autotune.py", "parallel/sharding.py",
             "parallel/ctx.py", "parallel/spmd.py", "launch/mesh.py", "launch/train.py",
-            "optim/compress.py"} <= names
+            "optim/compress.py", "analysis/__init__.py", "analysis/findings.py",
+            "analysis/sharding_lint.py", "analysis/kernel_budget.py", "analysis/trace_lint.py",
+            "analysis/session.py", "analysis/cli.py", "launch/op_analysis.py",
+            "launch/roofline.py", "launch/dryrun.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax_or_repro():
