@@ -364,10 +364,35 @@ Phases, each printing JSON lines; any failure exits non-zero:
    through the kernel with its softmax statistics against its plain
    version, the ranks merged against the unsplit kernel;
    (f) ``launch.train.main(["--arch", "bert-base", "--steps", "3",
-   "--compress", "int8"])`` in-process: a finite loss.  Its launches join
-   the kernels line under ``mesh ...``.  A script can run it alone:
-   ``import chip_smoke``, ``repro_torch.kernels._build.build()``, then
-   ``chip_smoke.mesh_phase()``.
+   "--compress", "int8"])`` in-process: a finite loss; (g) the moe, vlm,
+   hybrid and encdec families at full width, bf16, each call off and on the
+   mesh in turns from the same inputs (``MESH_FAM_*``): phi3.5-moe at 2
+   layers ``serve(8, 528, paged=True)`` from 8 x 512 prompts, 16 new,
+   cached and factorized (the stacked forward over its expert stack), then
+   ``MESH_TRAIN_STEPS`` LFA steps at 4 x 512 on mesh-placed parameters;
+   llava-next-34b at 2 layers from 8 x (1024 patches + 512 tokens), paged,
+   both ways; zamba2-7b at one segment (9 layers) ``serve(8, 528)`` cached
+   (the nested ``{"kv", "ssm"}`` cache); whisper-tiny at full depth from 8 x
+   (1500 frames + 64 tokens), both ways (``{"self", "enc_out"}``): greedy
+   tokens identical and prefill logits bit-equal to the call off the mesh,
+   every serve and cache leaf (nested ones too) a DTensor placed by the
+   rules, the launches the same as off the mesh with the path's kernels
+   launched (flash, the stacked forward, the SSD scan; the stacked cores
+   backward in the LFA steps, whose losses are within ``TRAIN_TOL`` and
+   central cores unchanged), no plain call; prefill ms, decode ms a step
+   and peak GB on and off the mesh; (h) expert-parallel shard shapes, drawn
+   alone: phi3.5-moe's and llama4-maverick's w_up and w_down stacks cut by
+   the production rules (``"expert": ("model",)``) at model 4 and 2 (4 or 8
+   of 16 experts, 32 or 64 of 128): every rank's local stack through the
+   stacked forward at a decode's and a prefill's capacity rows against its
+   plain version, the ranks' partial combines summed against the unsharded
+   kernel's combined output (and each expert's rows against the unsharded
+   launch's, bit for bit, recorded), phi3.5's local stack through the cores
+   backward at 320 rows an expert; each case's shapes, route, ms, plain ms,
+   bound ms and library ms (``torch.matmul`` of the local reconstruction).
+   Its launches join the kernels line under ``mesh ...``.  A script can run
+   it alone: ``import chip_smoke``, ``repro_torch.kernels._build.build()``,
+   set ``REPRO_TORCH_AUTOTUNE_MEASURE=0``, then ``chip_smoke.mesh_phase()``.
 18. analysis — the static analysis (``repro_torch.analysis``) and the dry
    run (``launch.dryrun``) against the card.  Their CPU work runs in a
    process of its own at the lowest priority from phase 1's build on, with
@@ -1230,6 +1255,14 @@ MESH_EMULATED = ((2, 4), (4, 2))
 # the rows each arch's shards run at: qwen3-14b's at 8 only, as the whole
 # script passed 1100 s of its 1200 s with 2048 there too
 MESH_ROWS = {"bert-base": (8, 2048), "qwen3-14b": (8,)}
+# (g): the moe, vlm, hybrid and encdec families on the (1, 1) mesh at full
+# width, bf16, depth cut to these layers (whisper-tiny at its full 4): 8
+# prompts of 512 tokens (llava: behind 1024 patches; whisper-tiny: 64 behind
+# 1500 frames), 16 new tokens; phi3.5-moe's LFA at phase 13's batch
+MESH_FAM_LAYERS = {"phi3.5-moe-42b-a6.6b": 2, "llava-next-34b": 2, "zamba2-7b": 9}
+MESH_FAM_BATCH, MESH_FAM_PROMPT, MESH_FAM_MAX_LEN, MESH_FAM_NEW = 8, 512, 528, 16
+# (h): the model axes the expert stacks are cut for
+MESH_EP_MODEL = (4, 2)
 
 
 def mesh_phase() -> dict:
@@ -1243,8 +1276,11 @@ def mesh_phase() -> dict:
     production rules give (2, 4) and (4, 2) meshes at bert-base's and
     qwen3-14b's layer matrices, each rank's shard against its plain version
     and the assembled result against the unsharded kernel; (f)
-    ``launch.train.main`` in-process.  Runs with the analytic plans.
-    Returns ``{kernel: {path: launches}}`` of its paths."""
+    ``launch.train.main`` in-process; (g) phi3.5-moe, llava-next-34b,
+    zamba2-7b and whisper-tiny at full width, cut depth, on and off the
+    mesh; (h) the expert-parallel shards of phi3.5-moe's and
+    llama4-maverick's stacks at model 4 and 2.  Runs with the analytic
+    plans.  Returns ``{kernel: {path: launches}}`` of its paths."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1253,7 +1289,7 @@ def mesh_phase() -> dict:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import engine as E
     from repro_torch.core import layers as L
-    from repro_torch.core import lightweight
+    from repro_torch.core import lightweight, mpo
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import autotune as AT
     from repro_torch.kernels import decode_attention as DA
@@ -1278,6 +1314,8 @@ def mesh_phase() -> dict:
     watched = {"mpo_linear_fwd_mma": (MK.mpo_linear_mma, "launches"),
                "mpo_linear_fwd": (MK.mpo_linear_cuda_core, "launches"),
                "mpo_linear_bwd_cores": (MK.mpo_linear_bwd_cores, "launches"),
+               "mpo_linear_fwd_mma_stacked": (MK.mpo_linear_mma, "stacked_launches"),
+               "mpo_linear_bwd_cores_stacked": (MK.mpo_linear_bwd_cores, "stacked_launches"),
                "flash_decode_attention": (DA.flash_decode_attention, "launches"),
                "ssd_scan": (SSD.ssd_scan, "launches"),
                "mpo_linear_plain": (MK.mpo_linear_plain, "calls"),
@@ -1698,6 +1736,316 @@ def mesh_phase() -> dict:
             fail(f"mesh launch.train: final loss {loss}")
         no_plain("launch.train", c)
         fold("launch.train bert-base int8", c)
+        emit(phase="mesh", step="launch.train done", s=time.perf_counter() - t_phase)
+        # (g) the moe, vlm, hybrid and encdec families on the (1, 1) mesh at
+        # full width and cut depth, bf16: each call off and on the mesh in
+        # turns, the same inputs
+        def family_serve(what, sess, batch, rows, max_len, new, *, paged, wc, need):
+            cfg = sess.cfg
+            frules = S.head_safe_rules(S.make_rules(mesh), cfg, mesh)
+            runs = {}
+            for on_mesh in (False, True):
+                h = sess.serve(rows, max_len, paged=paged, weight_cache=wc,
+                               mesh=mesh if on_mesh else None)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero()
+                t0 = time.perf_counter()
+                logits = h.prefill(batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                c_pre = counts()
+                zero()
+                tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+                out = [tok]
+                for _ in range(new - 1):
+                    tok, _ = h.decode(tok)
+                    out.append(tok)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                c_dec = counts()
+                runs[on_mesh] = dict(tokens=torch.cat(out, 1).cpu(), logits=logits.float(),
+                                     pre=c_pre, dec=c_dec, prefill_ms=1e3 * (t1 - t0),
+                                     decode_ms_per_step=1e3 * (t2 - t1) / (new - 1),
+                                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                if on_mesh:
+                    meta = lightweight.tree_map(lambda t: torch.empty_like(t, device="meta"),
+                                                sess.params)
+                    axes = sess.model.cache_weights(meta, axes=sess.axes)[1] if wc else sess.axes
+                    placed_as_rules(what, h.params, axes, mesh, frules)
+                    want, got = _flat(S.cache_sharding(h.cache, mesh, frules)), _flat(h.cache)
+                    if not all(spmd.is_dtensor(t) and tuple(t.placements) == tuple(want[k])
+                               for k, t in got.items()):
+                        fail(f"mesh {what}: cache leaves not placed by cache_sharding")
+                sess._serve.clear()
+                del h, logits
+                torch.cuda.empty_cache()
+            off, on = runs[False], runs[True]
+            diff = (on["logits"] - off["logits"]).abs().max().item()
+            rec = {k: {"off": off[k], "on": on[k]} for k in
+                   ("prefill_ms", "decode_ms_per_step", "peak_gb")}
+            emit(phase="mesh", step="family serve", path=what, family=cfg.family,
+                 layers=cfg.num_layers, rows=rows, max_len=max_len, new_tokens=new,
+                 paged=paged, weight_cache=wc,
+                 tokens_identical=bool(torch.equal(on["tokens"], off["tokens"])),
+                 prefill_logits_bit_equal=bool(torch.equal(on["logits"], off["logits"])),
+                 prefill_logits_max_abs_diff=diff,
+                 launches_per_prefill={"on": on["pre"], "off": off["pre"]},
+                 launches_decode={"on": on["dec"], "off": off["dec"]}, **rec)
+            records[what] = rec
+            if not torch.equal(on["tokens"], off["tokens"]) or not torch.equal(
+                    on["logits"], off["logits"]):
+                fail(f"mesh {what}: tokens or prefill logits differ from the same call off the "
+                     f"mesh (logits by {diff})")
+            for c_on, c_off in ((on["pre"], off["pre"]), (on["dec"], off["dec"])):
+                no_plain(what, c_on)
+                if c_on != c_off:
+                    fail(f"mesh {what}: launches {c_on} differ from the plan's {c_off}")
+            total = {k: on["pre"][k] + on["dec"][k] for k in watched}
+            if any(total[k] == 0 for k in need):
+                fail(f"mesh {what}: one of {need} never launched: {total}")
+            fold(what, total)
+
+        rng = np.random.default_rng(SEED + 17)
+        # phi3.5-moe: paged, cached and factorized (the stacked forward over
+        # the expert stack), then LFA steps on mesh-placed parameters
+        pcfg = dataclasses.replace(configs.get_config(PHI35), num_layers=MESH_FAM_LAYERS[PHI35])
+        psess = Session.init(pcfg, seed=SEED, init_device="cuda")
+        pbatch = {"tokens": torch.from_numpy(rng.integers(
+            0, pcfg.vocab_size, (MESH_FAM_BATCH, MESH_FAM_PROMPT)).astype(np.int64))}
+        for wc in (True, False):
+            family_serve(f"{PHI35} serve weight_cache={wc}", psess, pbatch, MESH_FAM_BATCH,
+                         MESH_FAM_MAX_LEN, MESH_FAM_NEW, paged=True, wc=wc,
+                         need=("flash_decode_attention",) if wc else
+                         ("flash_decode_attention", "mpo_linear_fwd_mma_stacked"))
+        del psess
+        torch.cuda.empty_cache()
+        bf = make_batch_fn(pcfg, ShapeConfig("mesh", "train", MOE_TRAIN_SEQ, MOE_TRAIN_BATCH))
+        pbatches = [{k: torch.as_tensor(v).cuda() for k, v in bf(i).items()}
+                    for i in range(MESH_TRAIN_STEPS)]
+        prules = S.head_safe_rules(S.make_rules(mesh), pcfg, mesh)
+        runs = {}
+        for on_mesh in (False, True):
+            model = build(pcfg, seed=SEED, init_device="cuda")
+            params = model.tree()
+            if on_mesh:
+                params = S.place_tree(params, S.tree_shardings(model.axes, params, mesh,
+                                                               prules), mesh)
+                placed_as_rules(f"{PHI35} train params", params, model.axes, mesh, prules)
+            mask = lightweight.trainable_mask(params, mode="lfa")
+            opt = optimizers.adamw(2e-3, mask=mask)
+            central0 = {k: spmd.local(v).clone() for k, v in _central_leaves(params).items()}
+            state = TrainState(params, opt.init(params))
+            step = make_train_step(model, opt)
+            losses, ms = [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            for b in pbatches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, b)
+                losses.append(float(met["loss"]))
+                ms.append(1e3 * (time.perf_counter() - t0))
+            c = counts()
+            moved = [k for k, v in _central_leaves(state.params).items()
+                     if not torch.equal(spmd.local(v), central0[k])]
+            runs[on_mesh] = dict(losses=losses, ms=ms, c=c, moved=moved,
+                                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del model, params, state, central0
+            torch.cuda.empty_cache()
+        off, on = runs[False], runs[True]
+        what = f"{PHI35} lfa"
+        emit(phase="mesh", step="family train", path=what, layers=pcfg.num_layers,
+             batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
+             losses={"off": off["losses"], "on": on["losses"]},
+             step_ms={"off": off["ms"], "on": on["ms"]},
+             peak_gb={"off": off["peak_gb"], "on": on["peak_gb"]}, tol=TRAIN_TOL,
+             launches={k: v for k, v in on["c"].items() if v})
+        if not all(np.isfinite(on["losses"])) or not np.allclose(
+                on["losses"], off["losses"], rtol=TRAIN_TOL, atol=0):
+            fail(f"mesh {what}: losses {on['losses']} vs off the mesh {off['losses']}")
+        if on["moved"] or off["moved"]:
+            fail(f"mesh {what}: central cores changed: {on['moved'][:4]}")
+        no_plain(what, on["c"])
+        if on["c"]["mpo_linear_bwd_cores_stacked"] == 0 or on["c"] != off["c"]:
+            fail(f"mesh {what}: launches {on['c']} vs the plan's {off['c']}")
+        fold(what, on["c"])
+        del pbatches
+
+        # llava-next-34b: 1024 patches + 512 tokens, paged, both ways
+        vcfg = dataclasses.replace(configs.get_config(LLAVA), num_layers=MESH_FAM_LAYERS[LLAVA])
+        vsess = Session.init(vcfg, seed=SEED, init_device="cuda")
+        vbatch = {"tokens": torch.from_numpy(rng.integers(
+            0, vcfg.vocab_size, (MESH_FAM_BATCH, MESH_FAM_PROMPT)).astype(np.int64)),
+            "patches": torch.from_numpy(rng.standard_normal(
+                (MESH_FAM_BATCH, vcfg.frontend_len, vcfg.frontend_dim)).astype(np.float32))}
+        for wc in (True, False):
+            family_serve(f"{LLAVA} serve weight_cache={wc}", vsess, vbatch, MESH_FAM_BATCH,
+                         LLAVA_MAX_LEN, MESH_FAM_NEW, paged=True, wc=wc,
+                         need=("flash_decode_attention",) if wc else
+                         ("flash_decode_attention", "mpo_linear_fwd_mma"))
+        del vsess, vbatch
+        torch.cuda.empty_cache()
+
+        # zamba2-7b, one segment: the nested {"kv", "ssm"} cache, cached
+        zcfg = dataclasses.replace(configs.get_config(HYBRID),
+                                   num_layers=MESH_FAM_LAYERS[HYBRID])
+        zsess = Session.init(zcfg, seed=SEED, init_device="cuda")
+        zbatch = {"tokens": torch.from_numpy(rng.integers(
+            0, zcfg.vocab_size, (MESH_FAM_BATCH, MESH_FAM_PROMPT)).astype(np.int64))}
+        family_serve(f"{HYBRID} serve weight_cache=True", zsess, zbatch, MESH_FAM_BATCH,
+                     MESH_FAM_MAX_LEN, MESH_FAM_NEW, paged=False, wc=True, need=("ssd_scan",))
+        del zsess, zbatch
+        torch.cuda.empty_cache()
+
+        # whisper-tiny at full depth: the nested {"self", "enc_out"} cache
+        wcfg = configs.get_config(ENCDEC)
+        wsess = Session.init(wcfg, seed=SEED, init_device="cuda")
+        wbatch = {"tokens": torch.from_numpy(rng.integers(
+            0, wcfg.vocab_size, (ENC_BATCH, ENC_PROMPT)).astype(np.int64)),
+            "frames": torch.from_numpy(rng.standard_normal(
+                (ENC_BATCH, wcfg.frontend_len, wcfg.d_model)).astype(np.float32))}
+        for wc in (True, False):
+            family_serve(f"{ENCDEC} serve weight_cache={wc}", wsess, wbatch, ENC_BATCH,
+                         ENC_MAX_LEN, MESH_FAM_NEW, paged=False, wc=wc,
+                         need=() if wc else ("mpo_linear_fwd_mma",))
+        del wsess, wbatch
+        torch.cuda.empty_cache()
+        emit(phase="mesh", step="families done", s=time.perf_counter() - t_phase)
+
+        # (h) expert-parallel shard shapes, drawn alone: phi3.5-moe's and
+        # llama4-maverick's w_up and w_down stacks cut by the production
+        # rules' "expert": ("model",) at model = 4 and 2; each rank's local
+        # stack through the stacked forward at a decode's and a prefill's
+        # capacity rows against its plain version, the ranks' partial
+        # combines summed against the unsharded kernel's; phi3.5's local
+        # stack through the cores backward at a fine-tuning batch's rows
+        ep = []
+        for arch in (PHI35, LLAMA4):
+            acfg = configs.get_config(arch)
+            e = acfg.num_experts
+            for name in ("w_up", "w_down"):
+                stack = [c.to(torch.bfloat16) for c in expert_cores(acfg, name)]
+                shapes = tuple(tuple(c.shape[1:]) for c in stack)
+                i_dim = math.prod(s[1] for s in shapes)
+                j_dim = math.prod(s[2] for s in shapes)
+                gen = torch.Generator(device="cuda").manual_seed(SEED)
+                for rows in (moe_capacity(acfg, 1), moe_capacity(acfg, MESH_FAM_PROMPT)):
+                    x = torch.randn(e, rows, i_dim, generator=gen, device="cuda").to(
+                        torch.bfloat16)
+                    comb = torch.rand(e, rows, generator=gen, device="cuda")
+                    whole = MK.mpo_linear(stack, x)
+                    combined = torch.einsum("em,emj->mj", comb, whole.float())
+                    scale = combined.abs().max().item()
+                    for m in MESH_EP_MODEL:
+                        n = e // m
+                        spec = S.spec_for(("expert",) + (None,) * 4, (e,) + shapes[0],
+                                          S.make_rules(_MeshShape((1, m))), _MeshShape((1, m)))
+                        if spec[:1] != ("model",):
+                            fail(f"mesh expert shards {arch} {name}: the rules put "
+                                 f"{spec} on the expert dim at model={m}")
+                        parts, outs = [], []
+                        for r in range(m):
+                            local = [c[r * n:(r + 1) * n].contiguous() for c in stack]
+                            xr = x[r * n:(r + 1) * n].contiguous()
+                            y = MK.mpo_linear(local, xr)
+                            ref = MK.mpo_linear_plain(local, xr)
+                            err = (y.float() - ref.float()).abs().max().item()
+                            rscale = ref.float().abs().max().item()
+                            if not (err <= TOL["bfloat16"] * rscale and torch.isfinite(y).all()):
+                                fail(f"mesh expert shard {arch} {name} model={m} rank {r} "
+                                     f"rows {rows}: err {err} > {TOL['bfloat16']} x {rscale}")
+                            outs.append(y)
+                            parts.append(torch.einsum("em,emj->mj", comb[r * n:(r + 1) * n],
+                                                      y.float()))
+                            if r:
+                                continue                # every rank's shapes are rank 0's
+                            w = mpo.reconstruct_stacked(local)
+                            nbytes = 2 * (xr.numel() + sum(c.numel() for c in local)
+                                          + n * rows * j_dim)
+                            ops = 2 * n * rows * i_dim * j_dim
+                            ep.append({
+                                "kernel": "mpo_linear_fwd_mma", "arch": arch, "matrix": name,
+                                "model": m, "experts_local": n, "rows": rows,
+                                "core_shapes": [list(c.shape) for c in local],
+                                "route": MK.forward_kernel(shapes, "bfloat16"),
+                                "max_abs_err": err,
+                                "ms": device_ms(lambda: MK.mpo_linear(local, xr), flush, 3),
+                                "plain_ms": device_ms(lambda: MK.mpo_linear_plain(local, xr),
+                                                      flush, 3),
+                                "library_ms": device_ms(
+                                    lambda: torch.matmul(xr, mpo.reconstruct_stacked(local)),
+                                    flush, 3),
+                                "dense_matmul_ms": device_ms(lambda: torch.matmul(xr, w),
+                                                             flush, 3),
+                                "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_S,
+                                                      ops / PEAK_OPS_S["bfloat16"]),
+                                "bound_by": "bytes" if nbytes / PEAK_BYTES_S
+                                > ops / PEAK_OPS_S["bfloat16"] else "operations"})
+                            del w
+                        summed = torch.stack(parts).sum(0)
+                        err = (summed - combined).abs().max().item()
+                        if not err <= 2 * TOL["bfloat16"] * scale:
+                            fail(f"mesh expert combine {arch} {name} model={m} rows {rows}: "
+                                 f"err {err} > {2 * TOL['bfloat16']} x {scale}")
+                        same = torch.equal(torch.cat(outs), whole)
+                        ep.append({"combine": f"{arch} {name}", "model": m, "rows": rows,
+                                   "summed_err": err, "scale": scale,
+                                   "experts_bit_equal_to_unsharded": same})
+                        del parts, outs
+                    del x, whole
+                if arch == PHI35:
+                    m_train = moe_capacity(acfg, MOE_TRAIN_SEQ, MOE_TRAIN_BATCH)
+                    for m in MESH_EP_MODEL:
+                        n = e // m
+                        local = [c[:n].contiguous() for c in stack]
+                        xr = torch.randn(n, m_train, i_dim, generator=gen,
+                                         device="cuda").to(torch.bfloat16)
+                        dy = torch.randn(n, m_train, j_dim, generator=gen,
+                                         device="cuda").to(torch.bfloat16)
+                        got = MK.mpo_linear_bwd_cores(local, xr, dy)
+                        ref = MK.mpo_linear_bwd_cores_plain(local, xr, dy)
+                        err = 0.0
+                        for k, (g, rf) in enumerate(zip(got, ref)):
+                            ek = (g.float() - rf.float()).abs().max().item()
+                            if not (ek <= TOL["bfloat16"] * rf.float().abs().max().item()
+                                    and torch.isfinite(g).all()):
+                                fail(f"mesh expert shard bwd {arch} {name} model={m} core {k}:"
+                                     f" err {ek}")
+                            err = max(err, ek)
+                        del got, ref
+
+                        def library():
+                            cs = [c.detach().requires_grad_() for c in local]
+                            w = mpo.reconstruct_stacked(cs)
+                            return torch.autograd.grad(torch.bmm(xr, w), cs, dy)
+
+                        plan = MK._bwd_plan(shapes, "bfloat16",
+                                            torch.cuda.get_device_properties(0)
+                                            .multi_processor_count)
+                        ds = shapes[plan.split][0]
+                        nbytes = 2 * (xr.numel() + dy.numel()
+                                      + 2 * sum(c.numel() for c in local))
+                        ops = n * (2 * m_train * i_dim * j_dim + 4 * ds * i_dim * j_dim)
+                        ep.append({
+                            "kernel": "mpo_linear_bwd_cores", "arch": arch, "matrix": name,
+                            "model": m, "experts_local": n, "rows": m_train,
+                            "core_shapes": [list(c.shape) for c in local], "route": "cuda",
+                            "max_abs_err": err,
+                            "ms": device_ms(lambda: MK.mpo_linear_bwd_cores(local, xr, dy),
+                                            flush, 3),
+                            "plain_ms": device_ms(
+                                lambda: MK.mpo_linear_bwd_cores_plain(local, xr, dy), flush, 3),
+                            "library_ms": device_ms(library, flush, 3),
+                            "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_S,
+                                                  ops / PEAK_OPS_S["bfloat16"]),
+                            "bound_by": "bytes" if nbytes / PEAK_BYTES_S
+                            > ops / PEAK_OPS_S["bfloat16"] else "operations"})
+                        del xr, dy, local
+                del stack
+                torch.cuda.empty_cache()
+        emit(phase="mesh", step="expert shards", cases=ep, s=time.perf_counter() - t_phase)
     finally:
         if own_world:
             dist.destroy_process_group()
@@ -1914,6 +2262,39 @@ def analysis_phase(session_dir: str | None = None, train_ms: float | None = None
             static[0].kill()
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
+
+
+def moe_capacity(cfg, s: int, b: int = LLM_BATCH) -> int:
+    """Rows an expert takes in a MoE layer of ``cfg`` from ``b`` sequences
+    of ``s`` tokens (``models.moe``'s capacity, a sequence's times ``b``)."""
+    return b * max(4, int(cfg.capacity_factor * s * cfg.top_k / cfg.num_experts))
+
+
+def expert_cores(cfg, name: str) -> list:
+    """One layer's expert matrix ``name`` of ``cfg``, stacked over the
+    experts, drawn on the card from the seed with ``mpo.init_cores``'s
+    scale (W of fan-in variance)."""
+    import torch
+
+    from repro_torch.core.layers import cores_to_list
+    from repro_torch.models import transformer as TR
+    with torch.device("meta"):
+        layer = TR.init_layer(torch.Generator(), cfg)
+    shapes = [tuple(c.shape) for c in cores_to_list(layer["moe"]["experts"][name]["cores"])]
+    i_dim = math.prod(s[2] for s in shapes)
+    sigma = (1.0 / i_dim / math.prod(s[4] for s in shapes[:-1])) ** (1 / (2 * len(shapes)))
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    return [sigma * torch.randn(s, generator=g, device="cuda") for s in shapes]
+
+
+def _flat(tree, prefix="") -> dict:
+    """{path: leaf} of a nested dict (one tensor: {"": it})."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+    return out
 
 
 def _central_leaves(tree, prefix="") -> dict:
@@ -4282,22 +4663,9 @@ def main() -> int:
 
     # ---- 12. moe_vlm: expert stacks in one launch; llama4, phi3.5, llava ----
     v_t0 = time.perf_counter()
-    moe_rows = lambda cfg, s, b=LLM_BATCH: b * max(
-        4, int(cfg.capacity_factor * s * cfg.top_k / cfg.num_experts))
+    moe_rows = moe_capacity
     # float32 stacked launches (tensor-core, mpo_linear.cu kernel) on the moe paths
     f32_stacked, f32_moe_core = {}, {}
-
-    def expert_cores(cfg, name):
-        """One layer's expert matrix ``name`` of ``cfg``, stacked over the
-        experts, drawn on the card from the seed with ``mpo.init_cores``'s
-        scale (W of fan-in variance)."""
-        with torch.device("meta"):
-            layer = TR.init_layer(torch.Generator(), cfg)
-        shapes = [tuple(c.shape) for c in cores_to_list(layer["moe"]["experts"][name]["cores"])]
-        i_dim = math.prod(s[2] for s in shapes)
-        sigma = (1.0 / i_dim / math.prod(s[4] for s in shapes[:-1])) ** (1 / (2 * len(shapes)))
-        g = torch.Generator(device=dev).manual_seed(SEED)
-        return [sigma * torch.randn(s, generator=g, device=dev) for s in shapes]
 
     # (a) the stacked forward at every full-width expert shape of the paths:
     # llama4-maverick's w_up (5120 -> 8192) and w_down (8192 -> 5120), 128
@@ -5984,10 +6352,11 @@ def main() -> int:
               f"M={sb16['M']} an expert (a 4 x 512 fine-tuning batch's capacity), bfloat16",
               path_launches["mpo_linear_bwd_cores_stacked"],
               launches_by_path=by_path["mpo_linear_bwd_cores_stacked"], stacked=True,
-              planned=bwd_per_step * (3 * MOE_TRAIN_STEPS - 4), launch_sets=sb16["launch_sets"],
+              planned=bwd_per_step * (3 * MOE_TRAIN_STEPS - 4 + MESH_TRAIN_STEPS),
+              launch_sets=sb16["launch_sets"],
               note="launches: the stacked calls of phase 13's bf16 fine-tuning runs (timed, "
-                   "straight through, resumed), counted where they launch; planned: one a "
-                   "MoE layer's expert matrix a step"),
+                   "straight through, resumed) and phase 17 (g)'s on the mesh, counted where "
+                   "they launch; planned: one a MoE layer's expert matrix a step"),
         entry("mpo_linear_bwd_cores", "cuda", *bwd, sb32,
               f"{PHI35} w_up, {sb32['experts']} experts stacked, M={sb32['M']} an expert, "
               "float32 (launches: the stacked calls of the smoke float32 train steps)",

@@ -27,7 +27,7 @@ import sys
 
 from repro_torch.analysis import findings as F
 from repro_torch.analysis.kernel_budget import SMEM_LIMIT, lint_kernels, lint_registers
-from repro_torch.analysis.sharding_lint import MeshSpec, lint_sharding, mesh_family_findings
+from repro_torch.analysis.sharding_lint import MeshSpec, lint_sharding
 from repro_torch.analysis.trace_lint import lint_traces
 
 DEFAULT_MESH_ARG = "1x1,1x4,2x4"
@@ -83,7 +83,7 @@ def run_lint(archs, meshes, families, *, ptxas: bool = False, smem_budget: int =
             progress(f"linting {arch} ({cfg.family})")
         if "sharding" in families:
             for mesh in meshes:
-                findings += lint_sharding(cfg, mesh) + mesh_family_findings(cfg, mesh)
+                findings += lint_sharding(cfg, mesh)
         if "kernel" in families:
             findings += lint_kernels(cfg, budget=smem_budget)
         if "trace" in families:

@@ -26,9 +26,6 @@ Checks, per (config, mesh), as the reference's:
 
 A finding's location spells a leaf's path as the reference's does (dict
 keys joined by ``/``), so both packages' findings compare field by field.
-``mesh_family_findings`` adds what the port alone has: an info finding for
-a family whose serving and training the port does not run on a mesh yet
-(``train.steps.MESH_FAMILIES``).
 """
 
 from __future__ import annotations
@@ -42,7 +39,6 @@ from repro_torch.analysis.findings import Finding
 from repro_torch.parallel import sharding as S
 
 SHARDING_FILE = "src/repro_torch/parallel/sharding.py"
-STEPS_FILE = "src/repro_torch/train/steps.py"
 
 
 class MeshSpec:
@@ -171,18 +167,3 @@ def lint_sharding(cfg, mesh, *, rules=None, shapes=None, axes=None) -> list:
                 f"sharded spec via axis {ax[0]!r} — small norm/scale vectors must stay "
                 f"replicated (the data-sharded qk-norm-scale bug)")
     return findings
-
-
-def mesh_family_findings(cfg, mesh) -> list:
-    """An info finding where the port does not yet serve or train
-    ``cfg``'s family on a mesh (``train.steps.MESH_FAMILIES``; ROADMAP.md,
-    Queue 1 item 8b)."""
-    from repro_torch.train.steps import MESH_FAMILIES
-    if cfg.family in MESH_FAMILIES:
-        return []
-    return [Finding(check="sharding/mesh-family", severity="info", file=STEPS_FILE,
-                    location=f"MESH_FAMILIES[{cfg.family!r}]",
-                    message=f"the {cfg.family!r} family does not run on a mesh in the port "
-                            f"yet (serving and training refuse it; ROADMAP.md Queue 1 item "
-                            f"8b): its placement is linted, not exercised",
-                    config=cfg.name, mesh=describe(mesh))]

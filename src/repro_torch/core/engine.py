@@ -275,15 +275,21 @@ class MPOEngine:
         result.  A ``j`` (output) shard is column-parallel: the blocks'
         columns are gathered over ``model``.  An ``i`` (input) shard is
         row-parallel: x's matching slice goes in and the partial sums are
-        added over ``model``.  FSDP leaves (the central core's bond) are
-        gathered first; a matrix with no ``model`` shard runs whole.  The
-        cores the ranks share enter through ``spmd.copy``: each rank's block
-        adds its part to their gradients, summed over ``model``."""
+        added over ``model``.  A stack spread over ``model`` along its
+        expert dim (expert parallelism) runs the rank's E/m experts whole on
+        the x rows the caller gives them, with no collective.  FSDP leaves
+        (the central core's bond) are gathered first; a matrix with no
+        ``model`` shard runs whole.  The cores the ranks share enter through
+        ``spmd.copy``: each rank's block adds its part to their gradients,
+        summed over ``model``."""
         from repro_torch.parallel import spmd
         role, mesh = _tp_role(params)
         local = {k: ({n: _whole(c) for n, c in v.items()} if k == "cores" else _whole(v))
                  for k, v in params.items()}
-        if role is None:
+        if role is None or role == "expert":
+            # an expert stack spread over `model`: the rank's own experts,
+            # whole, on its own tokens (x is the rank's slice of the
+            # dispatch; models.moe sums the combine over `model`)
             return self.linear(local, x, transpose=transpose, phase=phase)
         if "cores" in local:
             local["cores"] = {n: c if spmd.model_dim(params["cores"][n]) is not None
@@ -406,29 +412,28 @@ def _whole(t):
 
 
 def _tp_role(params: dict):
-    """("col" | "row" | None, mesh) of a matrix on a mesh: which of W's
-    dims its ``model`` shard cuts — the output (j) or the input (i).  Only
-    core 0's legs (``shard_leg="first"``) give each rank a contiguous block
-    of W."""
+    """("col" | "row" | "expert" | None, mesh) of a matrix on a mesh: which
+    of W's dims its ``model`` shard cuts — the output (j), the input (i),
+    or a stack dim (a MoE layer's experts: each rank holds E/m whole
+    matrices).  Of W's own dims only core 0's legs (``shard_leg="first"``)
+    give each rank a contiguous block of W."""
     from repro_torch.parallel import spmd
     if "w" in params:
         named = [("w", params["w"])]
     else:
         named = list(params["cores"].items())
     for name, t in named:
-        if not spmd.is_dtensor(t):
-            continue
         d = spmd.model_dim(t)
         if d is None:
             continue
+        lead = t.dim() - (2 if name == "w" else 4)       # the stack's dims
+        if d < lead:
+            return "expert", t.device_mesh
         if name not in ("w", "c0"):
             raise NotImplementedError(
                 f"core {name!r} is sharded over `model`: only core 0's legs "
                 "(shard_leg='first') give each rank a block of W")
-        i_leg = t.dim() - (2 if name == "w" else 3)
-        if d < i_leg:
-            raise NotImplementedError("a matrix stack spread over `model` (expert "
-                                      "parallelism) comes with ROADMAP.md, Queue 1 item 8b")
+        i_leg = lead + (0 if name == "w" else 1)
         return ("row" if d == i_leg else "col"), t.device_mesh
     return None, None
 

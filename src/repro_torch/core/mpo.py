@@ -217,12 +217,18 @@ def reconstruct_stacked(cores: Sequence[torch.Tensor], dtype=None) -> torch.Tens
     """``reconstruct`` over any leading stacked dims (scanned layers): each
     matrix contracted on its own (``reconstruct_into``) into one
     preallocated ``(..., I, J)`` tensor in ``dtype`` (the cores' when None),
-    so one matrix in the cores' dtype is all that lives beside it."""
+    so one matrix in the cores' dtype is all that lives beside it.  Cores
+    without values (``meta`` or fake tensors: the linter's and the dry
+    run's) give the allocated result alone, as there is nothing to
+    contract."""
+    from torch._subclasses.fake_tensor import is_fake
     lead = tuple(cores[0].shape[:-4])
     out = torch.empty(lead + (math.prod(c.shape[-3] for c in cores),
                               math.prod(c.shape[-2] for c in cores)),
                       dtype=cores[0].dtype if dtype is None else dtype,
                       device=cores[0].device)
+    if cores[0].is_meta or is_fake(cores[0]):
+        return out
     for idx in itertools.product(*map(range, lead)):
         reconstruct_into([c[idx] for c in cores], out[idx])
     return out

@@ -22,10 +22,10 @@ matmul and written bytes, collective bytes by kind, the peak of live fake
 bytes) and ``launch.roofline`` turns the counts into H100 roofline terms.
 
 The train step is ``Session.finetune``'s: the LFA mask, masked AdamW, the
-session's loss (classification for a config with ``num_classes``).  A
-family the port does not run on a mesh yet (``train.steps.MESH_FAMILIES``;
-ROADMAP.md Queue 1 item 8b) gives a record with ``skipped`` and an info
-finding, not an error.  Nothing touches a card.
+session's loss (classification for a config with ``num_classes``).  Every
+family runs: a MoE cell's collectives count its expert parallelism (the
+router table's gather and each layer's all-reduce of the combine over
+``model``).  Nothing touches a card.
 """
 
 from __future__ import annotations
@@ -153,10 +153,8 @@ def run_cell(arch: str, shape, *, mesh_shape: tuple | None = None, multi_pod: bo
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.analysis import format_findings, lint_sharding, summarize
-    from repro_torch.analysis.sharding_lint import mesh_family_findings
     from repro_torch.launch.op_analysis import analyze
     from repro_torch.launch.roofline import active_param_count, roofline
-    from repro_torch.train.steps import MESH_FAMILIES
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     cfg = (configs.smoke_config if smoke else configs.get_config)(arch)
     if not mpo:
@@ -171,32 +169,27 @@ def run_cell(arch: str, shape, *, mesh_shape: tuple | None = None, multi_pod: bo
         # static placement lint at this mesh before the step: the
         # head-splitting rule and data-sharded norm leaves surface with
         # provenance
-        lint = lint_sharding(cfg, mesh) + mesh_family_findings(cfg, mesh)
+        lint = lint_sharding(cfg, mesh)
         if any(f.severity == "error" for f in lint):
             print(format_findings(lint), file=sys.stderr)
         rec["sharding_lint"] = summarize(lint)
-        if cfg.family not in MESH_FAMILIES:
-            rec["skipped"] = (f"the {cfg.family!r} family does not run on a mesh in the port "
-                              f"yet (train.steps.MESH_FAMILIES; ROADMAP.md Queue 1 item 8b)")
-        else:
-            with FakeTensorMode(allow_non_fake_inputs=True):
-                step, args, state = build_step(cfg, shape, mesh)
-                _, counts = analyze(step, *args, inputs=state)
-            rec.update(
-                flops_per_device=counts["flops"],
-                flops_by_op=counts["flops_by_op"],
-                bytes_per_device=counts["matmul_bytes"],
-                bytes_written_per_device=counts["bytes_written"],
-                collective_bytes=counts["collective_bytes"],
-                peak_bytes_per_device=counts["peak_bytes"],
-                ops=counts["ops"])
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            step, args, state = build_step(cfg, shape, mesh)
+            _, counts = analyze(step, *args, inputs=state)
+        rec.update(
+            flops_per_device=counts["flops"],
+            flops_by_op=counts["flops_by_op"],
+            bytes_per_device=counts["matmul_bytes"],
+            bytes_written_per_device=counts["bytes_written"],
+            collective_bytes=counts["collective_bytes"],
+            peak_bytes_per_device=counts["peak_bytes"],
+            ops=counts["ops"])
     rec["seconds"] = time.perf_counter() - t0
-    if "skipped" not in rec:
-        n = active_param_count(cfg)
-        dense = dataclasses.replace(cfg, mpo=dataclasses.replace(cfg.mpo, enabled=False))
-        rec["model_flops"] = model_flops(shape, n)
-        rec["model_flops_dense"] = model_flops(shape, active_param_count(dense))
-        rec = roofline(rec)
+    n = active_param_count(cfg)
+    dense = dataclasses.replace(cfg, mpo=dataclasses.replace(cfg.mpo, enabled=False))
+    rec["model_flops"] = model_flops(shape, n)
+    rec["model_flops_dense"] = model_flops(shape, active_param_count(dense))
+    rec = roofline(rec)
     if verbose:
         print(json.dumps(rec, default=str))
     return rec

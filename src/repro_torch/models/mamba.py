@@ -140,12 +140,6 @@ def _decode_step(state, x_t, dt_t, a_log, b_t, c_t, d_skip):
     return spmd.gather_batch(y, 0, state).to(x_t.dtype)
 
 
-def _write_state(dst, new):
-    """``dst.copy_(new)``; on a mesh the rank's block of ``new``."""
-    idx = tuple(slice(*spmd.local_range(dst, d)) for d in range(dst.dim()))
-    spmd.local(dst).copy_(new[idx])
-
-
 def init_ssm_state(cfg: ModelConfig, batch: int, *, device=None) -> torch.Tensor:
     return torch.zeros((cfg.num_layers, batch, cfg.ssm_heads, cfg.ssm_state,
                         cfg.ssm_head_dim), dtype=torch.float32, device=device)
@@ -223,7 +217,7 @@ def prefill(params, batch, state, cfg: ModelConfig, *, phase="prefill"):
     for i in range(cfg.num_layers):
         x, final_state = apply_mamba_block(nn.index_layer(params["layers"], i), x, cfg,
                                            phase=phase)
-        _write_state(state[i], final_state)
+        spmd.write_block(state[i], final_state)
     x = nn.apply_rmsnorm(params["final_norm"], x)
     return L.apply_logits(params["embed"], x[:, -1:], cfg=cfg.mpo, phase=phase), state
 

@@ -9,6 +9,15 @@ and ``MPOEngine.linear`` plans each expert matrix as the vmap shows it to the
 reference's engine (per expert, ``N`` tokens) and runs all experts in one
 call: on the card one launch of the MPO-linear forward a matrix.
 Dispatch and combine are dense one-hot einsums, as the reference's.
+
+On a mesh (``parallel.spmd``) an expert stack spread over ``model`` along
+its expert dim (the rules' ``"expert": ("model",)``, kept under sp) runs
+expert-parallel: the router's table is gathered whole, so every rank
+routes every token exactly as one device does; the capacity, ``dispatch``
+and ``combine`` are computed whole, each rank takes its experts' slice of
+them, runs its E/m experts and the partial outputs are summed over
+``model``.  Where E does not divide ``model`` the stack is tensor-parallel
+over its core 0 (the rules' ``ffn``) and the layer runs as on one device.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from repro_torch.core import layers as L
 from repro_torch.core.layers import MPOConfig
 from repro_torch.core.mpo import randn
 from repro_torch.models import nn
+from repro_torch.parallel import spmd
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, num_experts: int,
@@ -52,8 +62,8 @@ def apply_moe(params: dict, x: torch.Tensor, *, act: str, mpo: MPOConfig, top_k:
     e = params["router"]["w"].shape[-1]
     cap = max(4, int(capacity_factor * s * top_k / e))
 
-    # router math in f32
-    logits = x.float() @ params["router"]["w"]
+    # router math in f32, over the whole table on every rank of a mesh
+    logits = x.float() @ _whole_table(params["router"]["w"])
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = stable_top_k(probs, top_k)              # (B, S, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
@@ -69,14 +79,44 @@ def apply_moe(params: dict, x: torch.Tensor, *, act: str, mpo: MPOConfig, top_k:
         combine = combine + gate_vals[..., k, None, None] * pos_oh * ok[..., None]
         counts = counts + (mask_k * ok).sum(1)
     combine = combine.to(x.dtype)
+    mesh = _expert_mesh(params["experts"])
+    xin = x
+    if mesh is not None:
+        # the rank's experts: its slice of the routing (the backward
+        # gathers the slices' gradients) and x's gradient summed over them
+        combine = spmd.split(combine, 2, mesh)
+        xin = spmd.copy(x, mesh)
+    el = combine.shape[2]
     dispatch = (combine > 0).to(x.dtype)
 
-    xe = torch.einsum("bsd,bsec->ebcd", x, dispatch).reshape(e, b * cap, d)
+    xe = torch.einsum("bsd,bsec->ebcd", xin, dispatch).reshape(el, b * cap, d)
     ye = nn.apply_mlp(params["experts"], xe, act, mpo, phase=phase)    # (E, B*C, D)
-    y = torch.einsum("ebcd,bsec->bsd", ye.reshape(e, b, cap, d), combine)
+    y = torch.einsum("ebcd,bsec->bsd", ye.reshape(el, b, cap, d), combine)
+    if mesh is not None:
+        y = spmd.reduce(y, mesh)                   # the ranks' experts' shares
 
     # load-balance auxiliary loss (Switch-style)
     density = torch.nn.functional.one_hot(gate_idx[..., 0], e).float().mean((0, 1))
     density_proxy = probs.mean((0, 1))
     aux = e * (density * density_proxy).sum()
     return y.to(x.dtype), aux
+
+
+def _whole_table(w):
+    """The router's (D, E) table whole: on a mesh its experts' columns are
+    gathered over ``model`` (its FSDP rows were gathered by
+    ``spmd.localize``), so the logits are one device's bit for bit and
+    top-k picks the same experts."""
+    d = spmd.model_dim(w)
+    if d is None:
+        return spmd.local(w)
+    return spmd.gather(spmd.local(w), d, w.device_mesh)
+
+
+def _expert_mesh(experts: dict):
+    """The mesh an expert stack is spread over along its expert dim
+    (expert parallelism), or None (one device, or the stack
+    tensor-parallel over its core 0 where E does not divide ``model``)."""
+    up = experts["w_up"]
+    leaf = up["w"] if "w" in up else up["cores"]["c0"]
+    return leaf.device_mesh if spmd.model_dim(leaf) == 0 else None

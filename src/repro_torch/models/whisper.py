@@ -26,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as L
 from repro_torch.core.mpo import randn
 from repro_torch.models import nn
+from repro_torch.parallel import spmd
 
 
 def _acfg(cfg: ModelConfig, causal: bool) -> nn.AttnCfg:
@@ -196,7 +197,7 @@ def prefill(params, batch, cache, cfg: ModelConfig, *, phase="prefill"):
     x = _dec_stack(cfg, params, x, enc_out, positions=positions, mask=mask,
                    cache=cache["self"], phase=phase)
     x = nn.apply_layernorm(params["final_norm"], x)
-    cache["enc_out"].copy_(enc_out)
+    spmd.write_block(cache["enc_out"], enc_out)
     return logits_head(params, x[:, -1:], cfg, phase=phase), cache
 
 
@@ -206,7 +207,8 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, *, phase="decode"):
     place.  The position row of ``dec_pos`` is clamped into the table, as
     the reference's ``dynamic_slice_in_dim`` clamps it.  Returns (logits
     (B, 1, V), cache)."""
-    enc_out = cache["enc_out"].to(cfg.torch_dtype)
+    enc = cache["enc_out"]                         # on a mesh: its rows over `data`
+    enc_out = spmd.gather_batch(spmd.local(enc), 0, enc).to(cfg.torch_dtype)
     max_len = cache["self"]["k"].shape[2]
     pos = cache["self"]["pos"][0].clone()          # the layers advance the cache's
     x = _embed(params, tokens, cfg, phase)

@@ -25,6 +25,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as L
 from repro_torch.models import mamba, nn, transformer
+from repro_torch.parallel import spmd
 
 
 def num_segments(cfg: ModelConfig) -> int:
@@ -88,7 +89,7 @@ def _stack(cfg: ModelConfig, params, x, *, positions, mask, cache=None, decode=F
                 x, new_state = mamba.apply_mamba_block(layer, x, cfg, state=state,
                                                        decode=decode, phase=phase)
                 if not decode:                     # a decode advances it in place
-                    state.copy_(new_state)
+                    spmd.write_block(state, new_state)
             elif cfg.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(body, x, layer, use_reentrant=False)
             else:

@@ -212,15 +212,15 @@ def cache_spec(name: str, shape: tuple, integer: bool, mesh, rules: dict) -> tup
     return tuple(parts)
 
 
-def cache_sharding(cache_specs, mesh, rules: dict):
-    """Placement tree of ``cache_spec`` for a cache of tensors (a dict, or
-    the SSM family's one state tensor)."""
-    def one(name, t):
-        integer = not (t.dtype.is_floating_point or t.dtype.is_complex)
-        return placements(cache_spec(name, tuple(t.shape), integer, mesh, rules), mesh)
+def cache_sharding(cache_specs, mesh, rules: dict, name: str = ""):
+    """Placement tree of ``cache_spec`` for a cache of tensors: one state
+    tensor (the SSM family's), or dicts nested to any depth (the hybrid's
+    ``{"kv": {k, v, pos}, "ssm"}``, encdec's ``{"self": {k, v, pos},
+    "enc_out"}``), each leaf named by its own key."""
     if isinstance(cache_specs, dict):
-        return {k: one(k, v) for k, v in cache_specs.items()}
-    return one("", cache_specs)
+        return {k: cache_sharding(v, mesh, rules, k) for k, v in cache_specs.items()}
+    integer = not (cache_specs.dtype.is_floating_point or cache_specs.dtype.is_complex)
+    return placements(cache_spec(name, tuple(cache_specs.shape), integer, mesh, rules), mesh)
 
 
 def place(t: torch.Tensor, mesh, placements_):

@@ -4,7 +4,7 @@ Parameters, serving weights and caches sit on the mesh as DTensors placed
 by ``parallel.sharding``.  Every rank runs the same host loop and the same
 model code on plain tensors: activations are whole over ``model`` (the
 same on every rank of a ``model`` group; in serving, on every rank), and
-the mesh enters at four kinds of point, each on LOCAL shards:
+the mesh enters at five kinds of point, each on LOCAL shards:
 
 * tensor-parallel matrices (core 0's ``model``-sharded leg, or a dense W's
   ``model``-sharded dim): ``MPOEngine.linear`` runs the planned mode —
@@ -14,6 +14,11 @@ the mesh enters at four kinds of point, each on LOCAL shards:
   output's columns) or ``reduce`` (row-parallel: partial sums) over
   ``model``.  ``copy`` and ``split`` are their inputs' counterparts, so the
   backward sums and gathers as Megatron's f / g operators do;
+* expert parallelism: a MoE layer's expert stack spread over ``model``
+  along its expert dim runs each rank's E/m experts whole on its slice of
+  the dispatch (``MPOEngine.linear``'s ``expert`` role), and
+  ``models.moe`` sums the combine over ``model`` (``reduce``); the router
+  table is gathered whole, so routing is one device's;
 * FSDP (``data``-sharded) leaves — the central core's bond, norm scales —
   are gathered at a step's entry (``localize``), the backward keeping the
   rank's own slice;
@@ -99,23 +104,46 @@ def local(t):
 
 def localize(tree, batch_axes: tuple = ()):
     """A params tree for the model code: leaves spread over ``model`` stay
-    DTensors (``MPOEngine`` runs them on their local shards); every other
-    leaf becomes a plain whole tensor — its local block where it is
-    replicated, gathered where it is ``data``-sharded (FSDP).  Both are
-    differentiable back into the DTensor leaf.  With ``batch_axes`` (a
-    train step whose rows are spread over them) a gathered leaf's gradient
-    is summed over those axes on its way back to the shards (a
-    reduce-scatter)."""
+    DTensors (``MPOEngine`` runs them on their local shards), their other
+    shards gathered (an expert stack's central core: its experts over
+    ``model``, its bond over ``data``); every other leaf becomes a plain
+    whole tensor — its local block where it is replicated, gathered where
+    it is ``data``-sharded (FSDP).  All are differentiable back into the
+    DTensor leaf.  With ``batch_axes`` (a train step whose rows are spread
+    over them) a gathered leaf's gradient is summed over those axes on its
+    way back to the shards (a reduce-scatter)."""
     if isinstance(tree, dict):
         return {k: localize(v, batch_axes) for k, v in tree.items()}
-    if not is_dtensor(tree) or model_dim(tree) is not None:
+    if not is_dtensor(tree):
         return tree
+    if model_dim(tree) is not None:
+        return _gather_beside_model(tree, batch_axes)
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = tree.device_mesh
     if any(isinstance(p, Shard) and mesh.size(i) > 1 for i, p in enumerate(tree.placements)):
         return tree.full_tensor(grad_placements=[
             Partial() if n in batch_axes else Replicate() for n in mesh.mesh_dim_names])
     return tree.to_local()
+
+
+def _gather_beside_model(t, batch_axes: tuple):
+    """A ``model``-sharded DTensor with its shards over the other mesh axes
+    gathered (minor axis first): the same leaf spread over ``model`` alone.
+    The gradient goes back to the rank's own slice, summed first over the
+    axes in ``batch_axes``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, names = t.device_mesh, t.device_mesh.mesh_dim_names
+    others = [i for i, p in enumerate(t.placements) if isinstance(p, Shard)
+              and names[i] != "model" and mesh.size(i) > 1]
+    if not others:
+        return t
+    x = t.to_local()
+    for i in reversed(others):
+        x = _Gather.apply(x, t.placements[i].dim % t.dim(), mesh, names[i],
+                          names[i] in batch_axes)
+    kept = tuple(Replicate() if i in others else p for i, p in enumerate(t.placements))
+    return DTensor.from_local(x, mesh, kept, run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 def cache_views(cache, *, all_leaves: bool = False):
@@ -161,18 +189,22 @@ def _slice(x, dim, n, r):
 
 class _Gather(torch.autograd.Function):
     """Forward: concatenate every rank's ``x`` along ``dim``.  Backward:
-    the rank's own slice (the result is used the same on every rank)."""
+    the rank's own slice (the result is used the same on every rank), or
+    with ``summed`` the slice of the gradients summed over the axis (each
+    rank used the result on rows of its own)."""
 
     @staticmethod
-    def forward(ctx, x, dim, mesh, name):
+    def forward(ctx, x, dim, mesh, name, summed=False):
         group, n, r = _axis(mesh, name)
-        ctx.args = (dim, n, r)
+        ctx.args = (dim, n, r, group if summed else None)
         return _all_gather(x, dim, group, n)
 
     @staticmethod
     def backward(ctx, dy):
-        dim, n, r = ctx.args
-        return _slice(dy, dim, n, r), None, None, None
+        dim, n, r, group = ctx.args
+        if group is not None:
+            dy = _all_reduce(dy, group)
+        return _slice(dy, dim, n, r), None, None, None, None
 
 
 class _Reduce(torch.autograd.Function):
@@ -298,6 +330,13 @@ def all_sum(x, mesh, axes: tuple):
 # --------------------------------------------------------------------------
 # caches
 # --------------------------------------------------------------------------
+
+
+def write_block(dst, whole) -> None:
+    """``dst.copy_(whole)`` of a cache leaf; on a mesh each rank writes its
+    own block of ``whole`` (the same on every rank)."""
+    idx = tuple(slice(*local_range(dst, d)) for d in range(dst.dim()))
+    local(dst).copy_(whole[idx])
 
 
 def sharded_over(t, dim: int, name: str) -> bool:

@@ -165,7 +165,11 @@ class ServePool:
     on the same snapshot over a batch-1 cache from
     ``model.init_cache(1, max_len, ...)`` — no second contraction, no second
     clone.  A pool built before a ``finetune``/``squeeze`` keeps serving the
-    OLD weights; build a new pool after mutating the session.
+    OLD weights; build a new pool after mutating the session.  With
+    ``mesh=`` the snapshot, the pool cache and the batch-1 admission cache
+    are placed by the rules (``make_serve_steps(mesh=)``; a moe layer's
+    experts over ``model``), and an admission writes its rows into the
+    placed cache, each rank its own block.
     """
 
     def __init__(self, model, params, slots: int, max_len: int, *,

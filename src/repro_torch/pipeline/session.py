@@ -40,11 +40,13 @@ many tenants through one continuously batched ``ServePool``
 sheds.  The session's device is the card unless the caller passes
 ``device="cpu"``; there is no silent move to the CPU.
 
-``serve(mesh=)`` and ``serve_pool(mesh=)`` place the serving snapshot and
-the cache on a ``DeviceMesh`` by the session's logical-axis tree
-(``axes``, kept by ``init``, ``from_dense`` and ``restore``) and the rules
-of ``parallel.sharding`` (dense and ssm families; the others raise, ROADMAP
-Queue 1 item 8b); every rank runs the same calls and gets the same tokens.
+``serve(mesh=)``, ``serve_pool(mesh=)`` and ``serve_fleet`` place the
+serving snapshot and the cache on a ``DeviceMesh`` by the session's
+logical-axis tree (``axes``, kept by ``init``, ``from_dense`` and
+``restore``) and the rules of ``parallel.sharding``, for every family that
+serves that way off the mesh (a moe layer's experts spread over ``model``,
+nested caches placed leaf by leaf); every rank runs the same calls and
+gets the same tokens.
 """
 
 from __future__ import annotations

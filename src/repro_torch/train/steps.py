@@ -180,10 +180,6 @@ def make_cls_loss(cfg):
 # --------------------------------------------------------------------------
 
 
-# the families whose serving and training run on a mesh
-MESH_FAMILIES = ("dense", "ssm")
-
-
 class ServeSteps(NamedTuple):
     """The serving step bundle ``make_serve_steps`` returns.  Unpacks like
     the reference's (``prefill, decode, init_serve, chunk = ...``);
@@ -231,16 +227,18 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
     the paged pool below ``batch * max_pages`` (only behind ``ServePool``'s
     page-reservation admission).
 
-    Mesh-sharded serving (``mesh=`` a ``DeviceMesh``, optional ``rules=``,
-    required ``axes=``, the logical-axis tree ``model.axes``): the rules
-    pass through ``head_safe_rules``; ``init_serve`` contracts the weight
-    cache with ``cache_weights(axes=...)`` so each dense W inherits its
-    cores' tensor-parallel layout, and places the snapshot
+    Mesh-sharded serving, every family (``mesh=`` a ``DeviceMesh``,
+    optional ``rules=``, required ``axes=``, the logical-axis tree
+    ``model.axes``): the rules pass through ``head_safe_rules``;
+    ``init_serve`` contracts the weight cache with ``cache_weights(axes=...)``
+    so each dense W inherits its cores' layout (tensor- or
+    expert-parallel), and places the snapshot
     (``parallel.sharding.tree_shardings``: matrices that stay factorized
     keep per-core placements, never a replicated dense table) and the cache
     (``cache_sharding``: batch over ``data``, the sequence over ``model`` —
-    the flash-decoding layout; integer leaves replicated) as DTensors, each
-    rank cutting its own blocks (a snapshot, as above).  The steps run
+    the flash-decoding layout; integer leaves replicated; the hybrid's and
+    encdec's nested caches leaf by leaf) as DTensors, each rank cutting its
+    own blocks (a snapshot, as above).  The steps run
     under ``maybe_mesh(mesh)`` on the rank's shards (``parallel.spmd``) and
     return logits and next tokens as plain tensors, the same on every rank;
     ``prefill_chunk`` runs under the mesh too.  Example::
@@ -281,11 +279,6 @@ def make_serve_steps(model: Model, *, weight_cache: bool = True, mesh=None,
 
     from repro_torch.parallel import sharding as S
 
-    if model.cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"serving the {model.cfg.family!r} family on a mesh (expert parallelism, "
-            "its caches) comes with ROADMAP.md, Queue 1 item 8b; on a mesh: "
-            f"{MESH_FAMILIES}")
     if axes is None:
         raise ValueError(
             "make_serve_steps(mesh=...) needs axes= (the logical-axis tree "

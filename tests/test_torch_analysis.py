@@ -36,8 +36,7 @@ from repro_torch.analysis import findings as F
 from repro_torch.analysis import kernel_budget as KB
 from repro_torch.analysis import trace_lint as TL
 from repro_torch.analysis.sharding_lint import (DEFAULT_MESHES, SHARDING_FILE, MeshSpec,
-                                                abstract_params, lint_sharding,
-                                                mesh_family_findings)
+                                                abstract_params, lint_sharding)
 from repro_torch.kernels import mpo_linear as MK
 from repro_torch.parallel import sharding as S
 
@@ -117,12 +116,13 @@ def test_divisibility_fallback_is_a_warning():
     assert {f.check for f in bert} == {"sharding/divisibility"}
 
 
-def test_mesh_family_findings_are_info():
-    cfg = configs.get_config("phi3.5-moe-42b-a6.6b")
-    (f,) = mesh_family_findings(cfg, MeshSpec({"data": 1, "model": 4}))
-    assert (f.check, f.severity, f.mesh) == ("sharding/mesh-family", "info", "data=1,model=4")
-    assert mesh_family_findings(configs.get_config("bert-base"),
-                                MeshSpec({"data": 2, "model": 4})) == []
+def test_lint_cli_every_config_at_1x4_gives_no_error(capsys):
+    """``repro-torch-lint --meshes 1x4 --families sharding`` over every
+    config, the moe, vlm, hybrid and encdec families among them: no error
+    and no info (every family runs on a mesh; none is only linted)."""
+    assert LC.main(["--meshes", "1x4", "--families", "sharding"]) == 0
+    out = capsys.readouterr().out
+    assert "0 error(s)" in out and "0 info" in out and f"{len(ARCHS)} config(s)" in out
 
 
 def test_abstract_params_match_the_model_on_meta():

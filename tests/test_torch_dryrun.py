@@ -14,8 +14,9 @@ tensors, nothing allocated, no card.
   (1, 4); rank 0's peak and matmul FLOPs at (1, 4) are below (1, 1)'s.
   (The reference's own dry-run test fails on every run, ROADMAP.md Queue 3
   D, so the port is held to these instead of to its output.)
-- A production-mesh cell (16 x 16 ranks) runs; a family the port does not
-  run on a mesh is skipped with an info finding; the CLI writes records.
+- A production-mesh cell (16 x 16 ranks) runs; every family runs at
+  (1, 4), a MoE cell's collective bytes counting the all-reduce of each
+  layer's combine over ``model``; the CLI writes records.
 """
 
 import json
@@ -146,11 +147,44 @@ def test_production_mesh_and_serving_cells():
     assert pre["flops_per_device"] > 0 and pre["kind"] == "prefill"
 
 
-def test_family_off_the_mesh_is_skipped_as_info():
-    rec = D.run_cell("whisper-tiny", TRAIN, mesh_shape=(1, 4), smoke=True, verbose=False)
-    assert "skipped" in rec and "flops_per_device" not in rec
-    assert rec["sharding_lint"]["errors"] == 0
-    assert rec["sharding_lint"]["by_check"].get("sharding/mesh-family") == 1
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "llava-next-34b", "zamba2-7b",
+                                  "whisper-tiny"])
+def test_dryrun_runs_every_family(arch, monkeypatch):
+    """The LFA step of every family at (1, 4): counted, lint-clean.  The
+    moe cell's all-reduce bytes hold the combine's sum over ``model``, one
+    (B, S, D) float32 a MoE layer (``models.moe.apply_moe`` reduces it),
+    and its all-gather bytes the router table's gather, one a layer."""
+    import sys
+
+    from repro_torch.parallel import spmd
+    combines, tables = [], []
+    reduce, gather = spmd.reduce, spmd.gather
+
+    def spy(x, mesh, name="model"):
+        if sys._getframe(1).f_code.co_name == "apply_moe":
+            combines.append(x.numel() * x.element_size())
+        return reduce(x, mesh, name)
+
+    def spy_gather(x, dim, mesh, name="model"):
+        if sys._getframe(1).f_code.co_name == "_whole_table":
+            tables.append(x.numel() * x.element_size())
+        return gather(x, dim, mesh, name)
+
+    monkeypatch.setattr(spmd, "reduce", spy)
+    monkeypatch.setattr(spmd, "gather", spy_gather)
+    rec = D.run_cell(arch, TRAIN, mesh_shape=(1, 4), smoke=True, verbose=False)
+    assert "skipped" not in rec and rec["flops_per_device"] > 0
+    assert rec["sharding_lint"]["errors"] == 0 and rec["step_s"] > 0
+    cfg = configs.smoke_config(arch)
+    if cfg.family == "moe":
+        assert combines == [TRAIN.global_batch * TRAIN.seq_len * cfg.d_model * 4] * \
+            cfg.num_layers
+        assert rec["collective_bytes"]["all-reduce"] >= sum(combines)
+        # each rank's (D, E/4) block of the (D, E) table
+        assert tables == [cfg.d_model * cfg.num_experts // 4 * 4] * cfg.num_layers
+        assert rec["collective_bytes"]["all-gather"] >= 4 * sum(tables)
+    else:
+        assert combines == tables == []
 
 
 def test_dryrun_cli(tmp_path, capsys):

@@ -373,7 +373,9 @@ def test_mesh_pool_matches_serial(world, paged):
 def test_mesh_errors(world):
     """No axes: the reference's ValueError (make_serve_steps and a raw
     Session); ``make_host_mesh`` rejects a model axis that does not divide
-    the world."""
+    the world.  Every family builds its steps on a mesh (the moe family
+    here); what a family still lacks raises as off the mesh: a paged cache
+    for the hybrid family."""
     from repro_torch import Session, configs
     from repro_torch.models.model import build
     from repro_torch.train.steps import make_serve_steps
@@ -385,9 +387,13 @@ def test_mesh_errors(world):
         make_serve_steps(model, mesh=standin)
     with pytest.raises(ValueError, match="logical-axis tree"):
         Session(cfg, model).serve(2, 16, mesh=standin)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        make_serve_steps(build(configs.smoke_config("phi3.5-moe-42b-a6.6b"), device="cpu"),
-                         mesh=standin, axes={})
+    moe = build(configs.smoke_config("phi3.5-moe-42b-a6.6b"), device="cpu")
+    steps = make_serve_steps(moe, mesh=standin, axes=moe.axes)
+    assert steps.prefill is not None and steps.prefill_chunk is not None
+    hybrid = build(configs.smoke_config("zamba2-7b"), device="cpu")
+    steps = make_serve_steps(hybrid, mesh=standin, axes=hybrid.axes, paged=True)
+    with pytest.raises(ValueError, match="paged KV cache is not supported for family 'hybrid'"):
+        steps.init_serve(hybrid.tree(), 2, 16)
 
 
 @pytest.mark.parametrize("sp,opt_name", [(False, "adamw"), (True, "adamw"),

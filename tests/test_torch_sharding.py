@@ -155,6 +155,21 @@ _BATCH_LEAVES = [(8, 128), (1, 128), (4,), (16, 1024, 1152), ()]
 _SUB_MESHES = [(2, 4), (4, 2), (1, 8), (8, 1)]
 
 
+def _nested_caches() -> list:
+    """The nested serving caches at full width, as {key: (shape, integer)}
+    trees: zamba2-7b's ``{"kv": {k, v, pos}, "ssm"}`` at 8 x 528 and
+    whisper-tiny's ``{"self": {k, v, pos}, "enc_out"}`` at 8 x 448."""
+    def spec(t):
+        if isinstance(t, dict):
+            return {k: spec(v) for k, v in t.items()}
+        return [list(t.shape), not t.dtype.is_floating_point]
+    out = []
+    for arch, batch, max_len in (("zamba2-7b", 8, 528), ("whisper-tiny", 8, 448)):
+        cfg = TC.get_config(arch)
+        out.append(spec(family_module(cfg).init_cache(cfg, batch, max_len, device="meta")))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _reference_cache_and_batch_specs():
     code = textwrap.dedent(f"""
@@ -179,6 +194,15 @@ def _reference_cache_and_batch_specs():
             for i, sh in enumerate({_BATCH_LEAVES!r}):
                 b = S.batch_sharding(jax.ShapeDtypeStruct(sh, jnp.int32), mesh, rules)
                 specs[f"batch{{i}}"] = [list(p) if isinstance(p, tuple) else p for p in b.spec]
+            def sds(t):
+                if isinstance(t, dict):
+                    return {{k: sds(v) for k, v in t.items()}}
+                return jax.ShapeDtypeStruct(tuple(t[0]), jnp.int32 if t[1] else jnp.bfloat16)
+            for i, tree in enumerate({_nested_caches()!r}):
+                sharded = S.cache_sharding(sds(tree), mesh, rules)
+                specs[f"nested{{i}}"] = jax.tree.map(
+                    lambda n: [list(p) if isinstance(p, tuple) else p for p in n.spec],
+                    sharded, is_leaf=lambda n: hasattr(n, "spec"))
             out[str(shape)] = specs
         print("SPECS" + json.dumps(out))
     """)
@@ -214,6 +238,28 @@ def test_cache_and_batch_specs_equal_the_references(shape):
         assert TS.batch_spec(sh, mesh, rules) == _norm(ref[f"batch{i}"]), sh
         assert TS.batch_sharding(torch.zeros(sh), mesh, rules) == \
             TS.placements(_norm(ref[f"batch{i}"]), mesh)
+
+
+@pytest.mark.parametrize("shape", _SUB_MESHES)
+def test_nested_cache_placements_equal_the_references(shape):
+    """zamba2-7b's and whisper-tiny's nested caches: every leaf placed by
+    its own key as the reference's ``cache_sharding`` places it (K/V over
+    the batch and the sequence, positions replicated, the SSM state over
+    the batch and its heads, ``enc_out`` over the batch)."""
+    ref = _reference_cache_and_batch_specs()[str(shape)]
+    mesh = Standin({"data": shape[0], "model": shape[1]})
+    rules = TS.make_rules(mesh)
+
+    def tensors(t):
+        if isinstance(t, dict):
+            return {k: tensors(v) for k, v in t.items()}
+        return torch.empty(t[0], dtype=torch.int32 if t[1] else torch.bfloat16,
+                           device="meta")
+
+    for i, tree in enumerate(_nested_caches()):
+        placed = _flat(TS.cache_sharding(tensors(tree), mesh, rules))
+        want = {k: TS.placements(_norm(v), mesh) for k, v in _flat(ref[f"nested{i}"]).items()}
+        assert placed == want and len(placed) == 4, (placed, want)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
